@@ -6,21 +6,36 @@
 Phases (any failed check raises, and the script exits non-zero):
 
 1. card and build: the card's name and power limit, nvcc's version, and a
-   fresh nvcc build of every CUDA kernel of the serving path (sm_90a);
-2. kernel vs plain: each kernel's wrapper against its plain PyTorch version
-   on the card, at the shapes the serving path gives it and at longer
-   sequences, in fp32 and bf16; times for the kernel, the plain version and
-   one PyTorch library call, beside the least time the card could take;
-3. the slice: CLIP ViT-B/32 at full width from seeded weights, served over
-   HTTP on 127.0.0.1 by the port's ServingHost; image and text requests
-   (some concurrent, one normalized); shapes, finiteness, unit norm; every
-   attention of both towers counted through the kernel; one batch re-run
-   through the plain attention path and compared; serving latencies.
+   fresh nvcc build of every CUDA kernel (sm_90a), one nvcc per source, all
+   started together;
+2. K1 vs plain: the forward kernel's wrapper against its plain PyTorch
+   version on the card, at the shapes the serving path gives it and at
+   longer sequences, in fp32 and bf16; times for the kernel, the plain
+   version and one PyTorch library call, beside the least time the card
+   could take;
+2b. K2 vs plain: the backward kernel against ``attention_bwd_plain`` at the
+   training path's shapes (B=128) and at longer sequences, in fp32 and bf16,
+   dq, dk and dv each within tolerance; the same four times, and K1's times
+   as the training forward runs it (with its log-sum-exp output);
+3. the serving slice: CLIP ViT-B/32 at full width from seeded weights,
+   served over HTTP on 127.0.0.1 by the port's ServingHost; image and text
+   requests (some concurrent, one normalized); shapes, finiteness, unit
+   norm; every attention of both towers counted through the kernel; one
+   batch re-run through the plain attention path and compared; serving
+   latencies;
+4. the training slice: CLIP ViT-B/32 at full width in bf16 from seeded
+   weights, trained by the port's ``make_train_step`` with the YFCC15M
+   recipe (inlined below) at batch 128 on one repeated seeded batch; finite
+   and falling losses, no skipped update, the logit scale in [3, 6], 24 K1
+   and 24 K2 calls per step and no plain-path attention; step time, device
+   busy time and the largest kernels; the cost of the step's one host read
+   (the step against the same device work without it); then one fp32 step
+   through the kernels against the plain attention path under torch
+   autograd.
 
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
-JSON object. Full results
-also go to chiprun_out/chip_smoke.json.
+JSON object. Full results also go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -47,6 +62,18 @@ TOLERANCE = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 # fp32, 12 layers of summation-order differences (kernel vs plain, and
 # GEMM algorithms that differ with the bucket's batch size)
 TOWER_TOLERANCE = (1e-4, 1e-4)  # (rtol, atol)
+# K2 vs attention_bwd_plain: fp32, summation order over three chained
+# contractions and the row term taken from O instead of P (equal in exact
+# arithmetic); bf16, a bf16 rounding of P, dS and O on either side
+BWD_TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# one fp32 training step through the kernels vs the plain attention path
+# under torch autograd (24 layers, then InfoNCE over 128 pairs): the loss;
+# each gradient element; and each parameter's gradient as a whole,
+# ||g_kernels - g_plain|| <= STEP_GRAD_REL_NORM * ||g_plain||, which a
+# gradient of zeros or a miswired backward fails however small its elements
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_TOLERANCE = (1e-3, 1e-5)  # (rtol, atol)
+STEP_GRAD_REL_NORM = 1e-4
 
 # (B, H, L, Dh, causal): the serving path's two shapes first
 ATTN_CASES = [
@@ -57,6 +84,20 @@ ATTN_CASES = [
     (8, 8, 77, 32, True),     # head dim 32 (the tiny unit widths)
 ]
 MAIN_PATH_CASES = ATTN_CASES[:2]
+# (B, H, L, Dh, causal): the training path's two shapes first, at the
+# YFCC15M recipe's batch of 128 per card (bench.py:726)
+TRAIN_BATCH = 128
+BWD_CASES = [
+    (TRAIN_BATCH, 12, 50, 64, False),  # ViT-B/32 image tower, 224 px
+    (TRAIN_BATCH, 8, 77, 64, True),    # text tower
+    (4, 16, 257, 64, False),           # ViT-L/14, 224 px
+    (2, 16, 577, 64, False),           # ViT-L/14, 336 px
+    (8, 8, 77, 32, True),              # head dim 32
+]
+TRAIN_CASES = BWD_CASES[:2]
+TRAIN_WARMUP_STEPS = 3
+TRAIN_STEPS = 20
+SEED = 0
 
 EOT, SOT, VOCAB = 49408, 49406, 49409
 CONFIG = """
@@ -66,6 +107,36 @@ model:
         image_encode: {embed_dim: 512}
         text_encode: {embed_dim: 512, vocab_size: 49409}
         clip: {use_allgather: True}
+"""
+# experiments/clip_experiments/yfcc15m/yfcc15m_vit_clip/config.yaml, with the
+# vocab the BPE asset gives (the repository carries no asset, so the seeded
+# run names its size) and precision.dtype put into the model kwargs, as the
+# JAX solver does (solver/__init__.py:232-233)
+TRAIN_CONFIG = """
+model:
+    type: clip_vitb32
+    kwargs:
+        image_encode: {embed_dim: 512}
+        text_encode: {embed_dim: 512, vocab_size: 49409}
+        clip: {use_allgather: True}
+precision: {dtype: bfloat16}
+grad_clip: {type: logit_scale_param_value, value: 3, max_value: 6}
+optimizer:
+    type: AdamW
+    kwargs: {lr: 0.0001, weight_decay: 0.1, betas: [0.9, 0.98],
+             eps: 0.00000001}
+    pconfig:
+        bn_w: {weight_decay: 0}
+        bn_b: {weight_decay: 0}
+        ln_w: {weight_decay: 0}
+        ln_b: {weight_decay: 0}
+        linear_b: {weight_decay: 0}
+        conv_b: {weight_decay: 0}
+        logit_scale: {weight_decay: 0}
+lr_scheduler:
+    type: Cosine
+    kwargs: {base_lr: 0.0001, warmup_lr: 0.001, min_lr: 0.0,
+             warmup_steps: 2500, max_iter: 128001}
 """
 
 
@@ -90,12 +161,9 @@ def cuda_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
-    """Device time per call: the kernels the profiler saw, summed, over
-    ``iters`` calls -> (ms per call, {kernel name: ms per call}). At these
-    sizes a call's host overhead can exceed its kernels' time, so CUDA
-    events around back-to-back calls measure the host; this does not.
-    (None, {}) where the profiler saw no device events."""
+def device_events(fn, iters):
+    """The device events (kernels, copies) the profiler saw over ``iters``
+    calls of ``fn``, after one warm-up call, in time order."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -107,11 +175,21 @@ def device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def device_ms(fn, iters=20):
+    """Device time per call: the kernels the profiler saw, summed, over
+    ``iters`` calls -> (ms per call, {kernel name: ms per call}). At these
+    sizes a call's host overhead can exceed its kernels' time, so CUDA
+    events around back-to-back calls measure the host; this does not.
+    (None, {}) where the profiler saw no device events."""
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / iters)
+    for e in device_events(fn, iters):
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3 / iters)
     if not by_name:
         return None, {}
     return sum(by_name.values()), by_name
@@ -130,6 +208,29 @@ def attention_bound(b, h, l, dh, causal, dtype_name):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def attention_bwd_bound(b, h, l, dh, causal, dtype_name):
+    """Least time (ms) for one K2 call: q, k, v, o and do read once, dq, dk
+    and dv written once, plus the fp32 row log-sum-exp (read) and row term
+    (written), against the four contractions (dV = P^T dO, dP = dO V^T,
+    dQ = dS K, dK = dS^T Q) over the dtype's peak. The recompute of Q K^T
+    is the kernel's own cost, not the bound's. Causal counts only the
+    unmasked pairs."""
+    elem = 4 if dtype_name == "float32" else 2
+    nbytes = 8 * b * h * l * dh * elem + 2 * b * h * l * 4
+    pairs = l * (l + 1) // 2 if causal else l * l
+    flops = 4 * 2 * b * h * pairs * dh
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _within(got, want, rtol, atol):
+    """(all close, max abs err) of two tensors, compared in fp32."""
+    err = (got.float() - want.float()).abs()
+    ok = not (err > atol + rtol * want.float().abs()).any().item()
+    return ok, err.max().item()
+
+
 def phase_card_and_build():
     from declip_tpu_torch.ops import _build
 
@@ -141,7 +242,7 @@ def phase_card_and_build():
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True).stdout
     print("nvcc:", [ln for ln in nvcc.splitlines() if "release" in ln][0])
-    names = ["flash_attn_fwd"]
+    names = ["flash_attn_fwd", "flash_attn_bwd"]
     for name in names:  # build from the sources, not from a stale library
         if os.path.exists(_build.library_path(name)):
             os.remove(_build.library_path(name))
@@ -208,6 +309,108 @@ def phase_kernel_vs_plain():
                   f"sdpa {lib_ms:.4f}  "
                   f"bound {bound_ms:.5f} ({bound_by})  "
                   f"{bound_ms / ms:.1%} of bound", flush=True)
+    return rows
+
+
+def phase_backward():
+    """K2 against attention_bwd_plain, and K1 as the training forward runs
+    it (with its log-sum-exp), at BWD_CASES in fp32 and bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from declip_tpu_torch.ops.flash_attention import (
+        _forward_kernel,
+        attention_bwd_plain,
+        attention_plain,
+        flash_attention_bwd,
+    )
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        rtol, atol = BWD_TOLERANCE[dname]
+        for i, (b, h, l, dh, causal) in enumerate(BWD_CASES):
+            g = torch.Generator(device="cuda").manual_seed(200 + i)
+            q, k, v, do = (torch.randn(b, h, l, dh, generator=g,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            scale = dh ** -0.5
+            o, lse = _forward_kernel(q, k, v, causal, scale, with_lse=True)
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                      scale=scale)
+            want = attention_bwd_plain(q, k, v, do, causal, scale)
+            # K1's output as the training forward launches it (with lse)
+            check(o.shape == q.shape and o.dtype == dtype
+                  and torch.isfinite(o).all().item(),
+                  f"K1+lse output {o.shape} {o.dtype}, or not finite")
+            fwd_ok, fwd_err = _within(o, attention_plain(q, k, v, causal,
+                                                         scale),
+                                      *TOLERANCE[dname])
+            check(fwd_ok, f"K1+lse vs plain at {(b, h, l, dh, causal, dname)}"
+                          f": max abs err {fwd_err:.3g} beyond (rtol, atol) "
+                          f"{TOLERANCE[dname]}")
+            s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+            if causal:
+                s = s.masked_fill(~torch.ones(l, l, dtype=torch.bool,
+                                              device="cuda").tril(),
+                                  float("-inf"))
+            lse_ok, lse_err = _within(lse, torch.logsumexp(s, -1), 1e-5,
+                                      1e-5)
+            torch.cuda.synchronize()
+            check(lse_ok, f"K1 lse at {(b, h, l, dh, causal, dname)}: max "
+                          f"abs err {lse_err:.3g}")
+            errs = {}
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                check(a.shape == q.shape and a.dtype == dtype,
+                      f"K2 {name} {a.shape} {a.dtype}")
+                check(torch.isfinite(a).all().item(), f"K2 {name} not finite")
+                ok, errs[name] = _within(a, w, rtol, atol)
+                check(ok, f"K2 vs plain at {(b, h, l, dh, causal, dname)}: "
+                          f"{name} max abs err {errs[name]:.3g} beyond atol "
+                          f"{atol} rtol {rtol}")
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(
+                *leaves, is_causal=causal, scale=scale)
+            fns = {
+                "ms": lambda: flash_attention_bwd(
+                    q, k, v, o, lse, do, causal=causal, scale=scale),
+                "plain_ms": lambda: attention_bwd_plain(q, k, v, do, causal,
+                                                        scale),
+                # the library's backward kernels alone, a yardstick
+                "library_ms": lambda: torch.autograd.grad(
+                    lib_out, leaves, do, retain_graph=True),
+                "fwd_ms": lambda: _forward_kernel(q, k, v, causal, scale,
+                                                  with_lse=True),
+                "fwd_plain_ms": lambda: attention_plain(q, k, v, causal,
+                                                        scale),
+                "fwd_library_ms": lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, scale=scale)}
+            times = {key: device_ms(fn)[0] or cuda_ms(fn)
+                     for key, fn in fns.items()}
+            bound_ms, bound_by = attention_bwd_bound(b, h, l, dh, causal,
+                                                     dname)
+            fwd_bound_ms, fwd_bound_by = attention_bound(b, h, l, dh, causal,
+                                                         dname)
+            row = {"shape": [b, h, l, dh], "causal": causal, "dtype": dname,
+                   "max_abs_err": max(errs.values()), "errs": errs,
+                   "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+                   "atol": atol, "rtol": rtol,
+                   **times, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "fwd_bound_ms": fwd_bound_ms,
+                   "fwd_bound_by": fwd_bound_by}
+            rows.append(row)
+            print(f"attn bwd B={b} H={h} L={l} Dh={dh} causal={int(causal)} "
+                  f"{dname:8s} err dq {errs['dq']:.2e} dk {errs['dk']:.2e} "
+                  f"dv {errs['dv']:.2e}  K2 {times['ms']:.4f} ms  plain "
+                  f"{times['plain_ms']:.4f}  sdpa bwd "
+                  f"{times['library_ms']:.4f}  bound {bound_ms:.5f} "
+                  f"({bound_by})  {bound_ms / times['ms']:.1%} of bound | "
+                  f"K1+lse err o {fwd_err:.2e} lse {lse_err:.2e}  "
+                  f"{times['fwd_ms']:.4f} ms  plain "
+                  f"{times['fwd_plain_ms']:.4f}  sdpa "
+                  f"{times['fwd_library_ms']:.4f}  bound {fwd_bound_ms:.5f}",
+                  flush=True)
+            del lib_out, leaves
     return rows
 
 
@@ -444,32 +647,394 @@ def phase_slice():
             "load_s": load_s}
 
 
-def kernels_line(rows, slice_result):
-    """One entry per kernel. Numbers are for the serving path: the sum over
-    its two attention shapes (image tower L=50, text tower L=77 causal) at
-    B=8 in fp32, the precision it serves in. Times are device time per
-    call."""
-    main = [r for r in rows if r["dtype"] == "float32" and
-            (*r["shape"], r["causal"]) in MAIN_PATH_CASES]
-    check(len(main) == 2, "main-path shapes missing")
-    t_bytes = t_ops = 0.0
-    for b, h, l, dh, causal in MAIN_PATH_CASES:
-        elem = 4
-        t_bytes += 4 * b * h * l * dh * elem / HBM_BYTES_PER_S * 1e3
-        pairs = l * (l + 1) // 2 if causal else l * l
-        t_ops += 4 * b * h * pairs * dh / PEAK_FLOPS["float32"] * 1e3
+def kernel_kind(name):
+    """A device event's kind, by its name."""
+    n = name.lower()
+    if "flash_attn_fwd" in n:
+        return "K1"
+    if "flash_attn_bwd" in n:
+        return "K2"
+    if "memcpy" in n or "memset" in n:
+        return "memcpy/memset"
+    if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+        return "GEMM"
+    if "multi_tensor_apply" in n or "foreach" in n:
+        return "optimizer (multi-tensor)"
+    if "layer_norm" in n:
+        return "LayerNorm"
+    if "copy" in n:
+        return "copies and casts"
+    if "reduce" in n:
+        return "reductions"
+    return "other elementwise"
+
+
+def profile_steps(fn, iters, step_ms):
+    """The profiler's device time over ``iters`` calls of one training step:
+    busy ms per step, idle share against ``step_ms`` (CUDA events, no
+    profiler), K1/K2 and per-kind sums, the largest kernels, and the mean
+    device gap between the step's device-to-host read and the next device
+    event (the idle time the host check exposes)."""
+    dev = device_events(fn, iters)
+    check(dev, "the profiler saw no device time")
+    by_name, by_kind = {}, {}
+    for e in dev:
+        ms = e.time_range.elapsed_us() / 1e3 / iters
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        kind = kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    gaps = [(nxt.time_range.start - e.time_range.end) / 1e3
+            for e, nxt in zip(dev, dev[1:]) if "dtoh" in e.name.lower()]
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"busy_ms": busy, "idle_share": 1 - busy / step_ms,
+            "k1_ms": by_kind.get("K1", 0.0),
+            "k1_share": by_kind.get("K1", 0.0) / busy,
+            "k2_ms": by_kind.get("K2", 0.0),
+            "k2_share": by_kind.get("K2", 0.0) / busy,
+            "by_kind_ms": {k: round(v, 3) for k, v in sorted(
+                by_kind.items(), key=lambda kv: -kv[1])},
+            "host_reads": len(gaps) / iters,
+            "host_read_gap_ms": sum(gaps) / max(len(gaps), 1),
+            "kernels": len(by_name),
+            "top_kernels_ms": [[n[:90], v] for n, v in top]}
+
+
+def step_without_read(loss_fn, tx, grad_clip):
+    """The train step's device work with its one host read taken out, and
+    with it the non-finite check: for timing what that read costs, never
+    for training. Its update needs no norm on the host, so ``grad_clip``
+    must not be the norm clip."""
+    import torch
+
+    from declip_tpu_torch.optim import global_norm
+    from declip_tpu_torch.train.train_step import logit_scale_guard
+
+    check(grad_clip.get("type") != "norm", "the norm clip reads the host")
+
+    def step(state, batch):
+        params = state.params
+        total, _ = loss_fn(state.model, state, batch)
+        grads = torch.autograd.grad(total, list(params.values()),
+                                    allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(params.items(), grads)}
+        global_norm(list(grads.values()))  # the metric, left on the card
+        s_old = params["logit_scale"].detach().clone()
+        tx.update_(grads, state.opt_state, params)
+        state.logit_ema_buffer, state.logit_clip_count = logit_scale_guard(
+            s_old, params["logit_scale"], grad_clip, state)
+        state.step += 1
+
+    return step
+
+
+def host_read_cost(step, no_read, rounds, n):
+    """CUDA-event ms per step of the train step and of ``no_read`` (the
+    same step without its host read), alternated ``rounds`` times over
+    ``n`` steps each, the one first in even rounds and the other in odd
+    ones (ABBA), so that a drift of the host's speed falls alike on both."""
+    import torch
+
+    times = {"with_read": [], "without_read": []}
+    pair = (("with_read", step), ("without_read", no_read))
+    for r in range(rounds):
+        for key, fn in (pair if r % 2 == 0 else pair[::-1]):
+            fn()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            end.synchronize()
+            times[key].append(start.elapsed_time(end) / n)
+    return times
+
+
+class _CallCounter:
+    """Counts the calls of the plain attention functions where the port's
+    attention modules look them up, for the length of a ``with`` block."""
+
+    def __init__(self):
+        from declip_tpu_torch.ops import attention, flash_attention
+
+        self.sites = [(attention, "attention_plain"),
+                      (flash_attention, "attention_plain"),
+                      (flash_attention, "attention_bwd_plain")]
+        self.calls = 0
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name in self.sites]
+        for (mod, name), fn in zip(self.sites, self.saved):
+            setattr(mod, name, self._counting(fn))
+        return self
+
+    def _counting(self, fn):
+        def wrapper(*args, **kwargs):
+            self.calls += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.sites, self.saved):
+            setattr(mod, name, fn)
+
+
+def phase_train():
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models import model_entry
+    from declip_tpu_torch.models.layers import MultiHeadAttention
+    from declip_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from declip_tpu_torch.optim import (
+        optim_entry,
+        path_prefix_mask,
+        scheduler_entry,
+    )
+    from declip_tpu_torch.train import (
+        make_loss_fn,
+        make_train_step,
+        new_train_state,
+    )
+
+    cfg = parse_config(TRAIN_CONFIG)
+
+    def build(dtype):
+        kwargs = dict(cfg.model.kwargs)
+        kwargs["dtype"] = dtype
+        model = model_entry({"type": cfg.model.type, "kwargs": kwargs})
+        model.init_weights(torch.Generator().manual_seed(SEED))
+        return model.cuda()
+
+    t0 = time.perf_counter()
+    model = build(cfg.precision.dtype)
+    vis, txt = model.visual, model.encode_text
+    check((vis.width, len(vis.transformer.resblocks), vis.input_resolution,
+           txt.ln_final.normalized_shape[0], len(txt.transformer.resblocks),
+           txt.vocab_size, vis.dtype, txt.dtype)
+          == (768, 12, 224, 512, 12, VOCAB, torch.bfloat16, torch.bfloat16),
+          "model is not CLIP ViT-B/32 at full width in bf16")
+    named = dict(model.named_parameters())
+    check(all(p.dtype == torch.float32 for p in named.values()),
+          "parameters are not fp32")
+    sched = scheduler_entry(cfg.lr_scheduler,
+                            max_iter=int(cfg.lr_scheduler.kwargs.max_iter))
+    tx = optim_entry(cfg.optimizer, model, sched,
+                     pconfig=cfg.optimizer.pconfig,
+                     grad_clip=dict(cfg.grad_clip),
+                     frozen_mask=path_prefix_mask(
+                         named, model.visual.frozen_param_paths()))
+    state = new_train_state(model=model, opt_state=tx.init(named))
+    step = make_train_step(model, tx, cfg, sched)
+    no_read = step_without_read(make_loss_fn(cfg), tx, dict(cfg.grad_clip))
+    rng = np.random.default_rng(SEED)
+    batch = {
+        "images": torch.from_numpy(rng.normal(
+            size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda(),
+        "tokens": torch.from_numpy(_tokens(rng, TRAIN_BATCH)).cuda()}
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in named.values())
+    print(f"train: clip_vitb32 bf16, {n_params / 1e6:.1f} M fp32 params, "
+          f"batch {TRAIN_BATCH}, set up in {setup_s:.1f} s", flush=True)
+
+    history = []
+
+    def run(n):
+        """n steps; metrics stay on the card until the loop ends, as a
+        training loop reads them only every print_freq steps."""
+        steps = []
+        for _ in range(n):
+            _, metrics = step(state, batch)
+            steps.append((metrics, model.logit_scale.detach().clone()))
+        for metrics, scale in steps:
+            m = {k: float(v) for k, v in metrics.items()}
+            m["logit_scale_param"] = float(scale)
+            history.append(m)
+            check(m["update_skipped"] == 0.0, f"a step was skipped: {m}")
+            check(3.0 <= m["logit_scale_param"] <= 6.0,
+                  f"logit_scale param outside [3, 6]: {m}")
+
+    run(TRAIN_WARMUP_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_bwd.launches = 0  # main path
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with _CallCounter() as plain:
+        t0 = time.perf_counter()
+        start.record()
+        run(TRAIN_STEPS)
+        end.record()
+        end.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = (flash_attention.launches, flash_attention_bwd.launches)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    losses = [m["loss"] for m in history]
+    check(np.isfinite(losses).all(), f"losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(launches == (24 * TRAIN_STEPS, 24 * TRAIN_STEPS),
+          f"{launches} K1/K2 calls in {TRAIN_STEPS} steps (want 24 each "
+          f"per step)")
+    check(plain.calls == 0, f"{plain.calls} plain-path attention calls")
+    print(f"train: losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"train: {TRAIN_STEPS} steps, {step_ms:.2f} ms/step (CUDA events; "
+          f"host {wall_s * 1e3 / TRAIN_STEPS:.2f}), "
+          f"{TRAIN_BATCH * 1e3 / step_ms:.1f} pairs/s, K1/K2 calls "
+          f"{launches}, peak device memory {peak_mib:.0f} MiB", flush=True)
+
+    breakdown = profile_steps(lambda: step(state, batch), 3, step_ms)
+    print(f"train: device busy {breakdown['busy_ms']:.2f} ms/step, idle "
+          f"share {breakdown['idle_share']:.1%}, K1 "
+          f"{breakdown['k1_ms']:.2f} ms ({breakdown['k1_share']:.1%}), K2 "
+          f"{breakdown['k2_ms']:.2f} ms ({breakdown['k2_share']:.1%}); "
+          f"device gap after the step's host read "
+          f"{breakdown['host_read_gap_ms']:.3f} ms", flush=True)
+    print(f"  by kind: {breakdown['by_kind_ms']}")
+    for n, v in breakdown["top_kernels_ms"]:
+        print(f"  {v:8.3f} ms  {n[:110]}")
+
+    # what the step's one host read (the non-finite check) costs: the step
+    # against the same device work without the read, alternated
+    rounds, n = 10, 10
+    read_cost = host_read_cost(
+        lambda: step(state, batch),
+        lambda: no_read(state, batch), rounds=rounds, n=n)
+    diffs = np.subtract(read_cost["with_read"], read_cost["without_read"])
+    read_cost["diff_ms"] = diffs.tolist()
+    read_cost["cost_ms"] = float(np.median(diffs))
+    print(f"train: host read's cost {read_cost['cost_ms']:.2f} ms/step "
+          f"(median difference of {rounds} ABBA rounds of {n} steps; per "
+          f"round {diffs.round(2).tolist()}; ms/step with the read "
+          f"{[round(t, 2) for t in read_cost['with_read']]}, without "
+          f"{[round(t, 2) for t in read_cost['without_read']]})", flush=True)
+    del state, step, no_read, tx, model, named
+    torch.cuda.empty_cache()
+
+    # one fp32 step from the same seeded weights: kernels vs plain attention
+    model = build("float32")
+    params = list(model.parameters())
+    loss_fn = make_loss_fn(cfg)
+    grads, totals = {}, {}
+    for impl in ("auto", "xla"):
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.attn_impl = impl
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        total, _ = loss_fn(model, None, batch)
+        grads[impl] = torch.autograd.grad(total, params)
+        totals[impl] = float(total.detach())
+        used = (flash_attention.launches - before[0],
+                flash_attention_bwd.launches - before[1])
+        check(used == ((24, 24) if impl == "auto" else (0, 0)),
+              f"fp32 step with attn_impl {impl}: K1/K2 calls {used}")
+    loss_err = abs(totals["auto"] - totals["xla"]) / abs(totals["xla"])
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"fp32 loss kernels {totals['auto']} vs plain {totals['xla']}")
+    rtol, atol = STEP_GRAD_TOLERANCE
+    grad_err, rel_norm_err, scales = 0.0, 0.0, []
+    for (name, _), a, b in zip(model.named_parameters(), grads["auto"],
+                               grads["xla"]):
+        ok, err = _within(a, b, rtol, atol)
+        grad_err = max(grad_err, err)
+        check(ok, f"fp32 grad {name}: kernels vs plain max abs err "
+                  f"{err:.3g} beyond rtol {rtol} atol {atol}")
+        norm = torch.linalg.vector_norm(b).item()
+        rel = torch.linalg.vector_norm(a - b).item() / max(norm, 1e-30)
+        rel_norm_err = max(rel_norm_err, rel)
+        check(norm > 0 and rel <= STEP_GRAD_REL_NORM,
+              f"fp32 grad {name}: ||kernels - plain|| / ||plain|| = "
+              f"{rel:.3g} (||plain|| {norm:.3g}), limit {STEP_GRAD_REL_NORM}")
+        scales.append((b.abs().max().item(),
+                       torch.sqrt(b.pow(2).mean()).item()))
+    median_max, median_rms = (float(np.median([s[i] for s in scales]))
+                              for i in range(2))
+    print(f"train fp32 step, kernels vs plain attention: loss "
+          f"{totals['auto']:.6f} vs {totals['xla']:.6f} (rel err "
+          f"{loss_err:.2e}); over {len(scales)} parameters: max grad abs "
+          f"err {grad_err:.3g}, max relative norm err {rel_norm_err:.3g} "
+          f"(limit {STEP_GRAD_REL_NORM}); median parameter's grad max abs "
+          f"{median_max:.3g}, rms {median_rms:.3g}", flush=True)
+    del model, grads
+    torch.cuda.empty_cache()
+    return {"launches": launches[0], "bwd_launches": launches[1],
+            "steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP_STEPS,
+            "losses": losses, "history": history, "step_ms": step_ms,
+            "host_step_ms": wall_s * 1e3 / TRAIN_STEPS,
+            "pairs_per_s": TRAIN_BATCH * 1e3 / step_ms,
+            "peak_device_mib": peak_mib, "setup_s": setup_s, **breakdown,
+            "host_read_cost": read_cost,
+            "fp32_loss": totals, "fp32_loss_rel_err": loss_err,
+            "fp32_max_grad_abs_err": grad_err,
+            "fp32_max_grad_rel_norm_err": rel_norm_err,
+            "fp32_median_grad_max_abs": median_max,
+            "fp32_median_grad_rms": median_rms}
+
+
+def _path_sums(rows, cases, dtype_name, prefix=""):
+    """Each time summed over the path's shapes in one dtype; the path is
+    bound by what bounds its largest bound."""
+    main = [r for r in rows if r["dtype"] == dtype_name and
+            (*r["shape"], r["causal"]) in cases]
+    check(len(main) == len(cases), "main-path shapes missing")
+    out = {key: sum(r[prefix + key] for r in main)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["bound_by"] = max(main, key=lambda r: r[prefix + "bound_ms"])[
+        prefix + "bound_by"]
+    out["max_abs_err"] = max(r[prefix + "max_abs_err"] for r in main)
+    return out
+
+
+def kernels_line(rows, bwd_rows, slice_result, train_result):
+    """One entry per kernel. K1 is on both paths: its launches are the
+    serving run's plus the training run's, each counted from 0 around its
+    path; its times are the serving path's (the sum over its two shapes,
+    image L=50 and text L=77 causal, at B=8 in fp32, device time per call),
+    with the training path's beside them under "train" (B=128, bf16, with
+    the log-sum-exp; its error is that of its output O). K2 runs on the
+    training path only: its times are the sum over the same two shapes at
+    B=128 in bf16."""
+    serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
+    k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
+    k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
     return {"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "declip_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "declip_tpu/ops/flash_attention.py:41",
-        "launches": slice_result["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in main),
-        "ms": sum(r["ms"] for r in main),
-        "plain_ms": sum(r["plain_ms"] for r in main),
-        "bound_ms": sum(r["bound_ms"] for r in main),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": sum(r["library_ms"] for r in main),
+        "launches": slice_result["launches"] + train_result["launches"],
+        "launches_by_path": {"serve": slice_result["launches"],
+                             "train": train_result["launches"]},
+        "max_abs_err": serve["max_abs_err"],
+        "ms": serve["ms"],
+        "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"],
+        "bound_by": serve["bound_by"],
+        "library_ms": serve["library_ms"],
+        "times_for": "serving path: B=8, L=50 + L=77 causal, fp32",
+        "train": {**k1_train,
+                  "times_for": "training path: B=128, L=50 + L=77 causal, "
+                               "bf16, with lse"},
+    }, {
+        "name": "flash_attn_bwd",
+        "route": "cuda",
+        "source": "declip_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "declip_tpu/ops/flash_attention.py:72",
+        "launches": train_result["bwd_launches"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
+        "times_for": "training path: B=128, L=50 + L=77 causal, bf16",
     }]}
 
 
@@ -490,12 +1055,15 @@ def main():
     t0 = time.perf_counter()
     card = phase_card_and_build()
     rows = phase_kernel_vs_plain()
+    bwd_rows = phase_backward()
     slice_result = phase_slice()
-    line = kernels_line(rows, slice_result)
+    train_result = phase_train()
+    line = kernels_line(rows, bwd_rows, slice_result, train_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "attention": rows, "slice": slice_result,
-                   "kernels": line["kernels"],
+        json.dump({"card": card, "attention": rows,
+                   "attention_bwd": bwd_rows, "slice": slice_result,
+                   "train": train_result, "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")
     print(card)  # name and power limit, as nvidia-smi gives them

@@ -9,6 +9,11 @@
 // exp(s - running max), divided by the row sum once at the end, so a bf16
 // output may differ from the TPU kernel's by about one bf16 rounding.
 //
+// For training, the kernel also writes each row's log-sum-exp of the scaled
+// scores, lse = max + log(sum exp(s - max)), in fp32 ([B*H, L]); the backward
+// kernel (flash_attn_bwd.cu) recomputes P = exp(s - lse) from it instead of
+// redoing the row softmax. The serving path passes a null lse.
+//
 // What bounds it on an H100. Per (batch*head) it reads Q, K, V and writes O
 // once, 4*L*Dh elements, for 4*L*L*Dh FLOPs (about half when causal): L/4
 // FLOP per byte in fp32 and L/2 in bf16. At the serving shapes (L=50, and
@@ -68,8 +73,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int L,
-                      int causal, float scale) {
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int L, int causal,
+                      float scale) {
   constexpr int kVec = DH / 4;               // float4 chunks in one row
   constexpr int kChunks = kVec / kSplit;     // float4 chunks per thread
   __shared__ float4 ks[kTileK][kVec];
@@ -180,35 +186,41 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dst[2] = from_f<T>(acc[c].z * inv);
       dst[3] = from_f<T>(acc[c].w * inv);
     }
+    if (lse != nullptr && part == 0) {
+      lse[static_cast<size_t>(bh) * L + row] = m + logf(l);
+    }
   }
 }
 
 template <typename T, int DH>
-void launch(const void* q, const void* k, const void* v, void* o, int bh,
-            int L, int causal, float scale, cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, void* o, float* lse,
+            int bh, int L, int causal, float scale, cudaStream_t stream) {
   const dim3 grid(bh, (L + kTileQ - 1) / kTileQ);
   flash_attn_fwd_kernel<T, DH><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), L, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, L, causal, scale);
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous [bh, L, dh]. dtype 0 = float32, 1 = bfloat16.
+// lse: null, or fp32 [bh, L] for each row's log-sum-exp (training).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int bh, int L, int dh, int dtype,
-                              int causal, float scale, void* stream) {
+                              void* o, void* lse, int bh, int L, int dh,
+                              int dtype, int causal, float scale,
+                              void* stream) {
+  float* lse_f = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && dh == 64) {
-    launch<float, 64>(q, k, v, o, bh, L, causal, scale, s);
+    launch<float, 64>(q, k, v, o, lse_f, bh, L, causal, scale, s);
   } else if (dtype == 0 && dh == 32) {
-    launch<float, 32>(q, k, v, o, bh, L, causal, scale, s);
+    launch<float, 32>(q, k, v, o, lse_f, bh, L, causal, scale, s);
   } else if (dtype == 1 && dh == 64) {
-    launch<__nv_bfloat16, 64>(q, k, v, o, bh, L, causal, scale, s);
+    launch<__nv_bfloat16, 64>(q, k, v, o, lse_f, bh, L, causal, scale, s);
   } else if (dtype == 1 && dh == 32) {
-    launch<__nv_bfloat16, 32>(q, k, v, o, bh, L, causal, scale, s);
+    launch<__nv_bfloat16, 32>(q, k, v, o, lse_f, bh, L, causal, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,7 +3,9 @@
 Submodules carry the reference's names: ``visual`` and ``encode_text`` (the
 text tower is itself the ``encode_text`` callable, as in the reference's
 torch model), plus the ``logit_scale`` parameter. The forward returns local
-normalized features and the clamped logit scale, like the JAX model.
+normalized features and the clamped logit scale, like the JAX model. The
+features come out in the towers' compute dtype and are normalized in it, as
+in JAX; the logit scale is fp32.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from declip_tpu_torch.models.layers import as_dtype
 from declip_tpu_torch.models.text import text_transformers
 from declip_tpu_torch.models.vit import (
     visual_transformer_B16,
@@ -82,16 +85,16 @@ class CLIP(nn.Module):
 
 def build_towers(kwargs: dict, image_factory, device=None):
     """Shared factory plumbing (clip.py:149-165): ``image_encode``,
-    ``text_encode`` and the method kwargs under ``clip``."""
+    ``text_encode`` and the method kwargs under ``clip``. The model-level
+    ``dtype`` (the solver puts ``precision.dtype`` there) is each tower's
+    compute dtype unless the tower sets its own."""
     from declip_tpu_torch.tokenizer import get_tokenizer
 
-    dtype = kwargs.get("dtype", "float32")
-    if str(dtype).replace("torch.", "") != "float32":
-        raise NotImplementedError(
-            f"model dtype {dtype!r}: the port computes in float32 (reduced "
-            f"precision comes with the training slice)")
+    dtype = as_dtype(kwargs.get("dtype"))
     image_kwargs = dict(kwargs.get("image_encode") or {})
     text_kwargs = dict(kwargs.get("text_encode") or {})
+    image_kwargs.setdefault("dtype", dtype)
+    text_kwargs.setdefault("dtype", dtype)
     encode_type = text_kwargs.get("text_encode_type") or "Transformer"
     if "vocab_size" not in text_kwargs and encode_type == "Transformer":
         bpe_path = text_kwargs.get("bpe_path")

@@ -6,6 +6,12 @@ with a fused qkv projection, LayerNorm with fp32 statistics, QuickGELU MLP.
 The depth stack is an ``nn.ModuleList`` named ``resblocks``, so parameter
 names are the reference's torch state-dict names.
 
+Precision follows the JAX package's flax ``dtype`` (not autocast): parameters
+stay fp32, every dense layer casts its input, weight and bias to the
+compute ``dtype`` at use, and LayerNorm takes fp32 statistics and returns the
+compute dtype, so the residual stream itself is in the compute dtype
+(layers.py:34-45, vit.py:75).
+
 Parameters are created uninitialised on ``device``; ``init_weights``
 fills them from an explicit ``torch.Generator`` with the JAX package's
 init scheme (layers.py:258-260).
@@ -13,8 +19,11 @@ init scheme (layers.py:258-260).
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from declip_tpu_torch.ops.attention import (
@@ -22,6 +31,26 @@ from declip_tpu_torch.ops.attention import (
     merge_heads,
     split_heads,
 )
+
+# the JAX package's remat policies (layers.py:300-308): how XLA trades saved
+# activations against recompute when ``checkpoint`` is off. PyTorch saves
+# what autograd needs and recomputes nothing, so each value computes the
+# same result here; ``checkpoint: True`` (full remat) is the one that acts.
+REMAT_POLICIES = ("policy", "dots", "all")
+
+
+def as_dtype(dtype: Union[str, torch.dtype, None]) -> torch.dtype:
+    """A compute dtype from a config value (``"bfloat16"``,
+    ``"torch.float32"``, a ``torch.dtype``); None is float32."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        out = getattr(torch, str(dtype).replace("torch.", ""), None)
+    if not isinstance(out, torch.dtype) or not out.is_floating_point:
+        raise ValueError(f"model dtype {dtype!r} is not a floating dtype")
+    return out
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -44,16 +73,27 @@ def init_linear(layer: nn.Linear, std: float, generator: torch.Generator):
     nn.init.zeros_(layer.bias)
 
 
-class LayerNorm(nn.LayerNorm):
-    """LayerNorm with fp32 statistics whatever the input dtype, eps 1e-5."""
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to the
+    compute dtype, the product in that dtype (fp32 accumulation)."""
+    return F.linear(x.to(dtype), weight.to(dtype),
+                    None if bias is None else bias.to(dtype))
 
-    def __init__(self, width: int, eps: float = 1e-5, device=None):
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with fp32 statistics and fp32 parameters whatever the input
+    dtype, eps 1e-5; the output is in the compute ``dtype``."""
+
+    def __init__(self, width: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__(width, eps=eps, device=device, dtype=torch.float32)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
                          self.bias, self.eps)
-        return y.to(x.dtype)
+        return y.to(self.compute_dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -64,47 +104,54 @@ class MultiHeadAttention(nn.Module):
     names, which the reference checkpoints carry."""
 
     def __init__(self, width: int, num_heads: int, attn_impl: str = "auto",
-                 device=None):
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
+        self.dtype = dtype
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * width, width, device=device))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * width, device=device))
         self.out_proj = linear(width, width, device)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = dense(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
         q, k, v = (split_heads(t, self.num_heads)
                    for t in qkv.chunk(3, dim=-1))
         o = dot_product_attention(q, k, v, causal=causal, impl=self.attn_impl)
-        return self.out_proj(merge_heads(o))
+        return dense(merge_heads(o), self.out_proj.weight, self.out_proj.bias,
+                     self.dtype)
 
 
 class MlpBlock(nn.Module):
     """c_fc -> QuickGELU -> c_proj (4x expansion), reference mlp block."""
 
-    def __init__(self, width: int, device=None):
+    def __init__(self, width: int, dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
+        self.dtype = dtype
         self.c_fc = linear(width, 4 * width, device)
         self.c_proj = linear(4 * width, width, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(quick_gelu(self.c_fc(x)))
+        h = quick_gelu(dense(x, self.c_fc.weight, self.c_fc.bias, self.dtype))
+        return dense(h, self.c_proj.weight, self.c_proj.bias, self.dtype)
 
 
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN transformer block (base_transformer.py:29-53), dense MLP."""
 
     def __init__(self, width: int, num_heads: int, total_layers: int,
-                 causal: bool = False, attn_impl: str = "auto", device=None):
+                 causal: bool = False, attn_impl: str = "auto",
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.total_layers = total_layers
         self.causal = causal
-        self.ln_1 = LayerNorm(width, device=device)
-        self.attn = MultiHeadAttention(width, num_heads, attn_impl, device)
-        self.ln_2 = LayerNorm(width, device=device)
-        self.mlp = MlpBlock(width, device)
+        self.ln_1 = LayerNorm(width, dtype=dtype, device=device)
+        self.attn = MultiHeadAttention(width, num_heads, attn_impl, dtype,
+                                       device)
+        self.ln_2 = LayerNorm(width, dtype=dtype, device=device)
+        self.mlp = MlpBlock(width, dtype, device)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Reference scheme (text_transformer.py:120-129): qkv ~ N(0, w^-0.5),
@@ -128,15 +175,29 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Stack of residual blocks (``resblocks.{i}``)."""
+    """Stack of residual blocks (``resblocks.{i}``).
+
+    ``checkpoint=True`` is the reference's ``checkpoint:`` kwarg (torch
+    ``checkpoint_sequential``, base_transformer.py:66-73; full remat in the
+    JAX package): under autograd each block runs in
+    ``torch.utils.checkpoint``, keeping only its input and recomputing the
+    rest, its attention forward kernel included, in the backward.
+    ``remat_policy`` is an XLA memory knob of the JAX package (see
+    REMAT_POLICIES); it is checked so that its configs build, and changes
+    no result here."""
 
     def __init__(self, width: int, layers: int, heads: int,
                  causal: bool = False, attn_impl: str = "auto",
-                 device=None):
+                 dtype: torch.dtype = torch.float32, checkpoint: bool = False,
+                 remat_policy: str = "policy", device=None):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy {remat_policy!r} not in {REMAT_POLICIES}")
+        self.checkpoint = checkpoint
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, layers, causal, attn_impl,
-                                   device)
+                                   dtype, device)
             for _ in range(layers))
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -144,6 +205,11 @@ class Transformer(nn.Module):
             block.init_weights(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        remat = self.checkpoint and torch.is_grad_enabled()
         for block in self.resblocks:
-            x = block(x)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(block, x,
+                                                      use_reentrant=False)
+            else:
+                x = block(x)
         return x

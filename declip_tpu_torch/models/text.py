@@ -20,6 +20,8 @@ from torch import nn
 from declip_tpu_torch.models.layers import (
     LayerNorm,
     Transformer,
+    as_dtype,
+    dense,
     init_linear,
     linear,
     uninitialised,
@@ -27,14 +29,19 @@ from declip_tpu_torch.models.layers import (
 
 
 class TextTransformer(nn.Module):
+    """``scan_unroll`` is the JAX package's ``lax.scan`` unroll over depth,
+    an XLA scheduling knob: accepted so that its configs build, unused."""
+
     def __init__(self, vocab_size: int, embed_dim: int = 1024,
                  context_length: int = 77, transformer_width: int = 512,
                  transformer_heads: int = 8, transformer_layers: int = 12,
                  positional_embedding_flag: bool = True,
-                 eot_id: Optional[int] = None, attn_impl: str = "auto",
-                 device=None):
+                 checkpoint: bool = False, remat_policy: str = "policy",
+                 scan_unroll: int = -1, eot_id: Optional[int] = None,
+                 dtype=None, attn_impl: str = "auto", device=None):
         super().__init__()
         self.vocab_size = vocab_size
+        self.dtype = dtype = as_dtype(dtype)
         self.eot_id = eot_id if eot_id is not None else vocab_size - 1
         self.token_embedding = uninitialised(
             nn.Embedding, vocab_size, transformer_width, device=device)
@@ -44,8 +51,10 @@ class TextTransformer(nn.Module):
             if positional_embedding_flag else None)
         self.transformer = Transformer(
             transformer_width, transformer_layers, transformer_heads,
-            causal=True, attn_impl=attn_impl, device=device)
-        self.ln_final = LayerNorm(transformer_width, device=device)
+            causal=True, attn_impl=attn_impl, dtype=dtype,
+            checkpoint=checkpoint, remat_policy=remat_policy, device=device)
+        self.ln_final = LayerNorm(transformer_width, dtype=dtype,
+                                  device=device)
         self.text_projection = linear(transformer_width, embed_dim, device)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -62,7 +71,7 @@ class TextTransformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: int [B, L] -> pooled [B, embed_dim]."""
-        x = self.token_embedding(tokens)
+        x = self.token_embedding(tokens).to(self.dtype)
         if self.positional_embedding is not None:
             x = x + self.positional_embedding[: x.shape[1]].to(x.dtype)
         x = self.ln_final(self.transformer(x))
@@ -70,7 +79,8 @@ class TextTransformer(nn.Module):
         # maximum, and position 0 when a row has no eot (as jnp.argmax)
         eot_pos = (tokens == self.eot_id).int().argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eot_pos]
-        return self.text_projection(pooled)
+        return dense(pooled, self.text_projection.weight,
+                     self.text_projection.bias, self.dtype)
 
 
 def text_transformers(**kwargs) -> TextTransformer:

@@ -4,23 +4,30 @@ Non-overlapping patchify, class token + learned positional embedding,
 pre/post LayerNorm, linear projection to the joint embedding space
 (prototype/model/image_encoder/visual_transformer.py). Images are NHWC at
 the public function, as the serving host sends them.
+
+``freeze_conv1`` (hardcoded True in the reference, visual_transformer.py:12)
+works as in the JAX package: ``frozen_param_paths()`` names the patch embed,
+and the optimizer gives it a zero update. Its gradient is still computed, so
+it counts in the global gradient norm as it does there.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from declip_tpu_torch.models.layers import LayerNorm, Transformer
+from declip_tpu_torch.models.layers import LayerNorm, Transformer, as_dtype
 
 
 class PatchEmbed(nn.Module):
     """The reference's ``conv1`` (``weight`` [W, 3, p, p], no bias), run as a
     space-to-depth reshape plus one matmul, as the JAX package does it
     (vit.py:74-84). Identical to the strided conv for kernel == stride, and
-    a plain fp32 matmul, where a cuDNN ``Conv2d`` would run in TF32 by
-    default on Hopper."""
+    a plain matmul in the compute dtype (fp32 stays fp32, where a cuDNN
+    ``Conv2d`` would run in TF32 by default on Hopper)."""
 
     def __init__(self, width: int, patch_size: int, device=None):
         super().__init__()
@@ -35,14 +42,15 @@ class PatchEmbed(nn.Module):
                               generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] -> [B, gh*gw, width]"""
+        """[B, H, W, 3] -> [B, gh*gw, width], in x's dtype (the weight is
+        cast to it)."""
         b, h, w, _ = x.shape
         p = self.patch_size
         gh, gw = h // p, w // p
         x = x.reshape(b, gh, p, gw, p, 3).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, gh * gw, p * p * 3)
         kernel = self.weight.permute(2, 3, 1, 0).reshape(p * p * 3, -1)
-        return x @ kernel
+        return x @ kernel.to(x.dtype)
 
 
 def resize_pos_grid(grid: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
@@ -58,22 +66,31 @@ def resize_pos_grid(grid: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
 
 
 class VisualTransformer(nn.Module):
+    """``scan_unroll`` is the JAX package's ``lax.scan`` unroll over depth,
+    an XLA scheduling knob: accepted so that its configs build, unused."""
+
     def __init__(self, input_resolution: int = 224, patch_size: int = 32,
                  width: int = 768, layers: int = 12, heads: int = 12,
-                 embed_dim: int = 512, attn_impl: str = "auto", device=None):
+                 embed_dim: int = 512, checkpoint: bool = False,
+                 remat_policy: str = "policy", scan_unroll: int = -1,
+                 freeze_conv1: bool = True, dtype=None,
+                 attn_impl: str = "auto", device=None):
         super().__init__()
         self.input_resolution = input_resolution
         self.patch_size = patch_size
         self.width = width
+        self.freeze_conv1 = freeze_conv1
+        self.dtype = dtype = as_dtype(dtype)
         g0 = input_resolution // patch_size  # grid the pos-emb was trained at
         self.conv1 = PatchEmbed(width, patch_size, device)
         self.class_embedding = nn.Parameter(torch.empty(width, device=device))
         self.positional_embedding = nn.Parameter(
             torch.empty(g0 * g0 + 1, width, device=device))
-        self.ln_pre = LayerNorm(width, device=device)
-        self.transformer = Transformer(width, layers, heads,
-                                       attn_impl=attn_impl, device=device)
-        self.ln_post = LayerNorm(width, device=device)
+        self.ln_pre = LayerNorm(width, dtype=dtype, device=device)
+        self.transformer = Transformer(
+            width, layers, heads, attn_impl=attn_impl, dtype=dtype,
+            checkpoint=checkpoint, remat_policy=remat_policy, device=device)
+        self.ln_post = LayerNorm(width, dtype=dtype, device=device)
         self.proj = nn.Parameter(torch.empty(width, embed_dim, device=device))
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -97,7 +114,7 @@ class VisualTransformer(nn.Module):
                 f"input {h}x{w} is not a multiple of patch_size={p}")
         gh, gw = h // p, w // p
         g0 = self.input_resolution // p
-        x = self.conv1(x)
+        x = self.conv1(x.to(self.dtype))  # compute dtype from here on
         pos = self.positional_embedding
         if (gh, gw) != (g0, g0):
             # off-resolution input: bilinearly resize the patch grid of the
@@ -110,6 +127,10 @@ class VisualTransformer(nn.Module):
         x = self.transformer(x)
         feature = self.ln_post(x[:, 0, :])
         return feature @ self.proj.to(feature.dtype)
+
+    def frozen_param_paths(self) -> Tuple[str, ...]:
+        """Parameter subtrees the optimizer must not update (freeze_conv1)."""
+        return ("conv1",) if self.freeze_conv1 else ()
 
 
 def visual_transformer_B32(**kwargs) -> VisualTransformer:

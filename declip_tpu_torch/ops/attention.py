@@ -3,13 +3,14 @@
 ``impl`` keeps the JAX package's config values:
 
 - ``'auto'`` and ``'pallas'`` send self-attention (Lq == Lk) to
-  :func:`flash_attention` — the Hopper kernel on CUDA tensors, at every
-  length, and its plain version on CPU tensors. The JAX package's TPU
+  :func:`flash_attention` — the Hopper kernels on CUDA tensors (K1, and K2
+  for the gradient), at every length, and their plain versions on CPU
+  tensors. Gradients flow through it. The JAX package's TPU
   crossover (``_PALLAS_MIN_LEN = 224``, measured on a v5e) is not carried
   over; a threshold for the H100 would have to come from an H100
   measurement.
 - ``'xla'`` (only ever an explicit config choice) and cross-attention take
-  :func:`attention_plain`.
+  :func:`attention_plain`, differentiated by torch autograd.
 """
 
 from __future__ import annotations

@@ -1,31 +1,41 @@
-"""Fused self-attention forward: the Hopper kernel and its plain version.
+"""Fused self-attention, forward and backward: the Hopper kernels and their
+plain versions.
 
-Replaces declip_tpu/ops/flash_attention.py (a Pallas TPU kernel). The kernel
-is ``csrc/flash_attn_fwd.cu`` (CUDA C++ for sm_90a, plain C interface,
-loaded with ctypes); its source says what bounds it on an H100 and how its
-design answers that.
+Replaces declip_tpu/ops/flash_attention.py (two Pallas TPU kernels). The
+kernels are ``csrc/flash_attn_fwd.cu`` (K1, the forward) and
+``csrc/flash_attn_bwd.cu`` (K2, the backward): CUDA C++ for sm_90a with a
+plain C interface, loaded with ctypes. Each source says what bounds it on an
+H100 and how its design answers that.
 
 ``flash_attention`` takes ``[B, H, L, Dh]`` q, k, v:
 
-- on CPU tensors it runs :func:`attention_plain`;
-- on CUDA tensors it launches the kernel, or raises on what the kernel does
-  not take (dtype, Dh, layout, autograd). There is no fallback.
+- on CPU tensors it runs :func:`attention_plain`, and its gradient
+  :func:`attention_bwd_plain`;
+- on CUDA tensors it launches K1, and K2 for the gradient, or raises on what
+  the kernels do not take (dtype, Dh, layout). There is no fallback.
 
-Forward only: the backward kernel and the ``torch.autograd.Function`` come
-with the training slice, so the kernel refuses tensors that require grad.
+Where autograd needs a gradient, the call goes through ``_FlashAttention``
+(the ``jax.custom_vjp`` of the JAX package): the forward also keeps each
+row's log-sum-exp, and the backward is K2 on the card. Without a gradient
+(serving) K1 runs alone and writes no log-sum-exp.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from declip_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
+
+
+def _causal_keep(lq: int, lk: int, device) -> torch.Tensor:
+    return torch.ones(lq, lk, dtype=torch.bool, device=device).tril()
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,19 +50,55 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
-        lq, lk = s.shape[-2], s.shape[-1]
-        keep = torch.ones(lq, lk, dtype=torch.bool, device=s.device).tril()
-        s = s.masked_fill(~keep, -1e30)
+        s = s.masked_fill(~_causal_keep(*s.shape[-2:], s.device), -1e30)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("flash_attn_fwd")
-    fn = lib.flash_attn_fwd
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, causal: bool = False,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of self-attention for the output gradient ``do``,
+    all ``[B, H, L, Dh]``: K2's plain version.
+
+    The TPU kernel's arithmetic step by step (flash_attention.py:84-116):
+    P recomputed in fp32 from masked fp32 scores; dV = P^T dO with P rounded
+    to the operand dtype; dP = dO V^T; dS = P o (dP - rowsum(dP o P)),
+    masked, times scale, rounded to the operand dtype; dQ = dS K and
+    dK = dS^T Q. Every product accumulates in fp32 (operands widened, which
+    is exact); the outputs are in the operand dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dt = q.dtype
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
+    keep = _causal_keep(*s.shape[-2:], s.device) if causal else None
+    if causal:
+        s = s.masked_fill(~keep, -1e30)
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do32)
+    dp = torch.matmul(do32, v32.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if causal:
+        ds = ds.masked_fill(~keep, 0.0)
+    ds = (ds * scale).to(dt).float()
+    dq = torch.matmul(ds, k32)
+    dk = torch.matmul(ds.transpose(-1, -2), q32)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _library(name: str, n_args: int) -> ctypes.CDLL:
+    """The loaded ``csrc/<name>.cu``; its one function takes pointers and
+    ints in the order of the C signature (declared here once)."""
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp]
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # pointers, then (bh, L, dh, dtype, causal), scale, stream
+        fn.argtypes = [vp] * n_args + [i] * 5 + [f, vp]
         fn.restype = ctypes.c_int
     return lib
 
@@ -76,11 +122,96 @@ def _check_kernel_inputs(q, k, v) -> None:
         raise ValueError("q, k, v must lie on one CUDA device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel takes contiguous q, k, v")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError(
-            "the attention kernel is forward only (its backward kernel is "
-            "not ported yet); run it under torch.no_grad() or "
-            "torch.inference_mode()")
+
+
+def _forward_kernel(q, k, v, causal: bool, scale: float, with_lse: bool):
+    """Launch K1 -> (o, lse or None); lse is fp32 ``[B, H, L]``."""
+    _check_kernel_inputs(q, k, v)
+    b, h, length, dh = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty(b, h, length, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    fn = _library("flash_attn_fwd", 5).flash_attn_fwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(), b * h, length, dh,
+                 _DTYPE_CODES[q.dtype], int(causal), float(scale), stream)
+    if err:
+        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = False,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 on CUDA tensors: ``(dq, dk, dv)`` from the forward's inputs, its
+    output ``o`` and log-sum-exp ``lse`` (fp32 ``[B, H, L]``), and the output
+    gradient ``do``. Raises on what the kernel does not take."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"flash_attention_bwd launches the CUDA kernel; got {q.device} "
+            f"tensors (attention_bwd_plain is the CPU version)")
+    _check_kernel_inputs(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"{name} must match q's shape, dtype and device; got "
+                f"{tuple(t.shape)} {t.dtype} {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"the kernel takes a contiguous {name}")
+    b, h, length, dh = q.shape
+    if (lse is None or lse.shape != (b, h, length)
+            or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(
+            "lse must be the forward's contiguous fp32 [B, H, L] log-sum-exp")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty(b, h, length, dtype=torch.float32, device=q.device)
+    fn = _library("flash_attn_bwd", 10).flash_attn_bwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, length,
+                 dh, _DTYPE_CODES[q.dtype], int(causal), float(scale), stream)
+    if err:
+        raise RuntimeError(f"flash_attn_bwd launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Self-attention with its gradient: K1 and K2 on CUDA tensors, the plain
+    versions on CPU tensors (flash_attention.py:141-193's custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        if q.device.type == "cpu":
+            o, lse = attention_plain(q, k, v, causal, scale), None
+        else:
+            o, lse = _forward_kernel(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # merge_heads transposes, so the incoming gradient is a strided view
+        do = do.contiguous()
+        if q.device.type == "cpu":
+            grads = attention_bwd_plain(q, k, v, do, ctx.causal, ctx.scale)
+        else:
+            grads = flash_attention_bwd(q, k, v, o, lse, do,
+                                        causal=ctx.causal, scale=ctx.scale)
+        return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -89,25 +220,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``[B, H, L, Dh]`` fused self-attention (see the module docstring)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"flash_attention runs on CPU or CUDA tensors; got {q.device}")
-    _check_kernel_inputs(q, k, v)
-    b, h, length, dh = q.shape
-    out = torch.empty_like(q)
-    fn = _library().flash_attn_fwd
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b * h, length, dh, _DTYPE_CODES[q.dtype], int(causal),
-                 float(scale), stream)
-    if err:
-        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal, scale)
+    return _forward_kernel(q, k, v, causal, scale, with_lse=False)[0]
 
 
-# launches of the CUDA kernel in this process (CPU calls do not count)
+# launches of each CUDA kernel in this process (CPU calls do not count); one
+# flash_attention_bwd launch is its three kernels (delta, dk/dv, dq)
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

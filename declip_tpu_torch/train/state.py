@@ -1,0 +1,52 @@
+"""Train state: one object carrying everything a training step mutates
+(port of declip_tpu/train/state.py).
+
+The JAX package keeps params in an immutable pytree; here they are the fp32
+parameters of the model, which the step updates in place, beside the
+optimizer state, the EMA shadow and the EMA_logit_scale guard's buffers
+(declip_solver.py:64-86).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from declip_tpu_torch.optim import OptState
+
+
+@dataclass
+class TrainState:
+    step: int  # number of completed steps
+    model: nn.Module  # its parameters are the params, fp32
+    opt_state: OptState
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
+    # EMA_logit_scale guard state (declip_solver.py:64-86)
+    logit_ema_buffer: Optional[torch.Tensor] = None
+    logit_clip_count: Optional[torch.Tensor] = None
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+
+def new_train_state(*, model: nn.Module, opt_state: OptState,
+                    ema_params: Optional[Dict[str, torch.Tensor]] = None,
+                    step: int = 0,
+                    with_logit_guard: bool = False) -> TrainState:
+    device = next(model.parameters()).device
+    return TrainState(
+        step=step,
+        model=model,
+        opt_state=opt_state,
+        ema_params=ema_params,
+        logit_ema_buffer=(
+            torch.tensor(3.125, dtype=torch.float32, device=device)
+            if with_logit_guard else None),
+        logit_clip_count=(
+            torch.zeros((), dtype=torch.int32, device=device)
+            if with_logit_guard else None),
+    )

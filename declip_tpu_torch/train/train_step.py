@@ -1,0 +1,144 @@
+"""The training step (port of declip_tpu/train/train_step.py; method clip).
+
+``make_train_step`` returns ``train_step(state, batch) -> (state,
+metrics)``, the reference's train-loop body (prototype/solver/
+clip_solver.py:380-560): forward, loss, backward, the optimizer's update
+(grad clip, AdamW, pconfig decay, frozen mask), the post-step logit-scale
+guard and the EMA. The step updates ``state`` in place and returns it.
+
+``loss_fn(model, state, batch) -> (loss, metrics)`` is kept apart from the
+update, as in the JAX package: the gradient of its loss with respect to the
+model's parameters is what ``jax.value_and_grad`` gives there.
+
+Non-finite containment (train_step.py:323-352; the reference checks every
+iteration, declip_solver.py:548-619): a NaN/inf loss or gradient leaves the
+parameters, optimizer state, EMA and guard buffers untouched (bit-identical)
+and reports ``update_skipped == 1``; the step counter still advances. The
+port decides it on the host: the loss and the global gradient norm come to
+the host once per step (one device synchronisation), and a poisoned step
+never runs the update. The same read gives the norm clip its norm.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from declip_tpu_torch.models.clip_model import CLIP
+from declip_tpu_torch.ops.contrastive import make_pair_loss
+from declip_tpu_torch.optim import AdamRule, global_norm
+from declip_tpu_torch.train import method_losses
+from declip_tpu_torch.train.ema import EmaConfig, ema_step
+from declip_tpu_torch.train.state import TrainState
+
+_PASS_THROUGH = (None, "norm", "value", "logit_scale_grad", "constant")
+
+
+def method_of(model) -> str:
+    if isinstance(model, CLIP):
+        return "clip"
+    raise NotImplementedError(
+        f"{type(model).__name__}: only CLIP trains in the port so far "
+        f"(ROADMAP.md items 1.5 and 1.8)")
+
+
+@torch.no_grad()
+def logit_scale_guard(s_old: torch.Tensor, logit_scale: torch.Tensor,
+                      grad_clip: Dict, state: TrainState
+                      ) -> Tuple[Optional[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+    """Post-step logit-scale clamps (clip_solver.py:500-523,
+    declip_solver.py:64-86,694-706), in place on the ``logit_scale``
+    parameter; ``s_old`` is its value before the update. Returns the new
+    (ema_buffer, clip_count)."""
+    kind = (grad_clip or {}).get("type")
+    buffer, count = state.logit_ema_buffer, state.logit_clip_count
+    if kind in _PASS_THROUGH:
+        return buffer, count
+    s_new = logit_scale.detach().clone()
+    if kind == "logit_scale_param":
+        v = float(grad_clip["value"])
+        s = torch.clamp(s_new, s_old - v, s_old + v)
+    elif kind == "logit_scale_param_abs_min":
+        # the reference clamps BOTH before backward and after the step
+        # (clip_solver.py:506,520): the update applies to the clamped value
+        v = float(grad_clip["value"])
+        s = torch.clamp(torch.clamp(s_old, min=v) + (s_new - s_old), min=v)
+    elif kind == "logit_scale_param_value":
+        v = float(grad_clip["value"])
+        mv = float(grad_clip["max_value"])
+        s = torch.clamp(torch.clamp(s_old, v, mv) + (s_new - s_old), v, mv)
+    elif kind == "logit_scale_param_ema":
+        # the reference passes config.grad_clip.value as the threshold
+        # (declip_solver.py:387-388); 'threshold' kept as an alias
+        thr = float(grad_clip.get("threshold", grad_clip.get("value", 0.2)))
+        momentum = 0.9
+        clipped = torch.clamp(s_new, buffer - thr, buffer + thr)
+        count = count + (clipped != s_new).any().to(count.dtype)
+        s = clipped
+        buffer = momentum * buffer + (1 - momentum) * s.mean()
+    else:
+        raise NotImplementedError(f"grad_clip type {kind!r}")
+    logit_scale.copy_(s)
+    return buffer, count
+
+
+def make_loss_fn(cfg: Dict, method: str = "clip",
+                 axis_name: Optional[str] = None) -> Callable:
+    """``loss_fn(model, state, batch) -> (loss, metrics)`` for ``method``."""
+    if method != "clip":
+        raise NotImplementedError(
+            f"method {method!r}: only clip trains in the port so far "
+            f"(ROADMAP.md items 1.5 and 1.8)")
+    pair_loss = make_pair_loss(cfg, axis_name=axis_name)
+
+    def loss_fn(model, state: TrainState, batch):
+        out = model(batch)
+        return method_losses.clip_losses(out, cfg, axis_name, pair_loss)
+
+    return loss_fn
+
+
+def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
+                    method: Optional[str] = None,
+                    ema_cfg: Optional[EmaConfig] = None) -> Callable:
+    """The step for ``model``'s method, with the update rule ``tx`` from
+    ``optim_entry`` and the lr ``schedule`` (for the ``lr`` metric)."""
+    method = method or method_of(model)
+    grad_clip = dict(cfg.get("grad_clip") or {})
+    loss_fn = make_loss_fn(cfg, method)
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        params = state.params
+        total, metrics = loss_fn(state.model, state, batch)
+        grads = torch.autograd.grad(total, list(params.values()),
+                                    allow_unused=True)
+        # a parameter the loss does not reach gets a zero gradient: it
+        # still decays, as under optax
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(params.items(), grads)}
+        grad_norm = global_norm(list(grads.values()))
+        # the one host read of the step
+        loss_v, norm_v = torch.stack(
+            [total.detach().float(), grad_norm]).tolist()
+        finite = math.isfinite(loss_v) and math.isfinite(norm_v)
+        if finite:
+            logit_scale = params["logit_scale"]
+            s_old = logit_scale.detach().clone()
+            tx.update_(grads, state.opt_state, params, grad_norm=norm_v)
+            state.logit_ema_buffer, state.logit_clip_count = \
+                logit_scale_guard(s_old, logit_scale, grad_clip, state)
+            if state.ema_params is not None and ema_cfg is not None:
+                ema_step(state.ema_params, params, state.step + 1, ema_cfg)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["lr"] = schedule(state.step)
+        metrics["grad_norm"] = grad_norm
+        metrics["update_skipped"] = 0.0 if finite else 1.0
+        if state.logit_clip_count is not None:
+            metrics["logit_clip_count"] = state.logit_clip_count
+        state.step += 1
+        return state, metrics
+
+    return train_step

@@ -47,3 +47,4 @@ class Registry:
 
 
 MODELS = Registry("model")
+SCHEDULERS = Registry("lr_scheduler")

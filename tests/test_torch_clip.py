@@ -163,6 +163,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="HuggingFace"):
         torch_model_entry({"type": "clip_vitb32", "kwargs": {
             "text_encode": {"text_encode_type": "Bert", "vocab_size": 10}}})
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(ValueError, match="not a floating dtype"):
         torch_model_entry({"type": "clip_vitb32",
-                           "kwargs": {"dtype": "bfloat16"}})
+                           "kwargs": {"dtype": "int8"}})
