@@ -31,7 +31,26 @@ Phases (any failed check raises, and the script exits non-zero):
    busy time and the largest kernels; the cost of the step's one host read
    (the step against the same device work without it); then one fp32 step
    through the kernels against the plain attention path under torch
-   autograd.
+   autograd;
+2c. K3, K4 and K5 vs plain: the late-interaction forward against
+   ``late_interaction_raw_plain`` and the two backward kernels against
+   ``late_interaction_bwd_plain``, at the FILIP training path's two shapes
+   (B = GB = 128: image queries N1=49 and text queries N1=77 against 16
+   selected key tokens, D=256), at the JAX tests' awkward shapes, at a wide
+   key set without selection and at exact ties, in fp32 and bf16, and with
+   a NaN key token or query row (NaN where the plain versions give it); the
+   kernel, plain and bound times of each;
+5. the FILIP training slice: FILIP ViT-B/32 at full width in bf16 from
+   seeded weights with the YFCC15M FILIP recipe (inlined below: MLM-masked
+   text, top-k 16 token selection, dense loss only), trained by
+   ``make_train_step`` at batch 128 on one repeated seeded batch; finite and
+   falling losses, no skipped update, the logit scale in [3, 6], per step
+   24 K1, 24 K2, 2 K3, 2 K4 and 2 K5 calls and no plain-version call;
+   pairs/s, device busy time and the late interaction's share of it; then
+   one fp32 step through the kernels against the plain path (plain
+   attention and the chunked late interaction), with the parameters that
+   only the weight-0 loss terms reach getting exactly zero from both, and
+   K3-K5 against the chunked late interaction behind the same K1 and K2.
 
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
@@ -74,6 +93,12 @@ BWD_TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_TOLERANCE = (1e-3, 1e-5)  # (rtol, atol)
 STEP_GRAD_REL_NORM = 1e-4
+# FILIP's fp32 step: K3-K5 against the chunked late interaction behind the
+# same K1 and K2 towers, so that the features agree exactly and only the
+# similarities' summation order differs. The 1e-4 above, kernels against the
+# whole plain path, also takes in the towers' ~1e-6 differences, which can
+# move a max's winner where two similarities nearly tie.
+STEP_LI_GRAD_REL_NORM = 1e-5
 
 # (B, H, L, Dh, causal): the serving path's two shapes first
 ATTN_CASES = [
@@ -97,9 +122,35 @@ BWD_CASES = [
 TRAIN_CASES = BWD_CASES[:2]
 TRAIN_WARMUP_STEPS = 3
 TRAIN_STEPS = 20
+FILIP_TRAIN_STEPS = 10
 SEED = 0
+# (B, N1, GB, N2, D): the FILIP training path's two late interactions first
+# (image queries against the 16 selected text tokens of every item, text
+# queries against the 16 selected image tokens, dense_embed_dim 256), then
+# tests/test_filip_pallas.py's awkward shapes and a wide key set without
+# selection (every text token a key)
+LI_CASES = [
+    (TRAIN_BATCH, 49, TRAIN_BATCH, 16, 256),
+    (TRAIN_BATCH, 77, TRAIN_BATCH, 16, 256),
+    (8, 50, 130, 16, 256),
+    (6, 5, 40, 3, 64),
+    (8, 25, 128, 16, 128),
+    (8, 77, 128, 77, 256),
+]
+LI_MAIN_CASES = LI_CASES[:2]
+# key items with duplicated tokens, so that maxima tie exactly
+LI_TIES_CASE = (16, 49, 64, 16, 256)
+# ((rtol, atol) of K3, (rtol, atol) of K4 and K5) against the plain
+# versions on grid inputs (every similarity exact in fp32): fp32 differs in
+# summation order (tests/test_filip_pallas.py:37, 55); raw is fp32 in both
+# dtypes and held alike; bf16 dd1 and dd2 by one rounding of fp32 sums that
+# differ in order, at most one bf16 ulp (2^-7 of the value at most)
+LI_TOLERANCE = {"float32": ((1e-5, 1e-5), (2e-4, 2e-5)),
+                "bfloat16": ((1e-5, 1e-5), (8e-3, 1e-6))}
 
-EOT, SOT, VOCAB = 49408, 49406, 49409
+# the 49409-entry vocab ends <|mask|>, <|startoftext|>, <|endoftext|>
+# (declip_tpu_torch/tokenizer/bpe.py:128-130)
+MASK, SOT, EOT, VOCAB = 49406, 49407, 49408, 49409
 CONFIG = """
 model:
     type: clip_vitb32
@@ -124,6 +175,38 @@ grad_clip: {type: logit_scale_param_value, value: 3, max_value: 6}
 optimizer:
     type: AdamW
     kwargs: {lr: 0.0001, weight_decay: 0.1, betas: [0.9, 0.98],
+             eps: 0.00000001}
+    pconfig:
+        bn_w: {weight_decay: 0}
+        bn_b: {weight_decay: 0}
+        ln_w: {weight_decay: 0}
+        ln_b: {weight_decay: 0}
+        linear_b: {weight_decay: 0}
+        conv_b: {weight_decay: 0}
+        logit_scale: {weight_decay: 0}
+lr_scheduler:
+    type: Cosine
+    kwargs: {base_lr: 0.0001, warmup_lr: 0.001, min_lr: 0.0,
+             warmup_steps: 2500, max_iter: 128001}
+"""
+# experiments/filip_experiments/yfcc15m/yfcc15m_vit_filip/config.yaml, cut
+# and completed as TRAIN_CONFIG is (top_k 16 and dense_embed_dim 256 are
+# the model's defaults there)
+FILIP_CONFIG = """
+model:
+    type: filip_vitb32
+    kwargs:
+        image_encode: {embed_dim: 768}
+        text_encode: {embed_dim: 768, vocab_size: 49409}
+        clip: {use_allgather: True, text_mask_type: MLM, return_dense: True,
+               select_topk: True, feature_dim: 768}
+clip_simsiam_loss_weight: {clip_loss: 0.0, clip_dense_loss: 1.0,
+                           masking_language: 0.0}
+precision: {dtype: bfloat16}
+grad_clip: {type: logit_scale_param_value, value: 3, max_value: 6}
+optimizer:
+    type: AdamW
+    kwargs: {lr: 0.0001, weight_decay: 0.5, betas: [0.9, 0.98],
              eps: 0.00000001}
     pconfig:
         bn_w: {weight_decay: 0}
@@ -224,6 +307,26 @@ def attention_bwd_bound(b, h, l, dh, causal, dtype_name):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def late_interaction_bound(b, n1, gb, n2, d, dtype_name, which,
+                           winners=None):
+    """Least time (ms) for one K3 (``which`` "fwd"), K4 ("d1") or K5 ("d2")
+    call: d1 and d2 read once, the fp32 raw logits written (K3) or the fp32
+    g read and dd1 or dd2 written (K4, K5), against the similarities'
+    2*B*N1*GB*N2*D FLOPs over the dtype's peak; K4 and K5 need the
+    similarities too (to find the max winners) and add 2*D FLOPs per winner
+    (``winners``: the winning (query row, key item, key token) triples this
+    data has, ties included)."""
+    elem = 4 if dtype_name == "float32" else 2
+    nbytes = (b * n1 + gb * n2) * d * elem + b * gb * 4
+    flops = 2 * b * n1 * gb * n2 * d
+    if which != "fwd":
+        nbytes += (b * n1 if which == "d1" else gb * n2) * d * elem
+        flops += 2 * winners * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def _within(got, want, rtol, atol):
     """(all close, max abs err) of two tensors, compared in fp32."""
     err = (got.float() - want.float()).abs()
@@ -242,7 +345,7 @@ def phase_card_and_build():
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True).stdout
     print("nvcc:", [ln for ln in nvcc.splitlines() if "release" in ln][0])
-    names = ["flash_attn_fwd", "flash_attn_bwd"]
+    names = ["flash_attn_fwd", "flash_attn_bwd", "filip_li"]
     for name in names:  # build from the sources, not from a stale library
         if os.path.exists(_build.library_path(name)):
             os.remove(_build.library_path(name))
@@ -414,6 +517,170 @@ def phase_backward():
     return rows
 
 
+def _li_inputs(shape, dtype, seed, grid):
+    """Unit-vector d1 [B, N1, D] and d2 [GB, N2, D], as the FILIP heads give
+    them, and an fp32 upstream gradient g [B, GB]. With ``grid`` the vectors
+    are rounded to multiples of 1/64 (numerators of at most 64, exact in
+    bf16): every similarity is then exact in fp32 whatever the summation
+    order (D <= 256 products of at most 2^12 / 2^12), so the kernels and the
+    plain versions must pick the same max winners. With continuous inputs a
+    near tie (a gap below fp32's rounding) may go either way, which moves a
+    winner's whole gradient share (about |g| / N1)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n1, gb, n2, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d1, d2 = (F.normalize(torch.randn(*s, d, generator=gen, device="cuda"),
+                          dim=-1) for s in ((b, n1), (gb, n2)))
+    if grid:
+        d1, d2 = (torch.round(x * 64) / 64 for x in (d1, d2))
+    g = torch.randn(b, gb, generator=gen, device="cuda")
+    return d1.to(dtype), d2.to(dtype), g
+
+
+def phase_late_interaction():
+    """K3 against late_interaction_raw_plain, K4 and K5 against
+    late_interaction_bwd_plain, at LI_CASES and the ties case in fp32 and
+    bf16: checked on grid inputs (see ``_li_inputs``), K3 also on the
+    continuous unit vectors that are timed."""
+    import torch
+
+    from declip_tpu_torch.ops.filip_late_interaction import (
+        _similarities,
+        late_interaction_bwd_d1,
+        late_interaction_bwd_d2,
+        late_interaction_bwd_plain,
+        late_interaction_fwd,
+        late_interaction_raw_plain,
+    )
+
+    rows = []
+    cases = [(shape, False) for shape in LI_CASES] + [(LI_TIES_CASE, True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        (frtol, fatol), (grtol, gatol) = LI_TOLERANCE[dname]
+        for i, (shape, ties) in enumerate(cases):
+            b, n1, gb, n2, d = shape
+            tag = f"{shape} {dname}{' ties' if ties else ''}"
+            d1, d2, g = _li_inputs(shape, dtype, 300 + i, grid=True)
+            if ties:  # two-way ties in every key item, three-way in half
+                d2[:, 4] = d2[:, 1]
+                d2[::2, 7] = d2[::2, 1]
+            raw = late_interaction_fwd(d1, d2)
+            dd1 = late_interaction_bwd_d1(d1, d2, g)
+            dd2 = late_interaction_bwd_d2(d1, d2, g)
+            want_raw = late_interaction_raw_plain(d1, d2)
+            want1, want2 = late_interaction_bwd_plain(d1, d2, g)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, got, want, (rtol, atol) in (
+                    ("raw", raw, want_raw, (frtol, fatol)),
+                    ("dd1", dd1, want1, (grtol, gatol)),
+                    ("dd2", dd2, want2, (grtol, gatol))):
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"late interaction {name} at {tag}: {got.shape} "
+                      f"{got.dtype}, want {want.shape} {want.dtype}")
+                check(torch.isfinite(got).all().item(),
+                      f"late interaction {name} at {tag}: not finite")
+                ok, errs[name] = _within(got, want, rtol, atol)
+                check(ok, f"late interaction {name} at {tag}: kernel vs "
+                          f"plain max abs err {errs[name]:.3g} beyond rtol "
+                          f"{rtol} atol {atol}")
+            if ties:
+                check(torch.equal(dd2[:, 4], dd2[:, 1])
+                      and dd2[:, 1].abs().max().item() > 0,
+                      "K5 did not split tied winners evenly")
+            # the timed inputs: continuous unit vectors, as on the main path
+            if not ties:
+                d1, d2, g = _li_inputs(shape, dtype, 300 + i, grid=False)
+                ok, errs["raw_unit"] = _within(late_interaction_fwd(d1, d2),
+                                               late_interaction_raw_plain(
+                                                   d1, d2), frtol, fatol)
+                check(ok, f"K3 at {tag}, unit vectors: max abs err "
+                          f"{errs['raw_unit']:.3g}")
+            sim = _similarities(d1, d2)
+            winners = int((sim == sim.amax(dim=-1, keepdim=True)).sum())
+            del sim
+            fns = {"K3": lambda: late_interaction_fwd(d1, d2),
+                   "K4": lambda: late_interaction_bwd_d1(d1, d2, g),
+                   "K5": lambda: late_interaction_bwd_d2(d1, d2, g),
+                   "fwd_plain": lambda: late_interaction_raw_plain(d1, d2),
+                   "bwd_plain": lambda: late_interaction_bwd_plain(d1, d2,
+                                                                   g)}
+            times = {key: device_ms(fn)[0] or cuda_ms(fn)
+                     for key, fn in fns.items()}
+            row = {"shape": list(shape), "dtype": dname, "ties": ties,
+                   "winners": winners, "errs": errs}
+            for kname, which, err_key, plain_key in (
+                    ("K3", "fwd", "raw", "fwd_plain"),
+                    ("K4", "d1", "dd1", "bwd_plain"),
+                    ("K5", "d2", "dd2", "bwd_plain")):
+                bound_ms, bound_by = late_interaction_bound(
+                    *shape, dname, which, winners)
+                row[kname] = {"ms": times[kname],
+                              "plain_ms": times[plain_key],
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "max_abs_err": errs[err_key]}
+            rows.append(row)
+            print(f"late interaction B={b} N1={n1} GB={gb} N2={n2} D={d} "
+                  f"{dname:8s}{' ties' if ties else ''} err "
+                  + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                  + f" | K3 {times['K3']:.4f} ms K4 {times['K4']:.4f} K5 "
+                  f"{times['K5']:.4f}; plain fwd {times['fwd_plain']:.4f} "
+                  f"bwd (dd1 and dd2) {times['bwd_plain']:.4f}; bound "
+                  + " ".join(f"{k} {row[k]['bound_ms']:.5f} "
+                             f"({row[k]['bound_by']})"
+                             for k in ("K3", "K4", "K5"))
+                  + f"; winners {winners}",
+                  flush=True)
+        _li_nan_check(dtype)
+    return rows
+
+
+def _li_nan_check(dtype):
+    """A NaN key token and a NaN query row: K3-K5 give NaN exactly where
+    the plain versions do (a NaN similarity wins its max, and its row's
+    gradient weights are all NaN), and the plain values elsewhere."""
+    import torch
+
+    from declip_tpu_torch.ops.filip_late_interaction import (
+        late_interaction_bwd_d1,
+        late_interaction_bwd_d2,
+        late_interaction_bwd_plain,
+        late_interaction_fwd,
+        late_interaction_raw_plain,
+    )
+
+    dname = str(dtype).replace("torch.", "")
+    (frtol, fatol), (grtol, gatol) = LI_TOLERANCE[dname]
+    shape = LI_CASES[3]
+    for where in ("key", "query"):
+        d1, d2, g = _li_inputs(shape, dtype, 400, grid=True)
+        if where == "key":
+            d2[3, 1, 5] = float("nan")
+        else:
+            d1[2, 4, 7] = float("nan")
+        for name, got, want, (rtol, atol) in (
+                ("raw", late_interaction_fwd(d1, d2),
+                 late_interaction_raw_plain(d1, d2), (frtol, fatol)),
+                ("dd1", late_interaction_bwd_d1(d1, d2, g),
+                 late_interaction_bwd_plain(d1, d2, g)[0], (grtol, gatol)),
+                ("dd2", late_interaction_bwd_d2(d1, d2, g),
+                 late_interaction_bwd_plain(d1, d2, g)[1], (grtol, gatol))):
+            nan = torch.isnan(want)
+            check(torch.equal(torch.isnan(got), nan),
+                  f"late interaction {name} at {shape} {dname}, NaN {where}: "
+                  f"NaN at {int(torch.isnan(got).sum())} entries, the plain "
+                  f"version at {int(nan.sum())}")
+            if not nan.all().item():
+                ok, err = _within(got[~nan], want[~nan], rtol, atol)
+                check(ok, f"late interaction {name} at {shape} {dname}, NaN "
+                          f"{where}: max abs err {err:.3g} off the NaNs")
+    print(f"late interaction {dname}: NaN in a key token and in a query row "
+          f"propagate as in the plain versions", flush=True)
+
+
 def _post(url, path, payload):
     req = urllib.request.Request(
         url + path, data=json.dumps(payload).encode(),
@@ -451,7 +718,7 @@ def _tokens(rng, n):
     for r in range(n):
         length = int(rng.integers(3, 77))
         toks[r, 0] = SOT
-        toks[r, 1:length - 1] = rng.integers(1, SOT, size=length - 2)
+        toks[r, 1:length - 1] = rng.integers(1, MASK, size=length - 2)
         toks[r, length - 1] = EOT
     return toks
 
@@ -507,7 +774,7 @@ def phase_slice():
         return rng.normal(size=(n, 224, 224, 3)).astype(np.float32)
 
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0  # main path starts
+    reset_launches()  # main path starts
     served = {}
     # image tower: one warm-up row, 4 concurrent 2-row requests, a
     # normalized 3-row request
@@ -654,6 +921,14 @@ def kernel_kind(name):
         return "K1"
     if "flash_attn_bwd" in n:
         return "K2"
+    if "li_fwd_kernel" in n or "li_mean_kernel" in n:
+        return "K3"
+    if "li_bwd_d1_kernel" in n:
+        return "K4"
+    if "li_bwd_d2_kernel" in n:
+        return "K5"
+    if "li_reduce_kernel" in n:  # the split sums of K4 and of K5
+        return "K4/K5 reduce"
     if "memcpy" in n or "memset" in n:
         return "memcpy/memset"
     if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
@@ -687,7 +962,10 @@ def profile_steps(fn, iters, step_ms):
             for e, nxt in zip(dev, dev[1:]) if "dtoh" in e.name.lower()]
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    li_ms = sum(by_kind.get(k, 0.0) for k in ("K3", "K4", "K5",
+                                                "K4/K5 reduce"))
     return {"busy_ms": busy, "idle_share": 1 - busy / step_ms,
+            "li_ms": li_ms, "li_share": li_ms / busy,
             "k1_ms": by_kind.get("K1", 0.0),
             "k1_share": by_kind.get("K1", 0.0) / busy,
             "k2_ms": by_kind.get("K2", 0.0),
@@ -753,16 +1031,45 @@ def host_read_cost(step, no_read, rounds, n):
     return times
 
 
+def launch_counters():
+    """Every kernel wrapper, by kernel: each counts its own launches."""
+    from declip_tpu_torch.ops import filip_late_interaction as fli
+    from declip_tpu_torch.ops import flash_attention as fa
+
+    return {"K1": fa.flash_attention, "K2": fa.flash_attention_bwd,
+            "K3": fli.late_interaction_fwd, "K4": fli.late_interaction_bwd_d1,
+            "K5": fli.late_interaction_bwd_d2}
+
+
+def reset_launches():
+    """Every kernel's count to 0, just before a main path is driven."""
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in launch_counters().items()}
+
+
 class _CallCounter:
-    """Counts the calls of the plain attention functions where the port's
-    attention modules look them up, for the length of a ``with`` block."""
+    """Counts the calls of the plain attention and late-interaction
+    functions where the port's modules look them up, for the length of a
+    ``with`` block."""
 
     def __init__(self):
-        from declip_tpu_torch.ops import attention, flash_attention
+        from declip_tpu_torch.ops import (
+            attention,
+            filip_late_interaction,
+            filip_ops,
+            flash_attention,
+        )
 
         self.sites = [(attention, "attention_plain"),
                       (flash_attention, "attention_plain"),
-                      (flash_attention, "attention_bwd_plain")]
+                      (flash_attention, "attention_bwd_plain"),
+                      (filip_late_interaction, "late_interaction_raw_plain"),
+                      (filip_late_interaction, "late_interaction_bwd_plain"),
+                      (filip_ops, "late_interaction_logits")]
         self.calls = 0
 
     def __enter__(self):
@@ -864,7 +1171,7 @@ def phase_train():
     run(TRAIN_WARMUP_STEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention_bwd.launches = 0  # main path
+    reset_launches()  # main path starts
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with _CallCounter() as plain:
@@ -978,6 +1285,245 @@ def phase_train():
             "fp32_median_grad_rms": median_rms}
 
 
+def _filip_batch(rng):
+    """B=128 seeded images, SOT/EOT token rows and their MLM masking by the
+    port's ``mask_tokens`` (15%, of which 80% mask, 10% random, 10% kept)."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.tokenizer.mlm import mask_tokens
+
+    tokens = _tokens(rng, TRAIN_BATCH)
+    mlm_tokens, mlm_labels = mask_tokens(
+        tokens, mask_id=MASK, vocab_size=VOCAB, special_ids=(SOT, EOT),
+        rng=rng)
+    check((mlm_tokens == MASK).any() and (mlm_labels != -100).any(),
+          "MLM masking selected nothing")
+    check((tokens[:, 0] == SOT).all() and (mlm_tokens[:, 0] == SOT).all(),
+          "token rows do not begin with the start-of-text id")
+    return {"images": torch.from_numpy(rng.normal(
+                size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda(),
+            "tokens": torch.from_numpy(tokens).cuda(),
+            "mlm_tokens": torch.from_numpy(mlm_tokens).cuda(),
+            "mlm_labels": torch.from_numpy(mlm_labels).cuda()}
+
+
+def phase_train_filip():
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models import model_entry
+    from declip_tpu_torch.models.layers import MultiHeadAttention
+    from declip_tpu_torch.ops.filip_late_interaction import _similarities
+    from declip_tpu_torch.optim import (
+        optim_entry,
+        path_prefix_mask,
+        scheduler_entry,
+    )
+    from declip_tpu_torch.train import (
+        make_loss_fn,
+        make_train_step,
+        method_of,
+        new_train_state,
+    )
+
+    cfg = parse_config(FILIP_CONFIG)
+
+    def build(dtype):
+        kwargs = dict(cfg.model.kwargs)
+        kwargs["dtype"] = dtype
+        model = model_entry({"type": cfg.model.type, "kwargs": kwargs})
+        model.init_weights(torch.Generator().manual_seed(SEED))
+        return model.cuda()
+
+    t0 = time.perf_counter()
+    model = build(cfg.precision.dtype)
+    vis, txt = model.visual, model.encode_text
+    check((vis.width, len(vis.transformer.resblocks), vis.input_resolution,
+           txt.ln_final.normalized_shape[0], len(txt.transformer.resblocks),
+           txt.vocab_size, vis.dtype, txt.dtype, method_of(model),
+           model.top_k, model.select_topk, model.image_mapping.out_features,
+           model.text_label_predictor.out_features)
+          == (768, 12, 224, 512, 12, VOCAB, torch.bfloat16, torch.bfloat16,
+              "filip", 16, True, 256, VOCAB),
+          "model is not FILIP ViT-B/32 at full width in bf16")
+    named = dict(model.named_parameters())
+    check(all(p.dtype == torch.float32 for p in named.values()),
+          "parameters are not fp32")
+    sched = scheduler_entry(cfg.lr_scheduler,
+                            max_iter=int(cfg.lr_scheduler.kwargs.max_iter))
+    tx = optim_entry(cfg.optimizer, model, sched,
+                     pconfig=cfg.optimizer.pconfig,
+                     grad_clip=dict(cfg.grad_clip),
+                     frozen_mask=path_prefix_mask(
+                         named, model.visual.frozen_param_paths()))
+    state = new_train_state(model=model, opt_state=tx.init(named))
+    step = make_train_step(model, tx, cfg, sched)
+    batch = _filip_batch(np.random.default_rng(SEED))
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in named.values())
+    print(f"train filip: filip_vitb32 bf16, {n_params / 1e6:.1f} M fp32 "
+          f"params, batch {TRAIN_BATCH}, set up in {setup_s:.1f} s",
+          flush=True)
+
+    history = []
+
+    def run(n):
+        steps = []
+        for _ in range(n):
+            _, metrics = step(state, batch)
+            steps.append((metrics, model.logit_scale.detach().clone()))
+        for metrics, scale in steps:
+            m = {k: float(v) for k, v in metrics.items()}
+            m["logit_scale_param"] = float(scale)
+            history.append(m)
+            check(m["update_skipped"] == 0.0, f"a step was skipped: {m}")
+            check(3.0 <= m["logit_scale_param"] <= 6.0,
+                  f"logit_scale param outside [3, 6]: {m}")
+
+    run(TRAIN_WARMUP_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # main path starts
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with _CallCounter() as plain:
+        t0 = time.perf_counter()
+        start.record()
+        run(FILIP_TRAIN_STEPS)
+        end.record()
+        end.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = read_launches()  # main path ends
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    step_ms = start.elapsed_time(end) / FILIP_TRAIN_STEPS
+    losses = [m["loss"] for m in history]
+    dense = [m["clip_dense_loss"] for m in history]
+    check(np.isfinite(losses).all(), f"losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    per_step = {"K1": 24, "K2": 24, "K3": 2, "K4": 2, "K5": 2}
+    check(launches == {k: n * FILIP_TRAIN_STEPS for k, n in per_step.items()},
+          f"{launches} kernel calls in {FILIP_TRAIN_STEPS} steps (want "
+          f"{per_step} per step)")
+    check(plain.calls == 0, f"{plain.calls} plain-version calls")
+    print(f"train filip: losses {[round(x, 4) for x in losses]} (dense "
+          f"{[round(x, 4) for x in dense]}, mlm "
+          f"{round(history[-1]['text_mlm_loss'], 4)}, clip "
+          f"{round(history[-1]['clip_loss'], 4)}, weights 0)", flush=True)
+    print(f"train filip: {FILIP_TRAIN_STEPS} steps, {step_ms:.2f} ms/step "
+          f"(CUDA events; host {wall_s * 1e3 / FILIP_TRAIN_STEPS:.2f}), "
+          f"{TRAIN_BATCH * 1e3 / step_ms:.1f} pairs/s, kernel calls "
+          f"{launches}, peak device memory {peak_mib:.0f} MiB", flush=True)
+
+    breakdown = profile_steps(lambda: step(state, batch), 3, step_ms)
+    print(f"train filip: device busy {breakdown['busy_ms']:.2f} ms/step, "
+          f"idle share {breakdown['idle_share']:.1%}, K3+K4+K5 "
+          f"{breakdown['li_ms']:.3f} ms ({breakdown['li_share']:.1%}), K1 "
+          f"{breakdown['k1_ms']:.2f} ms, K2 {breakdown['k2_ms']:.2f} ms",
+          flush=True)
+    print(f"  by kind: {breakdown['by_kind_ms']}")
+    for n, v in breakdown["top_kernels_ms"]:
+        print(f"  {v:8.3f} ms  {n[:110]}")
+    del state, step, tx, model, named
+    torch.cuda.empty_cache()
+
+    # one fp32 step from the same seeded weights: the kernels (K1-K5)
+    # against the plain path (plain attention, chunked late interaction);
+    # and, to part the late interaction's own difference from the towers',
+    # against K1 and K2 with the chunked late interaction
+    model = build("float32")
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    plain_cfg = parse_config(FILIP_CONFIG)
+    plain_cfg["filip_dense"] = {"impl": "xla"}
+    grads, totals = {}, {}
+    attn_only = {**per_step, "K3": 0, "K4": 0, "K5": 0}
+    for path, attn_impl, run_cfg, want in (
+            ("kernels", "auto", cfg, per_step),
+            ("attention kernels", "auto", plain_cfg, attn_only),
+            ("plain", "xla", plain_cfg, dict.fromkeys(per_step, 0))):
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.attn_impl = attn_impl
+        before = read_launches()
+        total, _ = make_loss_fn(run_cfg, "filip")(model, None, batch)
+        grads[path] = [torch.zeros_like(p) if g is None else g
+                       for p, g in zip(params, torch.autograd.grad(
+                           total, params, allow_unused=True))]
+        totals[path] = float(total.detach())
+        used = {k: n - before[k] for k, n in read_launches().items()}
+        check(used == want, f"fp32 step through the {path}: kernel calls "
+                            f"{used}, want {want}")
+    loss_err = abs(totals["kernels"] - totals["plain"]) / abs(totals["plain"])
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"fp32 loss kernels {totals['kernels']} vs plain {totals['plain']}")
+    rel_norm_err, zero, worst = 0.0, [], []
+    for name, a, b in zip(names, grads["kernels"], grads["plain"]):
+        norm = torch.linalg.vector_norm(b).item()
+        if norm == 0.0:
+            check(not a.any().item(),
+                  f"fp32 grad {name}: zero on the plain path, not through "
+                  f"the kernels")
+            zero.append(name)
+            continue
+        rel = torch.linalg.vector_norm(a - b).item() / norm
+        rel_norm_err = max(rel_norm_err, rel)
+        worst = sorted(worst + [(rel, name, norm)], reverse=True)[:3]
+        check(rel <= STEP_GRAD_REL_NORM,
+              f"fp32 grad {name}: ||kernels - plain|| / ||plain|| = "
+              f"{rel:.3g} (||plain|| {norm:.3g}), limit {STEP_GRAD_REL_NORM}")
+    check(zero, "no parameter got a zero gradient under weights of 0")
+    li_rel_norm_err = max(
+        (torch.linalg.vector_norm(a - b).item()
+         / torch.linalg.vector_norm(b).item())
+        for a, b in zip(grads["kernels"], grads["attention kernels"])
+        if b.any().item())
+    check(li_rel_norm_err <= STEP_LI_GRAD_REL_NORM,
+          f"fp32 step, K3-K5 vs the chunked late interaction behind K1 and "
+          f"K2: max relative gradient norm err {li_rel_norm_err:.3g}, limit "
+          f"{STEP_LI_GRAD_REL_NORM}")
+    # near ties of the late interaction's maxima on the plain path: where
+    # the top two similarities of a (query row, key item) lie closer than
+    # the two paths' features differ, the paths may pick different winners
+    with torch.no_grad():
+        out = model(batch)
+        gaps = []
+        for q, keys in ((out["dense_image"], out["dense_text_sel"]),
+                        (out["dense_text"], out["dense_image_sel"])):
+            top2 = _similarities(q, keys).topk(2, dim=-1).values
+            gaps.append((top2[..., 0] - top2[..., 1]).flatten())
+        gaps = torch.cat(gaps)
+        near_ties = {f"{t:g}": int((gaps < t).sum()) for t in (1e-7, 1e-6)}
+        del out, gaps
+    print(f"train filip fp32 step, kernels vs plain path: loss "
+          f"{totals['kernels']:.6f} vs {totals['plain']:.6f} (rel err "
+          f"{loss_err:.2e}); over {len(names) - len(zero)} parameters with a "
+          f"gradient, max relative norm err {rel_norm_err:.3g} (limit "
+          f"{STEP_GRAD_REL_NORM}; largest "
+          f"{[(n, f'{r:.3g}') for r, n, _ in worst]}); max-winner gaps "
+          f"below 1e-7 / 1e-6 on the plain path: {near_ties['1e-07']} / "
+          f"{near_ties['1e-06']} of {TRAIN_BATCH ** 2 * (49 + 77)}; "
+          f"exactly zero on both paths: {zero}; K3-K5 against the chunked "
+          f"late interaction, both behind K1 and K2: max relative norm err "
+          f"{li_rel_norm_err:.3g} (limit {STEP_LI_GRAD_REL_NORM})",
+          flush=True)
+    del model, grads, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": FILIP_TRAIN_STEPS,
+            "warmup_steps": TRAIN_WARMUP_STEPS, "losses": losses,
+            "history": history, "step_ms": step_ms,
+            "host_step_ms": wall_s * 1e3 / FILIP_TRAIN_STEPS,
+            "pairs_per_s": TRAIN_BATCH * 1e3 / step_ms,
+            "peak_device_mib": peak_mib, "setup_s": setup_s, **breakdown,
+            "fp32_loss": totals, "fp32_loss_rel_err": loss_err,
+            "fp32_max_grad_rel_norm_err": rel_norm_err,
+            "fp32_worst_grad_rel_norm_errs": worst,
+            "fp32_near_ties": near_ties,
+            "fp32_li_only_max_grad_rel_norm_err": li_rel_norm_err,
+            "fp32_zero_grad_params": zero}
+
+
 def _path_sums(rows, cases, dtype_name, prefix=""):
     """Each time summed over the path's shapes in one dtype; the path is
     bound by what bounds its largest bound."""
@@ -992,26 +1538,63 @@ def _path_sums(rows, cases, dtype_name, prefix=""):
     return out
 
 
-def kernels_line(rows, bwd_rows, slice_result, train_result):
-    """One entry per kernel. K1 is on both paths: its launches are the
-    serving run's plus the training run's, each counted from 0 around its
-    path; its times are the serving path's (the sum over its two shapes,
+def _li_entries(li_rows, filip_result):
+    """K3, K4 and K5: launches from the FILIP training run; times summed over
+    the training path's two calls (image and text queries, B=128, bf16, the
+    continuous unit vectors), errors the largest over every shape checked in
+    that dtype. plain_ms of K4 and of K5 is the plain backward, which
+    computes dd1 and dd2 together."""
+    main = [r for r in li_rows if r["dtype"] == "bfloat16" and not r["ties"]
+            and tuple(r["shape"]) in LI_MAIN_CASES]
+    check(len(main) == len(LI_MAIN_CASES), "main-path shapes missing")
+    entries = []
+    for kname, name, line in (("K3", "late_interaction_fwd", 89),
+                              ("K4", "late_interaction_bwd_d1", 107),
+                              ("K5", "late_interaction_bwd_d2", 130)):
+        sums = {key: sum(r[kname][key] for r in main)
+                for key in ("ms", "plain_ms", "bound_ms")}
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "declip_tpu_torch/csrc/filip_li.cu",
+            "replaces": f"declip_tpu/ops/filip_pallas.py:{line}",
+            "launches": filip_result["launches"][kname],
+            "max_abs_err": max(r[kname]["max_abs_err"] for r in li_rows
+                               if r["dtype"] == "bfloat16"),
+            **sums,
+            "bound_by": max(main, key=lambda r: r[kname]["bound_ms"])[
+                kname]["bound_by"],
+            "library_ms": None,
+            "times_for": "FILIP training path: B=GB=128, N1=49 + N1=77, "
+                         "N2=16, D=256, bf16",
+        })
+    return entries
+
+
+def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
+                 filip_result):
+    """One entry per kernel. K1 is on every path: its launches are the
+    serving run's plus the two training runs', each counted from 0 around
+    its path; its times are the serving path's (the sum over its two shapes,
     image L=50 and text L=77 causal, at B=8 in fp32, device time per call),
     with the training path's beside them under "train" (B=128, bf16, with
     the log-sum-exp; its error is that of its output O). K2 runs on the
-    training path only: its times are the sum over the same two shapes at
-    B=128 in bf16."""
+    training paths: its times are the sum over the same two shapes at
+    B=128 in bf16. K3-K5 run on the FILIP training path (``_li_entries``)."""
     serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
     k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
     k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
+    filip = filip_result["launches"]
     return {"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "declip_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "declip_tpu/ops/flash_attention.py:41",
-        "launches": slice_result["launches"] + train_result["launches"],
+        "launches": (slice_result["launches"] + train_result["launches"]
+                     + filip["K1"]),
         "launches_by_path": {"serve": slice_result["launches"],
-                             "train": train_result["launches"]},
+                             "train": train_result["launches"],
+                             "train_filip": filip["K1"]},
         "max_abs_err": serve["max_abs_err"],
         "ms": serve["ms"],
         "plain_ms": serve["plain_ms"],
@@ -1027,7 +1610,9 @@ def kernels_line(rows, bwd_rows, slice_result, train_result):
         "route": "cuda",
         "source": "declip_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": "declip_tpu/ops/flash_attention.py:72",
-        "launches": train_result["bwd_launches"],
+        "launches": train_result["bwd_launches"] + filip["K2"],
+        "launches_by_path": {"train": train_result["bwd_launches"],
+                             "train_filip": filip["K2"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -1035,7 +1620,7 @@ def kernels_line(rows, bwd_rows, slice_result, train_result):
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
         "times_for": "training path: B=128, L=50 + L=77 causal, bf16",
-    }]}
+    }, *_li_entries(li_rows, filip_result)]}
 
 
 def main():
@@ -1056,14 +1641,18 @@ def main():
     card = phase_card_and_build()
     rows = phase_kernel_vs_plain()
     bwd_rows = phase_backward()
+    li_rows = phase_late_interaction()
     slice_result = phase_slice()
     train_result = phase_train()
-    line = kernels_line(rows, bwd_rows, slice_result, train_result)
+    filip_result = phase_train_filip()
+    line = kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
+                        filip_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "attention": rows,
-                   "attention_bwd": bwd_rows, "slice": slice_result,
-                   "train": train_result, "kernels": line["kernels"],
+                   "attention_bwd": bwd_rows, "late_interaction": li_rows,
+                   "slice": slice_result, "train": train_result,
+                   "train_filip": filip_result, "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")
     print(card)  # name and power limit, as nvidia-smi gives them

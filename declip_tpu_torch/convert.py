@@ -3,8 +3,10 @@
 - :func:`state_from_jax_variables` turns the JAX package's ``{'params':
   ...}`` tree, as nested dicts of numpy arrays, into this package's state
   dict: the port's own copy of the name mapping in
-  declip_tpu/tools/convert.py:37-115 (transformer towers; the ResNet and
-  BatchNorm names come with the ResNet towers).
+  declip_tpu/tools/convert.py:37-115 (transformer towers, and FILIP's
+  ``image_mapping``, ``text_mapping`` and ``text_label_predictor`` heads and
+  its shape-``()`` ``logit_scale_dense``, which need no renaming; the ResNet
+  and BatchNorm names come with the ResNet towers).
 - :func:`load_pth` reads the ``{"model": state, "last_iter": n}`` file that
   ``python -m declip_tpu.tools.convert --to_pth`` writes (the reference's
   checkpoint format).

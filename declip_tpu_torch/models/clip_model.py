@@ -36,6 +36,23 @@ def l2_normalize(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
 
 
+def compact_mlm(words: torch.Tensor, labels: torch.Tensor,
+                max_positions: int):
+    """Gather (up to) ``max_positions`` masked token positions ahead of the
+    vocab-sized MLM projection (clip_model.py:46-66 of the JAX package).
+
+    A stable sort puts each row's masked positions first, in sequence
+    order; truncating to the cap keeps the CE identical whenever a row has
+    at most ``max_positions`` masked tokens, and positions past the cap are
+    dropped, as in JAX. words [B, L, W], labels [B, L] -> [B, cap, W],
+    [B, cap]."""
+    unmasked = (labels == -100).int()
+    order = torch.argsort(unmasked, dim=1, stable=True)[:, :max_positions]
+    words = torch.gather(
+        words, 1, order[..., None].expand(-1, -1, words.shape[-1]))
+    return words, torch.gather(labels, 1, order)
+
+
 class CLIP(nn.Module):
     def __init__(self, visual: nn.Module, text: nn.Module,
                  use_allgather: bool = True,

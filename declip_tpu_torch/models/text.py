@@ -69,8 +69,10 @@ class TextTransformer(nn.Module):
         self.ln_final.reset_parameters()
         init_linear(self.text_projection, width ** -0.5, generator)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: int [B, L] -> pooled [B, embed_dim]."""
+    def forward(self, tokens: torch.Tensor, return_dense: bool = False):
+        """tokens: int [B, L] -> pooled [B, embed_dim]; with ``return_dense``
+        also the ``ln_final`` token features [B, L, width] (text.py:104-120),
+        as a tuple."""
         x = self.token_embedding(tokens).to(self.dtype)
         if self.positional_embedding is not None:
             x = x + self.positional_embedding[: x.shape[1]].to(x.dtype)
@@ -79,8 +81,9 @@ class TextTransformer(nn.Module):
         # maximum, and position 0 when a row has no eot (as jnp.argmax)
         eot_pos = (tokens == self.eot_id).int().argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eot_pos]
-        return dense(pooled, self.text_projection.weight,
-                     self.text_projection.bias, self.dtype)
+        out = dense(pooled, self.text_projection.weight,
+                    self.text_projection.bias, self.dtype)
+        return (out, x) if return_dense else out
 
 
 def text_transformers(**kwargs) -> TextTransformer:

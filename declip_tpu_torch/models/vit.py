@@ -105,8 +105,10 @@ class VisualTransformer(nn.Module):
         self.ln_post.reset_parameters()
         nn.init.normal_(self.proj, std=scale, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, H, W, 3] (NHWC) -> [B, embed_dim]."""
+    def forward(self, x: torch.Tensor, return_dense: bool = False):
+        """x: [B, H, W, 3] (NHWC) -> [B, embed_dim]; with ``return_dense``
+        also the patch tokens [B, gh*gw, width], taken before ``ln_post``
+        (vit.py:125-137), as a tuple."""
         b, h, w = x.shape[0], x.shape[1], x.shape[2]
         p = self.patch_size
         if h % p or w % p:
@@ -126,7 +128,8 @@ class VisualTransformer(nn.Module):
         x = self.ln_pre(x)
         x = self.transformer(x)
         feature = self.ln_post(x[:, 0, :])
-        return feature @ self.proj.to(feature.dtype)
+        out = feature @ self.proj.to(feature.dtype)
+        return (out, x[:, 1:, :]) if return_dense else out
 
     def frozen_param_paths(self) -> Tuple[str, ...]:
         """Parameter subtrees the optimizer must not update (freeze_conv1)."""

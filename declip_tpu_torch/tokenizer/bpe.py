@@ -150,6 +150,10 @@ class BpeTokenizer:
     def eot_id(self) -> int:
         return self.encoder["<|endoftext|>"]
 
+    @property
+    def mask_id(self) -> int:
+        return self.encoder["<|mask|>"]
+
     # --- BPE core ---------------------------------------------------------
     def _bpe(self, token: str) -> str:
         cached = self._cache.get(token)

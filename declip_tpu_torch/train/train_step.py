@@ -1,4 +1,5 @@
-"""The training step (port of declip_tpu/train/train_step.py; method clip).
+"""The training step (port of declip_tpu/train/train_step.py; methods clip
+and filip).
 
 ``make_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``, the reference's train-loop body (prototype/solver/
@@ -27,6 +28,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from declip_tpu_torch.models.clip_model import CLIP
+from declip_tpu_torch.models.filip_model import FILIP
 from declip_tpu_torch.ops.contrastive import make_pair_loss
 from declip_tpu_torch.optim import AdamRule, global_norm
 from declip_tpu_torch.train import method_losses
@@ -36,12 +38,18 @@ from declip_tpu_torch.train.state import TrainState
 _PASS_THROUGH = (None, "norm", "value", "logit_scale_grad", "constant")
 
 
+_LOSSES = {"clip": method_losses.clip_losses,
+           "filip": method_losses.filip_losses}
+
+
 def method_of(model) -> str:
+    if isinstance(model, FILIP):
+        return "filip"
     if isinstance(model, CLIP):
         return "clip"
     raise NotImplementedError(
-        f"{type(model).__name__}: only CLIP trains in the port so far "
-        f"(ROADMAP.md items 1.5 and 1.8)")
+        f"{type(model).__name__}: only CLIP and FILIP train in the port so "
+        f"far (ROADMAP.md items 1.5 and 1.8)")
 
 
 @torch.no_grad()
@@ -88,15 +96,16 @@ def logit_scale_guard(s_old: torch.Tensor, logit_scale: torch.Tensor,
 def make_loss_fn(cfg: Dict, method: str = "clip",
                  axis_name: Optional[str] = None) -> Callable:
     """``loss_fn(model, state, batch) -> (loss, metrics)`` for ``method``."""
-    if method != "clip":
+    if method not in _LOSSES:
         raise NotImplementedError(
-            f"method {method!r}: only clip trains in the port so far "
-            f"(ROADMAP.md items 1.5 and 1.8)")
+            f"method {method!r}: only clip and filip train in the port so "
+            f"far (ROADMAP.md items 1.5 and 1.8)")
+    losses = _LOSSES[method]
     pair_loss = make_pair_loss(cfg, axis_name=axis_name)
 
     def loss_fn(model, state: TrainState, batch):
         out = model(batch)
-        return method_losses.clip_losses(out, cfg, axis_name, pair_loss)
+        return losses(out, cfg, axis_name, pair_loss)
 
     return loss_fn
 

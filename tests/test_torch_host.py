@@ -20,6 +20,7 @@ from declip_tpu_torch.config import parse_config
 from declip_tpu_torch.convert import load_pth
 from declip_tpu_torch.data.transforms import build_common_augmentation
 from declip_tpu_torch.tokenizer.bpe import BpeTokenizer
+from declip_tpu_torch.tokenizer.mlm import IGNORE_INDEX, mask_tokens
 from declip_tpu_torch.utils.registry import MODELS, Registry
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,6 +69,30 @@ def test_tokenizer_matches_jax(with_merges, merges):
     assert got[-1, -1] == ours.eot_id  # truncated rows still end in eot
     if with_merges:
         assert ours.encoder["cat</w>"] in got[0]
+
+
+@pytest.mark.parametrize("prob", [0.15, 0.5])
+def test_mask_tokens_matches_jax(prob, merges):
+    """MLM masking: the same numpy generator gives bit-equal masked tokens
+    and labels, with the tokenizer's mask id (the vocab's third-last id)."""
+    from declip_tpu.tokenizer.bpe import BpeTokenizer as JaxTokenizer
+    from declip_tpu.tokenizer.mlm import mask_tokens as jax_mask_tokens
+
+    tok = BpeTokenizer(merges)
+    assert tok.mask_id == JaxTokenizer(merges).mask_id == tok.vocab_size - 3
+    tokens = tok.tokenize(TEXTS * 4)
+    kwargs = dict(mask_id=tok.mask_id, vocab_size=tok.vocab_size,
+                  special_ids=(tok.sot_id, tok.eot_id), mlm_probability=prob)
+    got = mask_tokens(tokens, rng=np.random.default_rng(5), **kwargs)
+    want = jax_mask_tokens(tokens, rng=np.random.default_rng(5), **kwargs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    masked, labels = got
+    selected = labels != IGNORE_INDEX
+    assert selected.any() and (masked == tok.mask_id).any()
+    assert not selected[(tokens == 0) | (tokens == tok.sot_id)
+                        | (tokens == tok.eot_id)].any()
 
 
 @pytest.mark.parametrize("aug", ["ONECROP", "ONECROP256", "ONECROP384"])

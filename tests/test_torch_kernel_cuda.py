@@ -1,7 +1,10 @@
-"""The attention kernels on the card, at the edges chip_smoke.py does not
-reach: ragged query and key tiles (L = 1, 63, 64, 65, 130, 200), causal masks
-across three or more 64-row tiles, both head dims and both dtypes; K1 (the
-forward) and K2 (the backward), each against its plain version.
+"""The kernels on the card, at the edges chip_smoke.py does not reach. The
+attention kernels: ragged query and key tiles (L = 1, 63, 64, 65, 130, 200),
+causal masks across three or more 64-row tiles, both head dims and both
+dtypes; K1 (the forward) and K2 (the backward), each against its plain
+version. The late-interaction kernels K3, K4 and K5: odd N1, N2 and GB
+across their 64-row and 128-token tiles, both dtypes, exact ties, NaN
+features, and the inputs they refuse.
 
 Needs a CUDA card and nvcc; marked ``cuda`` and skipped elsewhere. On the
 card (the repository's conftest imports JAX, which the card's machine need
@@ -14,12 +17,19 @@ Tolerances as in chip_smoke.py. K1: fp32 differs from the plain version in
 summation order only; bf16 by one bf16 rounding of P and of O. K2: fp32 by
 summation order over three chained contractions and by its row term taken
 from O instead of P (equal in exact arithmetic), 1e-4; bf16 by a bf16
-rounding of P, dS and O, 2e-2.
+rounding of P, dS and O, 2e-2. K3-K5: their inputs are small multiples of
+1/64, so that every similarity is exact in fp32 and the kernels and the
+plain versions find the same max winners (with continuous inputs a near tie
+may go either way when the two sum in other orders). The forward, fp32 in
+both dtypes, 1e-5; the gradients rtol 2e-4, atol 2e-5 in fp32 (summation
+order), and in bf16 one rounding of fp32 sums that differ in order, at most
+one bf16 ulp: rtol 8e-3, atol 1e-6.
 """
 
 import pytest
 import torch
 
+from declip_tpu_torch.ops import filip_late_interaction as fli
 from declip_tpu_torch.ops.flash_attention import (
     attention_bwd_plain,
     attention_plain,
@@ -165,3 +175,140 @@ def test_backward_kernel_refusals(card):
                             .transpose(2, 3))
     with pytest.raises(ValueError, match="log-sum-exp"):
         flash_attention_bwd(q, k, v, o, lse.double(), do)
+
+
+LI_TOLERANCE = {torch.float32: ((1e-5, 1e-5), (2e-4, 2e-5)),
+                torch.bfloat16: ((1e-5, 1e-5), (8e-3, 1e-6))}
+
+
+def _grid(card, shape, seed, dtype):
+    """Multiples of 1/64 with numerators in [-12, 12]: exact in bf16, and
+    every product and sum of D <= 256 of them exact in fp32."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    return (torch.randint(-12, 13, shape, generator=g, device=card)
+            .float() / 64).to(dtype)
+
+
+def _li_check(card, b, n1, gb, n2, d, dtype, seed, d2=None):
+    d1 = _grid(card, (b, n1, d), seed, dtype)
+    if d2 is None:
+        d2 = _grid(card, (gb, n2, d), seed + 1, dtype)
+    g = torch.randn(b, gb, generator=torch.Generator(device=card)
+                    .manual_seed(seed + 2), device=card)
+    (fwd_rtol, fwd_atol), (rtol, atol) = LI_TOLERANCE[dtype]
+    leaves = [d1.clone().requires_grad_(), d2.clone().requires_grad_()]
+    before = (fli.late_interaction_fwd.launches,
+              fli.late_interaction_bwd_d1.launches,
+              fli.late_interaction_bwd_d2.launches)
+    raw = fli._LateInteraction.apply(*leaves)
+    dd1, dd2 = torch.autograd.grad(raw, leaves, g)
+    torch.cuda.synchronize()
+    assert (fli.late_interaction_fwd.launches,
+            fli.late_interaction_bwd_d1.launches,
+            fli.late_interaction_bwd_d2.launches) == \
+        tuple(n + 1 for n in before)
+    assert raw.dtype == torch.float32 and raw.shape == (b, gb)
+    assert dd1.dtype == dd2.dtype == dtype
+    torch.testing.assert_close(raw, fli.late_interaction_raw_plain(d1, d2),
+                               rtol=fwd_rtol, atol=fwd_atol)
+    want1, want2 = fli.late_interaction_bwd_plain(d1, d2, g)
+    torch.testing.assert_close(dd1.float(), want1.float(), rtol=rtol,
+                               atol=atol, msg="dd1")
+    torch.testing.assert_close(dd2.float(), want2.float(), rtol=rtol,
+                               atol=atol, msg="dd2")
+    return dd2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n1,gb,n2,d", [
+    (3, 1, 1, 1, 8),        # one of everything
+    (5, 13, 129, 3, 40),    # GB one past a key tile, D not a multiple of 32
+    (2, 65, 7, 17, 64),     # N1 one past a row tile, 7 key items of 17
+    (4, 33, 70, 65, 256),   # wide key items (N2 > 64), two d slices in K5
+    (1, 200, 9, 128, 96),   # the largest N2, N1 across four row tiles
+    (7, 77, 300, 16, 256),  # text queries, GB of three key tiles
+])
+def test_late_interaction_kernels_match_plain(card, b, n1, gb, n2, d, dtype):
+    _li_check(card, b, n1, gb, n2, d, dtype, seed=b * 1000 + n1 + gb + n2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_late_interaction_kernels_split_ties(card, dtype):
+    """Duplicated key tokens tie exactly: K4 and K5 split the gradient
+    evenly between them, as the plain versions (and jnp.max) do."""
+    d2 = _grid(card, (40, 6, 64), 3, dtype)
+    d2[:, 4] = d2[:, 1]
+    d2[::3, 5] = d2[::3, 1]
+    dd2 = _li_check(card, 6, 11, 40, 6, 64, dtype, seed=9, d2=d2)
+    torch.testing.assert_close(dd2[:, 4], dd2[:, 1], rtol=0, atol=0)
+    assert dd2[:, 1].abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("where", ["key", "query"])
+def test_late_interaction_kernels_propagate_nan(card, where, dtype):
+    """A NaN feature wins its max, as in torch.amax and jnp.max, and its
+    row's gradient weights all become NaN: the kernels give NaN exactly
+    where the plain versions do, and their values elsewhere."""
+    d1 = _grid(card, (5, 9, 64), 31, dtype)
+    d2 = _grid(card, (12, 7, 64), 32, dtype)
+    if where == "key":
+        d2[4, 2, 10] = float("nan")
+    else:
+        d1[1, 3, 10] = float("nan")
+    g = torch.randn(5, 12, generator=torch.Generator(device=card)
+                    .manual_seed(33), device=card)
+    (fwd_rtol, fwd_atol), (rtol, atol) = LI_TOLERANCE[dtype]
+    want1, want2 = fli.late_interaction_bwd_plain(d1, d2, g)
+    for got, want, tol in (
+            (fli.late_interaction_fwd(d1, d2),
+             fli.late_interaction_raw_plain(d1, d2), (fwd_rtol, fwd_atol)),
+            (fli.late_interaction_bwd_d1(d1, d2, g), want1, (rtol, atol)),
+            (fli.late_interaction_bwd_d2(d1, d2, g), want2, (rtol, atol))):
+        assert torch.isnan(want).any()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                                   atol=tol[1], equal_nan=True)
+
+
+def test_late_interaction_forward_unit_vectors(card):
+    """Continuous unit-vector inputs, as the training path gives them: the
+    forward (a max's value does not depend on which near-tie wins)."""
+    g = torch.Generator(device=card).manual_seed(21)
+    d1 = torch.nn.functional.normalize(
+        torch.randn(9, 49, 256, generator=g, device=card), dim=-1)
+    d2 = torch.nn.functional.normalize(
+        torch.randn(131, 16, 256, generator=g, device=card), dim=-1)
+    torch.testing.assert_close(fli.late_interaction_fwd(d1, d2),
+                               fli.late_interaction_raw_plain(d1, d2),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_late_interaction_kernels_refuse(card):
+    """What the kernels do not take raises; nothing falls back to the plain
+    version."""
+    d1, d2 = torch.zeros(2, 5, 64, device=card), torch.zeros(3, 4, 64,
+                                                            device=card)
+    g = torch.zeros(2, 3, device=card)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fli.late_interaction_fwd(d1.half(), d2.half())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fli.late_interaction_fwd(d1, d2.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        fli.late_interaction_fwd(d1.transpose(0, 1).contiguous()
+                                 .transpose(0, 1), d2)
+    with pytest.raises(ValueError, match="at most 128 key tokens"):
+        fli.late_interaction_fwd(d1, torch.zeros(3, 129, 64, device=card))
+    with pytest.raises(ValueError, match="feature dim of at most 256"):
+        fli.late_interaction_fwd(torch.zeros(2, 5, 264, device=card),
+                                 torch.zeros(3, 4, 264, device=card))
+    with pytest.raises(ValueError, match="fp32"):
+        fli.late_interaction_bwd_d1(d1, d2, g.double())
+    with pytest.raises(ValueError, match="fp32"):
+        fli.late_interaction_bwd_d2(d1, d2, g[:, :2])
+    # the autograd route refuses the same way, forward and backward
+    with pytest.raises(ValueError, match="at most 128 key tokens"):
+        fli.late_interaction_logits_kernel(
+            d1, torch.zeros(3, 200, 64, device=card), torch.ones(()))
