@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
 ``sm_90a`` into ``declip_tpu_torch/_build/lib<name>-<hash>.so`` at first use
-(the hash covers the source and the flags, so an edit rebuilds). Nothing is
-built at import time: the CPU tests import every module, and a machine
-without a card has no nvcc.
+(the hash covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edit rebuilds). Nothing is built at import time: the CPU tests
+import every module, and a machine without a card has no nvcc.
 """
 
 from __future__ import annotations
@@ -42,11 +42,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:

@@ -4,15 +4,26 @@ plain versions.
 Replaces declip_tpu/ops/flash_attention.py (two Pallas TPU kernels). The
 kernels are ``csrc/flash_attn_fwd.cu`` (K1, the forward) and
 ``csrc/flash_attn_bwd.cu`` (K2, the backward): CUDA C++ for sm_90a with a
-plain C interface, loaded with ctypes. Each source says what bounds it on an
-H100 and how its design answers that.
+plain C interface, loaded with ctypes. Each takes one of two routes by
+dtype:
+
+- bfloat16 (training): the tensor cores, through warp-level ``mma.sync``
+  with bf16 operands and fp32 accumulation, building blocks in
+  ``csrc/attn_mma.cuh``. K2 is one kernel at L <= 128 (every training
+  shape) and three above. The bf16 tensors they read must start on
+  16-byte boundaries;
+- float32 (serving, the fp32 checks): the CUDA cores in fp32 FMAs, since the
+  tensor cores would take fp32 only as TF32.
+
+Each source says what bounds it on an H100 and how its design answers that.
 
 ``flash_attention`` takes ``[B, H, L, Dh]`` q, k, v:
 
 - on CPU tensors it runs :func:`attention_plain`, and its gradient
   :func:`attention_bwd_plain`;
 - on CUDA tensors it launches K1, and K2 for the gradient, or raises on what
-  the kernels do not take (dtype, Dh, layout). There is no fallback.
+  the kernels do not take (dtype, Dh, layout, alignment). There is no
+  fallback.
 
 Where autograd needs a gradient, the call goes through ``_FlashAttention``
 (the ``jax.custom_vjp`` of the JAX package): the forward also keeps each
@@ -122,6 +133,20 @@ def _check_kernel_inputs(q, k, v) -> None:
         raise ValueError("q, k, v must lie on one CUDA device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel takes contiguous q, k, v")
+    _check_aligned(q=q, k=k, v=v)
+
+
+def _check_aligned(**tensors) -> None:
+    """The bf16 kernels read rows 16 bytes at a time (cp.async, vector
+    loads), so each bf16 tensor they read must start on a 16-byte boundary;
+    a view at another storage offset raises here instead of faulting on
+    the card."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(
+                f"the bf16 kernel takes {name} starting on a 16-byte "
+                f"boundary; got address {t.data_ptr():#x} (a view at "
+                f"storage offset {t.storage_offset()})")
 
 
 def _forward_kernel(q, k, v, causal: bool, scale: float, with_lse: bool):
@@ -165,6 +190,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{tuple(t.shape)} {t.dtype} {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"the kernel takes a contiguous {name}")
+    _check_aligned(o=o, do=do)
     b, h, length, dh = q.shape
     if (lse is None or lse.shape != (b, h, length)
             or lse.dtype != torch.float32 or lse.device != q.device
@@ -232,6 +258,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # launches of each CUDA kernel in this process (CPU calls do not count); one
-# flash_attention_bwd launch is its three kernels (delta, dk/dv, dq)
+# flash_attention_bwd launch is one kernel (bf16, L <= 128) or three (delta,
+# dk/dv, dq)
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0

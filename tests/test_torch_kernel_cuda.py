@@ -1,10 +1,11 @@
 """The kernels on the card, at the edges chip_smoke.py does not reach. The
-attention kernels: ragged query and key tiles (L = 1, 63, 64, 65, 130, 200),
-causal masks across three or more 64-row tiles, both head dims and both
-dtypes; K1 (the forward) and K2 (the backward), each against its plain
-version. The late-interaction kernels K3, K4 and K5: odd N1, N2 and GB
-across their 64-row and 128-token tiles, both dtypes, exact ties, NaN
-features, and the inputs they refuse.
+attention kernels: lengths at the edges of the 16-row mma tiles and of the
+64-row and 128-row block tiles (L = 1, 15, 16, 17, 50, 63, 64, 65, 77, 127,
+128, 129, 130, 200, 577), causal masks across three or more 64-row tiles,
+both head dims, both dtypes, and B*H of 6 and of 1; K1 (the forward) and
+K2 (the backward), each against its plain version. The late-interaction
+kernels K3, K4 and K5: odd N1, N2 and GB across their 64-row and 128-token
+tiles, both dtypes, exact ties, NaN features, and the inputs they refuse.
 
 Needs a CUDA card and nvcc; marked ``cuda`` and skipped elsewhere. On the
 card (the repository's conftest imports JAX, which the card's machine need
@@ -13,24 +14,23 @@ not have)::
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernel_cuda.py
 
-Tolerances as in chip_smoke.py. K1: fp32 differs from the plain version in
-summation order only; bf16 by one bf16 rounding of P and of O. K2: fp32 by
-summation order over three chained contractions and by its row term taken
-from O instead of P (equal in exact arithmetic), 1e-4; bf16 by a bf16
-rounding of P, dS and O, 2e-2. K3-K5: their inputs are small multiples of
-1/64, so that every similarity is exact in fp32 and the kernels and the
-plain versions find the same max winners (with continuous inputs a near tie
-may go either way when the two sum in other orders). The forward, fp32 in
-both dtypes, 1e-5; the gradients rtol 2e-4, atol 2e-5 in fp32 (summation
-order), and in bf16 one rounding of fp32 sums that differ in order, at most
-one bf16 ulp: rtol 8e-3, atol 1e-6.
+Tolerances and the rule that applies them are chip_smoke.py's
+(``TOLERANCE``, ``BWD_TOLERANCE``, ``LI_TOLERANCE``, ``_within``), whose
+comments give their reasons. K3-K5's inputs are small multiples of 1/64,
+so that every similarity is exact in fp32 and the kernels and the plain
+versions find the same max winners (with continuous inputs a near tie may
+go either way when the two sum in other orders).
 """
+
+import importlib.util
+import pathlib
 
 import pytest
 import torch
 
 from declip_tpu_torch.ops import filip_late_interaction as fli
 from declip_tpu_torch.ops.flash_attention import (
+    _forward_kernel,
     attention_bwd_plain,
     attention_plain,
     flash_attention,
@@ -39,9 +39,14 @@ from declip_tpu_torch.ops.flash_attention import (
 
 pytestmark = pytest.mark.cuda
 
-TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
-BWD_TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
-LENGTHS = [1, 63, 64, 65, 130, 200]
+REPO = pathlib.Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               REPO / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+LENGTHS = [1, 15, 16, 17, 50, 63, 64, 65, 77, 127, 128, 129, 130, 200, 577]
+# (B, H): several heads, and one (the grid's smallest)
+BATCH_HEADS = [(3, 2), (1, 1)]
 
 
 @pytest.fixture
@@ -51,10 +56,21 @@ def card():
     return torch.device("cuda")
 
 
-def _qkv(card, length, dh, dtype, seed, n=3):
+def _qkv(card, length, dh, dtype, seed, n=3, bh=(3, 2)):
     g = torch.Generator(device=card).manual_seed(seed)
-    return [torch.randn(3, 2, length, dh, generator=g, device=card).to(dtype)
+    return [torch.randn(*bh, length, dh, generator=g, device=card).to(dtype)
             for _ in range(n)]
+
+
+def _tolerance(table, dtype):
+    return table[str(dtype).replace("torch.", "")]
+
+
+def _assert_within(got, want, table, name=""):
+    tol = _tolerance(table, got.dtype)
+    ok, err, share = smoke._within(got, want, *tol)
+    assert ok, (f"{name}: max abs err {err:.3g}, {share:.0%} of its limit "
+                f"under (rtol, atol, atol share) {tol}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -62,17 +78,16 @@ def _qkv(card, length, dh, dtype, seed, n=3):
 @pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("length", LENGTHS)
-def test_kernel_matches_plain(card, length, causal, dh, dtype):
-    q, k, v = _qkv(card, length, dh, dtype, length * 7 + dh + causal)
+@pytest.mark.parametrize("bh", BATCH_HEADS, ids=["bh6", "bh1"])
+def test_kernel_matches_plain(card, bh, length, causal, dh, dtype):
+    q, k, v = _qkv(card, length, dh, dtype, length * 7 + dh + causal, bh=bh)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
     want = attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    rtol, atol = TOLERANCE[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol)
+    _assert_within(got, want, smoke.TOLERANCE)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -80,10 +95,12 @@ def test_kernel_matches_plain(card, length, causal, dh, dtype):
 @pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("length", LENGTHS)
-def test_backward_kernel_matches_plain(card, length, causal, dh, dtype):
+@pytest.mark.parametrize("bh", BATCH_HEADS, ids=["bh6", "bh1"])
+def test_backward_kernel_matches_plain(card, bh, length, causal, dh, dtype):
     """Autograd through flash_attention on the card: K1 keeps the row
     log-sum-exp, K2 gives dq, dk, dv; each against attention_bwd_plain."""
-    q, k, v, do = _qkv(card, length, dh, dtype, length * 11 + dh + causal, 4)
+    q, k, v, do = _qkv(card, length, dh, dtype, length * 11 + dh + causal, 4,
+                       bh=bh)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = (flash_attention.launches, flash_attention_bwd.launches)
     out = flash_attention(*leaves, causal=causal)
@@ -94,18 +111,14 @@ def test_backward_kernel_matches_plain(card, length, causal, dh, dtype):
     torch.cuda.synchronize()
     assert (flash_attention.launches, flash_attention_bwd.launches) == \
         (before[0] + 1, before[1] + 1)
-    rtol, atol = BWD_TOLERANCE[dtype]
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == q.shape, name
-        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
-                                   atol=atol, msg=name)
+        _assert_within(g, w, smoke.BWD_TOLERANCE, name)
 
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_forward_lse_matches_logsumexp(card, causal):
     """K1's log-sum-exp output, the row statistic K2 rebuilds P from."""
-    from declip_tpu_torch.ops.flash_attention import _forward_kernel
-
     q, k, v = _qkv(card, 130, 64, torch.float32, 5)
     scale = 64 ** -0.5
     _, lse = _forward_kernel(q, k, v, causal, scale, with_lse=True)
@@ -156,6 +169,33 @@ def test_kernel_raises_instead_of_falling_back(card):
     assert q.grad is not None and q.grad.shape == q.shape
 
 
+def test_bf16_kernels_refuse_misaligned_tensors(card):
+    """The bf16 kernels read 16 bytes at a time: a contiguous bf16 view one
+    element into its storage raises, forward and backward, and the card
+    stays usable."""
+    q, k, v, do = _qkv(card, 16, 64, torch.bfloat16, 4, 4)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=card)
+    shifted = flat[1:].view(q.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(shifted, k, v)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(q, k, shifted)
+    o, lse = _forward_kernel(q, k, v, False, 64 ** -0.5, with_lse=True)
+    shifted.copy_(o)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention_bwd(q, k, v, shifted, lse, do)
+    shifted.copy_(do)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention_bwd(q, k, v, o, lse, shifted)
+    # the refusals left the context whole: the kernels still run
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    _assert_within(got[0], attention_bwd_plain(q, k, v, do)[0],
+                   smoke.BWD_TOLERANCE, "dq")
+
+
 def test_backward_kernel_refusals(card):
     q, k, v, do = _qkv(card, 16, 64, torch.float32, 3, 4)
     o, lse = (flash_attention(q, k, v),
@@ -177,10 +217,6 @@ def test_backward_kernel_refusals(card):
         flash_attention_bwd(q, k, v, o, lse.double(), do)
 
 
-LI_TOLERANCE = {torch.float32: ((1e-5, 1e-5), (2e-4, 2e-5)),
-                torch.bfloat16: ((1e-5, 1e-5), (8e-3, 1e-6))}
-
-
 def _grid(card, shape, seed, dtype):
     """Multiples of 1/64 with numerators in [-12, 12]: exact in bf16, and
     every product and sum of D <= 256 of them exact in fp32."""
@@ -195,7 +231,8 @@ def _li_check(card, b, n1, gb, n2, d, dtype, seed, d2=None):
         d2 = _grid(card, (gb, n2, d), seed + 1, dtype)
     g = torch.randn(b, gb, generator=torch.Generator(device=card)
                     .manual_seed(seed + 2), device=card)
-    (fwd_rtol, fwd_atol), (rtol, atol) = LI_TOLERANCE[dtype]
+    (fwd_rtol, fwd_atol), (rtol, atol) = _tolerance(smoke.LI_TOLERANCE,
+                                                    dtype)
     leaves = [d1.clone().requires_grad_(), d2.clone().requires_grad_()]
     before = (fli.late_interaction_fwd.launches,
               fli.late_interaction_bwd_d1.launches,
@@ -261,7 +298,8 @@ def test_late_interaction_kernels_propagate_nan(card, where, dtype):
         d1[1, 3, 10] = float("nan")
     g = torch.randn(5, 12, generator=torch.Generator(device=card)
                     .manual_seed(33), device=card)
-    (fwd_rtol, fwd_atol), (rtol, atol) = LI_TOLERANCE[dtype]
+    (fwd_rtol, fwd_atol), (rtol, atol) = _tolerance(smoke.LI_TOLERANCE,
+                                                    dtype)
     want1, want2 = fli.late_interaction_bwd_plain(d1, d2, g)
     for got, want, tol in (
             (fli.late_interaction_fwd(d1, d2),
