@@ -9,13 +9,17 @@ Phases (any failed check raises, and the script exits non-zero):
    fresh nvcc build of every CUDA kernel (sm_90a), one nvcc per source, all
    started together; ptxas' registers and spills per kernel; the toolkit's
    ``cuobjdump -sass`` of the attention libraries, which must show HMMA
-   (tensor-core) instructions in every bf16 product kernel of K1 and K2,
-   and no ptxas spill in any kernel that takes bf16;
+   (tensor-core) instructions in K1's bf16 and fp32 (split TF32) kernels
+   and in K2's bf16 kernels, and no ptxas spill in any of them or in any
+   other kernel that takes bf16;
 2. K1 vs plain: the forward kernel's wrapper against its plain PyTorch
-   version on the card, at the shapes the serving path gives it and at
-   longer sequences, in fp32 and bf16; times for the kernel, the plain
-   version and one PyTorch library call, beside the least time the card
-   could take;
+   version on the card, at the shapes the serving path gives it (fp32 at
+   B = 1, 8 and 16) and at longer sequences, in fp32 and bf16; times for
+   the kernel, the plain version and one PyTorch library call (with the
+   library's kernels, which name its backend), beside the least time the
+   card could take; and at the serving shapes, the plain version on
+   TF32-rounded inputs must miss the fp32 limit, which shows that the limit
+   would fail a kernel that dropped the split;
 2b. K2 vs plain: the backward kernel against ``attention_bwd_plain`` at the
    training path's shapes (B=128) and at longer sequences, in fp32 and bf16,
    dq, dk and dv each within tolerance; the same four times, K2's time by
@@ -137,6 +141,14 @@ ATTN_CASES = [
     (8, 8, 77, 32, True),     # head dim 32 (the tiny unit widths)
 ]
 MAIN_PATH_CASES = ATTN_CASES[:2]
+# the serving batcher's other buckets that phase 3 times (1 and 16 rows), at
+# the serving shapes, in fp32 only (serving's dtype)
+SERVE_BUCKET_CASES = [
+    (1, 12, 50, 64, False),
+    (1, 8, 77, 64, True),
+    (16, 12, 50, 64, False),
+    (16, 8, 77, 64, True),
+]
 # (B, H, L, Dh, causal): the training path's two shapes first, at the
 # YFCC15M recipe's batch of 128 per card (bench.py:726)
 TRAIN_BATCH = 128
@@ -424,91 +436,160 @@ def hmma_counts(sass):
             for fn, body in zip(parts[1::2], parts[2::2])}
 
 
-def check_tensor_cores(ptxas, names=("flash_attn_fwd", "flash_attn_bwd")):
-    """Phase 1's check of the attention libraries' bf16 route: the
+# the kernels phase 1 holds to the tensor cores, by library: each name mark
+# must match at least one kernel, and every kernel it matches must show
+# HMMA in its SASS (TF32 mma.sync appears as HMMA.1688.F32.TF32) and no
+# ptxas spill
+TENSOR_CORE_KERNELS = {"flash_attn_fwd": ("_bf16_kernel", "_tf32_kernel"),
+                       "flash_attn_bwd": ("_bf16_kernel",)}
+
+
+def tensor_core_faults(name, hmma, ptxas):
+    """What phase 1 finds wrong with library ``name``'s tensor-core kernels,
+    from its SASS HMMA counts (``hmma_counts``) and its ptxas report
+    (``ptxas_report``): a missing kernel, one without HMMA, and a spill in a
+    tensor-core kernel or in any other kernel that takes bf16 (the row-term
+    pre-pass has no product for the tensor cores). -> (faults, {kernel:
+    HMMA count} of the tensor-core kernels)."""
+    faults, found = [], {}
+    for mark in TENSOR_CORE_KERNELS[name]:
+        mine = {fn: n for fn, n in hmma.items() if mark in fn}
+        if not mine:
+            faults.append(f"{name}: no tensor-core kernel *{mark} in the "
+                          f"SASS (functions: {sorted(hmma)})")
+        faults += [f"{name}: {fn} has no HMMA instruction"
+                   for fn, n in mine.items() if n == 0]
+        found.update(mine)
+    for fn, rep in ptxas.items():
+        if fn in found or any(w in fn for w in ("bf16", "bfloat16", "tf32")):
+            if rep.get("spill_stores", 0) or rep.get("spill_loads", 0):
+                faults.append(f"{name}: ptxas spilled in {fn}: {rep}")
+    return faults, found
+
+
+def check_tensor_cores(ptxas, names=tuple(TENSOR_CORE_KERNELS)):
+    """Phase 1's check of the attention libraries' tensor-core routes: the
     toolkit's ``cuobjdump -sass`` of each built library, HMMA instructions
-    counted per kernel. Fails unless each library has a bf16 tensor-core
-    kernel (``*_bf16_kernel``) and each of those holds HMMA, or if ptxas
-    spilled in any kernel that takes bf16 (the row-term pre-pass included:
-    it has no product for the tensor cores). -> {kernel: HMMA count}."""
+    counted per kernel. Fails unless K1 has its bf16 kernel and its fp32
+    (split TF32) kernel and K2 its bf16 kernel, each holding HMMA, or if
+    ptxas spilled in any of them or in another kernel that takes bf16
+    (``tensor_core_faults``). -> {kernel: HMMA count}."""
     from declip_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
-    hmma = {}
+    hmma, faults = {}, []
     for name in names:
         counts = hmma_counts(subprocess.run(
             [cuobjdump, "-sass", _build.library_path(name)],
             capture_output=True, text=True, check=True).stdout)
-        mma = {fn: n for fn, n in counts.items() if "_bf16_kernel" in fn}
-        check(mma, f"{name}: no bf16 tensor-core kernel in the SASS "
-                   f"(functions: {sorted(counts)})")
-        for fn, n in mma.items():
-            check(n > 0, f"{name}: {fn} has no HMMA instruction")
-        hmma.update(mma)
-        for fn, rep in ptxas[name].items():
-            if "bf16" in fn or "bfloat16" in fn:
-                check(rep.get("spill_stores", 0) == 0
-                      and rep.get("spill_loads", 0) == 0,
-                      f"{name}: ptxas spilled in {fn}: {rep}")
-    print(f"tensor cores: HMMA instructions per bf16 kernel {hmma}; no "
-          f"ptxas spill in a bf16 kernel", flush=True)
+        bad, found = tensor_core_faults(name, counts, ptxas[name])
+        faults += bad
+        hmma.update(found)
+    check(not faults, "; ".join(faults))
+    print(f"tensor cores: HMMA instructions per tensor-core kernel {hmma}; "
+          f"no ptxas spill in them or in a bf16 kernel", flush=True)
     return hmma
 
 
-def phase_kernel_vs_plain():
+def round_tf32(x):
+    """fp32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the
+    nearest value with 11 significant bits, ties away from zero."""
+    import torch
+
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_plain_check(q, k, v, causal, scale):
+    """The plain version on q, k, v rounded to TF32 against the plain
+    version in fp32: what a kernel that dropped the split of its fp32 route
+    would be off by. It must lie beyond TOLERANCE["float32"], or that limit
+    could not catch such a kernel. -> (max abs err, share of the limit)."""
+    from declip_tpu_torch.ops.flash_attention import attention_plain
+
+    ok, err, share = _within(
+        attention_plain(*(round_tf32(x) for x in (q, k, v)), causal, scale),
+        attention_plain(q, k, v, causal, scale), *TOLERANCE["float32"])
+    check(not ok, f"plain attention on TF32-rounded inputs is within the fp32 "
+                  f"limit {TOLERANCE['float32']} (max abs err {err:.3g}): the "
+                  f"limit would not catch a kernel without the split")
+    return err, share
+
+
+def attention_row(b, h, l, dh, causal, dtype, seed):
+    """K1's wrapper against attention_plain on seeded inputs of one shape,
+    checked at TOLERANCE, then timed beside the plain version and one
+    ``scaled_dot_product_attention`` call (whose kernels, by name, name
+    the library's backend) and the bound. At the serving shapes in fp32
+    also ``tf32_plain_check``. -> the row of phase 2."""
     import torch
     import torch.nn.functional as F
 
     from declip_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
+    dname = str(dtype).replace("torch.", "")
+    tol = TOLERANCE[dname]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, h, l, dh, generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    scale = dh ** -0.5
+    out = flash_attention(q, k, v, causal=causal, scale=scale)
+    ref = attention_plain(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == dtype,
+          f"kernel output {out.shape} {out.dtype}")
+    check(torch.isfinite(out).all().item(), "kernel output not finite")
+    ok, max_err, share = _within(out, ref, *tol)
+    check(ok, f"kernel vs plain at {(b, h, l, dh, causal, dname)}: "
+              f"max abs err {max_err:.3g} beyond (rtol, atol, atol "
+              f"share of max |plain|) {tol}")
+    fns = {
+        "ms": lambda: flash_attention(q, k, v, causal=causal, scale=scale),
+        "plain_ms": lambda: attention_plain(q, k, v, causal, scale),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale)}
+    # device time where the profiler sees the card, else CUDA events
+    row = {"shape": [b, h, l, dh], "causal": causal, "dtype": dname,
+           "max_abs_err": max_err, "limit_share": share, "tolerance": tol,
+           "max_abs_ref": ref.float().abs().max().item()}
+    for key, fn in fns.items():
+        ms, by_name = device_ms(fn)
+        row[key] = ms or cuda_ms(fn)
+        if key == "library_ms":
+            row["library_kernels"] = sorted(by_name)
+    row["call_ms"] = cuda_ms(fns["ms"])  # the wrapper's call, host included
+    row["bound_ms"], row["bound_by"] = attention_bound(b, h, l, dh, causal,
+                                                       dname)
+    if dname == "float32" and (b, h, l, dh, causal) in MAIN_PATH_CASES:
+        row["tf32_plain_err"], row["tf32_plain_limit_share"] = \
+            tf32_plain_check(q, k, v, causal, scale)
+    return row
+
+
+def phase_kernel_vs_plain():
+    import torch
+
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).replace("torch.", "")
-        tol = TOLERANCE[dname]
-        for i, (b, h, l, dh, causal) in enumerate(ATTN_CASES):
-            g = torch.Generator(device="cuda").manual_seed(100 + i)
-            q, k, v = (torch.randn(b, h, l, dh, generator=g, device="cuda")
-                       .to(dtype) for _ in range(3))
-            scale = dh ** -0.5
-            out = flash_attention(q, k, v, causal=causal, scale=scale)
-            ref = attention_plain(q, k, v, causal, scale)
-            torch.cuda.synchronize()
-            check(out.shape == ref.shape and out.dtype == dtype,
-                  f"kernel output {out.shape} {out.dtype}")
-            check(torch.isfinite(out).all().item(), "kernel output not finite")
-            ok, max_err, share = _within(out, ref, *tol)
-            check(ok, f"kernel vs plain at {(b, h, l, dh, causal, dname)}: "
-                      f"max abs err {max_err:.3g} beyond (rtol, atol, atol "
-                      f"share of max |plain|) {tol}")
-            fns = {
-                "ms": lambda: flash_attention(q, k, v, causal=causal,
-                                              scale=scale),
-                "plain_ms": lambda: attention_plain(q, k, v, causal, scale),
-                "library_ms": lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, scale=scale)}
-            # device time where the profiler sees the card, else CUDA events
-            times = {key: device_ms(fn)[0] or cuda_ms(fn)
-                     for key, fn in fns.items()}
-            call_ms = cuda_ms(fns["ms"])  # the wrapper's call, host included
-            ms, plain_ms, lib_ms = (times["ms"], times["plain_ms"],
-                                    times["library_ms"])
-            bound_ms, bound_by = attention_bound(b, h, l, dh, causal, dname)
-            row = {"shape": [b, h, l, dh], "causal": causal, "dtype": dname,
-                   "max_abs_err": max_err, "limit_share": share,
-                   "tolerance": tol, "max_abs_ref": ref.float().abs().max()
-                   .item(),
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "call_ms": call_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+        cases = ATTN_CASES + (SERVE_BUCKET_CASES if dtype == torch.float32
+                              else [])
+        for i, (b, h, l, dh, causal) in enumerate(cases):
+            row = attention_row(b, h, l, dh, causal, dtype, 100 + i)
             rows.append(row)
+            tf32_note = ("" if "tf32_plain_err" not in row else
+                         f"  plain on TF32 inputs err "
+                         f"{row['tf32_plain_err']:.2e} "
+                         f"({row['tf32_plain_limit_share']:.0f}x limit)")
             print(f"attn B={b} H={h} L={l} Dh={dh} causal={int(causal)} "
-                  f"{dname:8s} err {max_err:.2e} ({share:.1%} of limit)  "
-                  f"kernel {ms:.4f} ms "
-                  f"(call {call_ms:.4f})  plain {plain_ms:.4f}  "
-                  f"sdpa {lib_ms:.4f}  "
-                  f"bound {bound_ms:.5f} ({bound_by})  "
-                  f"{bound_ms / ms:.1%} of bound", flush=True)
+                  f"{row['dtype']:8s} err {row['max_abs_err']:.2e} "
+                  f"({row['limit_share']:.1%} of limit)  kernel "
+                  f"{row['ms']:.4f} ms (call {row['call_ms']:.4f})  plain "
+                  f"{row['plain_ms']:.4f}  sdpa {row['library_ms']:.4f}  "
+                  f"bound {row['bound_ms']:.5f} ({row['bound_by']})  "
+                  f"{row['bound_ms'] / row['ms']:.1%} of bound{tf32_note}  "
+                  f"sdpa kernels {[n[:60] for n in row['library_kernels']]}",
+                  flush=True)
     return rows
 
 

@@ -12,8 +12,10 @@ dtype:
   ``csrc/attn_mma.cuh``. K2 is one kernel at L <= 128 (every training
   shape) and three above. The bf16 tensors they read must start on
   16-byte boundaries;
-- float32 (serving, the fp32 checks): the CUDA cores in fp32 FMAs, since the
-  tensor cores would take fp32 only as TF32.
+- float32 (serving, the fp32 checks): K1 on the tensor cores in split
+  TF32, each fp32 product taken as three TF32 products (hi.hi + hi.lo +
+  lo.hi), which keeps fp32-grade accuracy where TF32 alone keeps about
+  three digits; K2 on the CUDA cores in fp32 FMAs.
 
 Each source says what bounds it on an H100 and how its design answers that.
 

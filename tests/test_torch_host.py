@@ -130,6 +130,66 @@ def test_find_last_checkpoint(tmp_path):
     assert find_last_checkpoint(str(tmp_path)).endswith("ckpt.pth.tar")
 
 
+TINY_CLIP = """
+model:
+    type: clip_vitb32
+    kwargs:
+        image_encode: {embed_dim: 32, input_resolution: 32, patch_size: 8,
+                       width: 64, layers: 2, heads: 2}
+        text_encode: {embed_dim: 32, transformer_width: 64,
+                      transformer_heads: 2, transformer_layers: 2}
+        clip: {use_allgather: False}
+"""
+
+
+def _seeded_state(seed):
+    from declip_tpu_torch.models import model_entry
+
+    cfg = parse_config(TINY_CLIP)
+    model = model_entry({"type": cfg.model.type,
+                         "kwargs": dict(cfg.model.kwargs)})
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return model.state_dict()
+
+
+@pytest.mark.parametrize("files", [("ckpt.msgpack",),
+                                   ("ckpt_10.msgpack", "ckpt_20.msgpack"),
+                                   ("ckpt.msgpack", "ckpt.pth.tar"),
+                                   ()],
+                         ids=["jax-only", "jax-steps", "both", "empty"])
+def test_load_eval_model_on_an_experiment_dir(tmp_path, files):
+    """A directory with only the JAX package's msgpack checkpoints raises,
+    naming the newest one and the command that converts it; a .pth.tar
+    loads whatever lies beside it; no checkpoint gives the seeded init."""
+    from declip_tpu_torch.tools._common import load_eval_model
+
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text(TINY_CLIP)
+    ckpts = tmp_path / "checkpoints"
+    ckpts.mkdir()
+    for i, name in enumerate(files):
+        p = ckpts / name
+        if name.endswith(".pth.tar"):
+            torch.save({"model": _seeded_state(7), "last_iter": 3}, p)
+        else:
+            p.write_bytes(b"\x81\xa4step\x00")  # never parsed by the port
+        os.utime(p, (100 + i, 100 + i))
+    jax_only = files and not any(f.endswith(".pth.tar") for f in files)
+    if jax_only:
+        with pytest.raises(FileNotFoundError) as err:
+            load_eval_model(str(cfg), device="cpu")
+        msg = str(err.value)
+        newest = str(ckpts / files[-1])
+        assert (f"python -m declip_tpu.tools.convert --config {cfg} "
+                f"--to_pth {newest} --out {ckpts / 'ckpt.pth.tar'}") in msg
+        return
+    got = load_eval_model(str(cfg), device="cpu").state_dict()
+    want = _seeded_state(7 if files else 0)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
 def test_load_pth_strips_module_prefix(tmp_path):
     state = {"module.visual.proj": torch.ones(2), "logit_scale": torch.zeros(1)}
     path = tmp_path / "ckpt.pth.tar"

@@ -74,6 +74,71 @@ SASS = """\
 """
 
 
+# the attention libraries' kernels as nvcc names them (mangled, cut short)
+FWD_BF16 = "_Z26flash_attn_fwd_bf16_kernelILi64EEvPK13__nv_bfloat16"
+FWD_TF32 = "_Z26flash_attn_fwd_tf32_kernelILi64EEvPKfS1_S1_PfS2_iif"
+FWD_SASS = f"""\
+\t\tFunction : {FWD_TF32}
+        /*0100*/                   HMMA.1688.F32.TF32 R8, R4, R12, R8 ;
+        /*0110*/                   HMMA.1688.F32.TF32 R8, R6, R14, R8 ;
+        /*0120*/                   HMMA.1688.F32.TF32 R8, R4, R14, R8 ;
+\t\tFunction : {FWD_BF16}
+        /*0100*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+"""
+NO_SPILL = {"spill_stores": 0, "spill_loads": 0, "registers": 168}
+
+
+def test_hmma_counts_tf32_kernel(smoke):
+    assert smoke.hmma_counts(FWD_SASS) == {FWD_TF32: 3, FWD_BF16: 1}
+
+
+def test_tensor_core_check_passes_both_forward_routes(smoke):
+    faults, found = smoke.tensor_core_faults(
+        "flash_attn_fwd", smoke.hmma_counts(FWD_SASS),
+        {FWD_TF32: NO_SPILL, FWD_BF16: NO_SPILL})
+    assert faults == [] and found == {FWD_TF32: 3, FWD_BF16: 1}
+
+
+@pytest.mark.parametrize("fault", ["cuda-cores", "missing", "spill"])
+def test_tensor_core_check_fails_the_fp32_forward(smoke, fault):
+    """Phase 1 fails K1's fp32 kernel when it runs on the CUDA cores (no
+    HMMA), is missing, or spilled."""
+    sass, ptxas = FWD_SASS, {FWD_TF32: dict(NO_SPILL), FWD_BF16: NO_SPILL}
+    if fault == "cuda-cores":
+        sass = sass.replace("HMMA.1688.F32.TF32", "FFMA")
+    elif fault == "missing":
+        sass = sass.replace("tf32_kernel", "kernel")
+    else:
+        ptxas[FWD_TF32]["spill_stores"] = 4
+    faults, _ = smoke.tensor_core_faults("flash_attn_fwd",
+                                         smoke.hmma_counts(sass), ptxas)
+    want = {"cuda-cores": "has no HMMA",
+            "missing": "no tensor-core kernel *_tf32_kernel",
+            "spill": "ptxas spilled"}[fault]
+    assert len(faults) == 1 and want in faults[0], faults
+
+
+def test_round_tf32_rounds_to_nearest_ties_away(smoke):
+    x = torch.tensor([1.0, 1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12,
+                      1 + 3 * 2 ** -12, 3.14159265, 0.0])
+    want = torch.tensor([1.0, 1 + 2 ** -10, -(1 + 2 ** -10), 1.0,
+                         1 + 2 ** -10, 3.140625, 0.0])
+    assert torch.equal(smoke.round_tf32(x), want)
+
+
+@pytest.mark.parametrize("heads,length,causal", [(12, 50, False),
+                                                 (8, 77, True)],
+                         ids=["image", "text"])
+def test_fp32_limit_fails_plain_tf32_on_cpu(smoke, heads, length, causal):
+    """The plain version on TF32-rounded inputs misses the fp32 limit at the
+    serving shapes (the card test repeats this on the card)."""
+    g = torch.Generator().manual_seed(length)
+    q, k, v = (torch.randn(2, heads, length, 64, generator=g)
+               for _ in range(3))
+    _, share = smoke.tf32_plain_check(q, k, v, causal, 64 ** -0.5)
+    assert share > 1
+
+
 def test_ptxas_report_reads_registers_and_spills(smoke):
     rep = smoke.ptxas_report(PTXAS_LOG)
     assert rep == {

@@ -3,7 +3,9 @@ attention kernels: lengths at the edges of the 16-row mma tiles and of the
 64-row and 128-row block tiles (L = 1, 15, 16, 17, 50, 63, 64, 65, 77, 127,
 128, 129, 130, 200, 577), causal masks across three or more 64-row tiles,
 both head dims, both dtypes, and B*H of 6 and of 1; K1 (the forward) and
-K2 (the backward), each against its plain version. The late-interaction
+K2 (the backward), each against its plain version; K1's fp32 route also
+at scores up to 30, and the fp32 limit against plain TF32, which it must
+fail. The late-interaction
 kernels K3, K4 and K5: odd N1, N2 and GB across their 64-row and 128-token
 tiles, both dtypes, exact ties, NaN features, and the inputs they refuse.
 
@@ -88,6 +90,41 @@ def test_kernel_matches_plain(card, bh, length, causal, dh, dtype):
     assert flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     _assert_within(got, want, smoke.TOLERANCE)
+
+
+# the serving path's two attention shapes, (H, L, causal), at Dh=64
+SERVING_SHAPES = [(12, 50, False), (8, 77, True)]
+
+
+@pytest.mark.parametrize("heads,length,causal", SERVING_SHAPES,
+                         ids=["image", "text"])
+def test_kernel_matches_plain_large_scores(card, heads, length, causal):
+    """fp32 with q and k scaled so that the largest |score| is 30: nearly
+    one-hot rows, where an error in a score is an error of the same size
+    in its probability."""
+    q, k, v = _qkv(card, length, 64, torch.float32, 40 + length,
+                   bh=(2, heads))
+    scale = 64 ** -0.5
+    s_max = (torch.matmul(q, k.transpose(-1, -2)) * scale).abs().max()
+    q, k = (x * (30.0 / s_max.item()) ** 0.5 for x in (q, k))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    assert 29.9 < s.abs().max().item() < 30.1
+    got = flash_attention(q, k, v, causal=causal, scale=scale)
+    want = attention_plain(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    _assert_within(got, want, smoke.TOLERANCE)
+
+
+@pytest.mark.parametrize("heads,length,causal", SERVING_SHAPES,
+                         ids=["image", "text"])
+def test_fp32_limit_fails_plain_tf32(card, heads, length, causal):
+    """At the serving shapes, the plain version on inputs rounded to TF32
+    misses TOLERANCE["float32"]: the limit the fp32 route is held to would
+    fail a kernel that took its fp32 products in TF32 alone."""
+    q, k, v = _qkv(card, length, 64, torch.float32, 60 + length,
+                   bh=(8, heads))
+    _, share = smoke.tf32_plain_check(q, k, v, causal, 64 ** -0.5)
+    assert share > 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
