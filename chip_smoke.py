@@ -42,13 +42,17 @@ Phases (any failed check raises, and the script exits non-zero):
    against the plain attention path under torch autograd, from the same
    weights and batch;
 2c. K3, K4 and K5 vs plain: the late-interaction forward against
-   ``late_interaction_raw_plain`` and the two backward kernels against
-   ``late_interaction_bwd_plain``, at the FILIP training path's two shapes
+   ``late_interaction_raw_plain``, its winner mask bit for bit against
+   ``late_interaction_winners_plain``, and the two backward kernels, on
+   K3's winners, against ``late_interaction_bwd_plain`` (the winners from
+   the similarities) and their own plain versions on the same mask, at the
+   FILIP training path's two shapes
    (B = GB = 128: image queries N1=49 and text queries N1=77 against 16
    selected key tokens, D=256), at the JAX tests' awkward shapes, at a wide
    key set without selection and at exact ties, in fp32 and bf16, and with
    a NaN key token or query row (NaN where the plain versions give it); the
-   kernel, plain and bound times of each;
+   kernel, plain and bound times of each, and the plain backward from the
+   similarities;
 5. the FILIP training slice: FILIP ViT-B/32 at full width in bf16 from
    seeded weights with the YFCC15M FILIP recipe (inlined below: MLM-masked
    text, top-k 16 token selection, dense loss only), trained by
@@ -352,18 +356,21 @@ def attention_bwd_bound(b, h, l, dh, causal, dtype_name):
 def late_interaction_bound(b, n1, gb, n2, d, dtype_name, which,
                            winners=None):
     """Least time (ms) for one K3 (``which`` "fwd"), K4 ("d1") or K5 ("d2")
-    call: d1 and d2 read once, the fp32 raw logits written (K3) or the fp32
-    g read and dd1 or dd2 written (K4, K5), against the similarities'
-    2*B*N1*GB*N2*D FLOPs over the dtype's peak; K4 and K5 need the
-    similarities too (to find the max winners) and add 2*D FLOPs per winner
-    (``winners``: the winning (query row, key item, key token) triples this
-    data has, ties included)."""
+    call. K3: d1 and d2 read once, the fp32 raw logits and the int32 winner
+    mask [B*N1, GB, ceil(N2/32)] written, against the similarities'
+    2*B*N1*GB*N2*D FLOPs over the dtype's peak. K4: the mask, the fp32 g
+    and d2 read and dd1 written; K5: the mask, g and d1 read and dd2
+    written; each against 2*D FLOPs per winner (``winners``: the winning
+    (query row, key item, key token) triples this data has, ties
+    included)."""
     elem = 4 if dtype_name == "float32" else 2
-    nbytes = (b * n1 + gb * n2) * d * elem + b * gb * 4
-    flops = 2 * b * n1 * gb * n2 * d
-    if which != "fwd":
-        nbytes += (b * n1 if which == "d1" else gb * n2) * d * elem
-        flops += 2 * winners * d
+    mask = b * n1 * gb * ((n2 + 31) // 32) * 4
+    if which == "fwd":
+        nbytes = (b * n1 + gb * n2) * d * elem + b * gb * 4 + mask
+        flops = 2 * b * n1 * gb * n2 * d
+    else:
+        nbytes = mask + b * gb * 4 + (b * n1 + gb * n2) * d * elem
+        flops = 2 * winners * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -723,17 +730,46 @@ def _li_inputs(shape, dtype, seed, grid):
     return d1.to(dtype), d2.to(dtype), g
 
 
+def _li_plain_fwd(d1, d2):
+    """K3's plain version: the raw logits and the winner mask."""
+    from declip_tpu_torch.ops.filip_late_interaction import (
+        late_interaction_raw_plain,
+        late_interaction_winners_plain,
+    )
+
+    return (late_interaction_raw_plain(d1, d2),
+            late_interaction_winners_plain(d1, d2))
+
+
+def _li_kernel_outputs(d1, d2, g):
+    """K3, then K4 and K5 on K3's winners: (raw, winners, dd1, dd2)."""
+    from declip_tpu_torch.ops.filip_late_interaction import (
+        late_interaction_bwd_d1,
+        late_interaction_bwd_d2,
+        late_interaction_fwd,
+    )
+
+    raw, winners = late_interaction_fwd(d1, d2)
+    return (raw, winners, late_interaction_bwd_d1(winners, d2, g),
+            late_interaction_bwd_d2(winners, d1, g, d2.shape[1]))
+
+
 def phase_late_interaction():
-    """K3 against late_interaction_raw_plain, K4 and K5 against
-    late_interaction_bwd_plain, at LI_CASES and the ties case in fp32 and
-    bf16: checked on grid inputs (see ``_li_inputs``), K3 also on the
-    continuous unit vectors that are timed."""
+    """K3 against late_interaction_raw_plain and its winner mask against
+    late_interaction_winners_plain (bit for bit); K4 and K5, on K3's
+    winners, against late_interaction_bwd_plain (which forms the winners
+    from the similarities) and against their own plain versions on the same
+    mask; at LI_CASES and the ties case in fp32 and bf16: checked on grid
+    inputs (see ``_li_inputs``), K3 also on the continuous unit vectors
+    that are timed."""
     import torch
 
     from declip_tpu_torch.ops.filip_late_interaction import (
         _similarities,
         late_interaction_bwd_d1,
+        late_interaction_bwd_d1_plain,
         late_interaction_bwd_d2,
+        late_interaction_bwd_d2_plain,
         late_interaction_bwd_plain,
         late_interaction_fwd,
         late_interaction_raw_plain,
@@ -751,17 +787,26 @@ def phase_late_interaction():
             if ties:  # two-way ties in every key item, three-way in half
                 d2[:, 4] = d2[:, 1]
                 d2[::2, 7] = d2[::2, 1]
-            raw = late_interaction_fwd(d1, d2)
-            dd1 = late_interaction_bwd_d1(d1, d2, g)
-            dd2 = late_interaction_bwd_d2(d1, d2, g)
-            want_raw = late_interaction_raw_plain(d1, d2)
+            raw, winners, dd1, dd2 = _li_kernel_outputs(d1, d2, g)
+            want_raw, want_win = _li_plain_fwd(d1, d2)
             want1, want2 = late_interaction_bwd_plain(d1, d2, g)
             torch.cuda.synchronize()
+            check(winners.dtype == want_win.dtype
+                  and torch.equal(winners, want_win),
+                  f"K3's winners at {tag}: "
+                  f"{int((winners != want_win).sum())} of {want_win.numel()} "
+                  f"mask words differ from the plain version's")
             errs = {}
             for name, got, want, (rtol, atol) in (
                     ("raw", raw, want_raw, (frtol, fatol)),
                     ("dd1", dd1, want1, (grtol, gatol)),
-                    ("dd2", dd2, want2, (grtol, gatol))):
+                    ("dd2", dd2, want2, (grtol, gatol)),
+                    ("dd1_mask", dd1,
+                     late_interaction_bwd_d1_plain(winners, d2, g),
+                     (grtol, gatol)),
+                    ("dd2_mask", dd2,
+                     late_interaction_bwd_d2_plain(winners, d1, g, n2),
+                     (grtol, gatol))):
                 check(got.shape == want.shape and got.dtype == want.dtype,
                       f"late interaction {name} at {tag}: {got.shape} "
                       f"{got.dtype}, want {want.shape} {want.dtype}")
@@ -779,61 +824,65 @@ def phase_late_interaction():
             if not ties:
                 d1, d2, g = _li_inputs(shape, dtype, 300 + i, grid=False)
                 ok, errs["raw_unit"], _ = _within(
-                    late_interaction_fwd(d1, d2),
+                    late_interaction_fwd(d1, d2)[0],
                     late_interaction_raw_plain(d1, d2), frtol, fatol)
                 check(ok, f"K3 at {tag}, unit vectors: max abs err "
                           f"{errs['raw_unit']:.3g}")
             sim = _similarities(d1, d2)
-            winners = int((sim == sim.amax(dim=-1, keepdim=True)).sum())
+            n_win = int((sim == sim.amax(dim=-1, keepdim=True)).sum())
             del sim
+            _, winners = late_interaction_fwd(d1, d2)
             fns = {"K3": lambda: late_interaction_fwd(d1, d2),
-                   "K4": lambda: late_interaction_bwd_d1(d1, d2, g),
-                   "K5": lambda: late_interaction_bwd_d2(d1, d2, g),
-                   "fwd_plain": lambda: late_interaction_raw_plain(d1, d2),
+                   "K4": lambda: late_interaction_bwd_d1(winners, d2, g),
+                   "K5": lambda: late_interaction_bwd_d2(winners, d1, g, n2),
+                   "K3_plain": lambda: _li_plain_fwd(d1, d2),
+                   "K4_plain": lambda: late_interaction_bwd_d1_plain(
+                       winners, d2, g),
+                   "K5_plain": lambda: late_interaction_bwd_d2_plain(
+                       winners, d1, g, n2),
                    "bwd_plain": lambda: late_interaction_bwd_plain(d1, d2,
                                                                    g)}
             times = {key: device_ms(fn)[0] or cuda_ms(fn)
                      for key, fn in fns.items()}
             row = {"shape": list(shape), "dtype": dname, "ties": ties,
-                   "winners": winners, "errs": errs}
-            for kname, which, err_key, plain_key in (
-                    ("K3", "fwd", "raw", "fwd_plain"),
-                    ("K4", "d1", "dd1", "bwd_plain"),
-                    ("K5", "d2", "dd2", "bwd_plain")):
+                   "winners": n_win, "errs": errs,
+                   "bwd_plain_ms": times["bwd_plain"]}
+            for kname, which, err_key in (("K3", "fwd", "raw"),
+                                          ("K4", "d1", "dd1"),
+                                          ("K5", "d2", "dd2")):
                 bound_ms, bound_by = late_interaction_bound(
-                    *shape, dname, which, winners)
+                    *shape, dname, which, n_win)
                 row[kname] = {"ms": times[kname],
-                              "plain_ms": times[plain_key],
+                              "plain_ms": times[kname + "_plain"],
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               "max_abs_err": errs[err_key]}
             rows.append(row)
             print(f"late interaction B={b} N1={n1} GB={gb} N2={n2} D={d} "
-                  f"{dname:8s}{' ties' if ties else ''} err "
+                  f"{dname:8s}{' ties' if ties else ''} winners exact; err "
                   + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
-                  + f" | K3 {times['K3']:.4f} ms K4 {times['K4']:.4f} K5 "
-                  f"{times['K5']:.4f}; plain fwd {times['fwd_plain']:.4f} "
-                  f"bwd (dd1 and dd2) {times['bwd_plain']:.4f}; bound "
+                  + f" | K3 {times['K3']:.5f} ms K4 {times['K4']:.5f} K5 "
+                  f"{times['K5']:.5f}; plain K3 {times['K3_plain']:.4f} K4 "
+                  f"{times['K4_plain']:.4f} K5 {times['K5_plain']:.4f}, "
+                  f"bwd from the similarities {times['bwd_plain']:.4f}; "
+                  f"bound "
                   + " ".join(f"{k} {row[k]['bound_ms']:.5f} "
                              f"({row[k]['bound_by']})"
                              for k in ("K3", "K4", "K5"))
-                  + f"; winners {winners}",
+                  + f"; winners {n_win}",
                   flush=True)
         _li_nan_check(dtype)
     return rows
 
 
 def _li_nan_check(dtype):
-    """A NaN key token and a NaN query row: K3-K5 give NaN exactly where
-    the plain versions do (a NaN similarity wins its max, and its row's
+    """A NaN key token and a NaN query row: K3 sets no winner bit where the
+    max is NaN, as the plain mask does, and K3-K5 give NaN exactly where the
+    plain versions do (a NaN similarity wins its max, and its pair's
     gradient weights are all NaN), and the plain values elsewhere."""
     import torch
 
     from declip_tpu_torch.ops.filip_late_interaction import (
-        late_interaction_bwd_d1,
-        late_interaction_bwd_d2,
         late_interaction_bwd_plain,
-        late_interaction_fwd,
-        late_interaction_raw_plain,
     )
 
     dname = str(dtype).replace("torch.", "")
@@ -845,13 +894,16 @@ def _li_nan_check(dtype):
             d2[3, 1, 5] = float("nan")
         else:
             d1[2, 4, 7] = float("nan")
+        raw, winners, dd1, dd2 = _li_kernel_outputs(d1, d2, g)
+        want_raw, want_win = _li_plain_fwd(d1, d2)
+        want1, want2 = late_interaction_bwd_plain(d1, d2, g)
+        check(torch.equal(winners, want_win),
+              f"K3's winners at {shape} {dname}, NaN {where}: differ from "
+              f"the plain mask")
         for name, got, want, (rtol, atol) in (
-                ("raw", late_interaction_fwd(d1, d2),
-                 late_interaction_raw_plain(d1, d2), (frtol, fatol)),
-                ("dd1", late_interaction_bwd_d1(d1, d2, g),
-                 late_interaction_bwd_plain(d1, d2, g)[0], (grtol, gatol)),
-                ("dd2", late_interaction_bwd_d2(d1, d2, g),
-                 late_interaction_bwd_plain(d1, d2, g)[1], (grtol, gatol))):
+                ("raw", raw, want_raw, (frtol, fatol)),
+                ("dd1", dd1, want1, (grtol, gatol)),
+                ("dd2", dd2, want2, (grtol, gatol))):
             nan = torch.isnan(want)
             check(torch.equal(torch.isnan(got), nan),
                   f"late interaction {name} at {shape} {dname}, NaN {where}: "
@@ -1252,6 +1304,12 @@ class _CallCounter:
                       (flash_attention, "attention_plain"),
                       (flash_attention, "attention_bwd_plain"),
                       (filip_late_interaction, "late_interaction_raw_plain"),
+                      (filip_late_interaction,
+                       "late_interaction_winners_plain"),
+                      (filip_late_interaction,
+                       "late_interaction_bwd_d1_plain"),
+                      (filip_late_interaction,
+                       "late_interaction_bwd_d2_plain"),
                       (filip_late_interaction, "late_interaction_bwd_plain"),
                       (filip_ops, "late_interaction_logits")]
         self.calls = 0
@@ -1831,8 +1889,9 @@ def _li_entries(li_rows, filip_result):
     """K3, K4 and K5: launches from the FILIP training run; times summed over
     the training path's two calls (image and text queries, B=128, bf16, the
     continuous unit vectors), errors the largest over every shape checked in
-    that dtype. plain_ms of K4 and of K5 is the plain backward, which
-    computes dd1 and dd2 together."""
+    that dtype. plain_ms is each kernel's own plain version (K3's makes the
+    raw logits and the winner mask; K4's and K5's contract the mask).
+    "k3_k4_k5" is the three together, against the sum of their bounds."""
     main = [r for r in li_rows if r["dtype"] == "bfloat16" and not r["ties"]
             and tuple(r["shape"]) in LI_MAIN_CASES]
     check(len(main) == len(LI_MAIN_CASES), "main-path shapes missing")
@@ -1857,6 +1916,10 @@ def _li_entries(li_rows, filip_result):
             "times_for": "FILIP training path: B=GB=128, N1=49 + N1=77, "
                          "N2=16, D=256, bf16",
         })
+    total = {key: sum(e[key] for e in entries)
+             for key in ("ms", "bound_ms")}
+    for e in entries:
+        e["k3_k4_k5"] = total
     return entries
 
 

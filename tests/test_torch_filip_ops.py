@@ -201,11 +201,77 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     versions run, chosen by the autograd Function."""
     d1, d2 = torch.zeros(2, 3, 8), torch.zeros(4, 5, 8)
     g = torch.zeros(2, 4)
+    winners = torch.zeros(6, 4, 1, dtype=torch.int32)
     for fn, args in ((fli.late_interaction_fwd, (d1, d2)),
-                     (fli.late_interaction_bwd_d1, (d1, d2, g)),
-                     (fli.late_interaction_bwd_d2, (d1, d2, g))):
+                     (fli.late_interaction_bwd_d1, (winners, d2, g)),
+                     (fli.late_interaction_bwd_d2, (winners, d1, g, 5))):
         with pytest.raises(ValueError, match="CUDA tensors"):
             fn(*args)
+
+
+def _grid_pair(seed, b, n1, gb, n2, d):
+    """Small integer features, so that every similarity is exact and ties
+    are common. Query token 0 of every item and key token 0 of every item
+    are all 3s, the largest similarity there is, and key token 0 is copied
+    to the last token of every item and the one before it of every other
+    item: two-way and three-way ties of the max."""
+    rng = np.random.default_rng(seed)
+    d1 = rng.integers(-3, 4, size=(b, n1, d)).astype(np.float32)
+    d2 = rng.integers(-3, 4, size=(gb, n2, d)).astype(np.float32)
+    d1[:, 0] = 3
+    d2[:, 0] = 3
+    d2[:, n2 - 1] = d2[:, 0]
+    d2[::2, n2 - 2] = d2[::2, 0]
+    g = rng.normal(size=(b, gb)).astype(np.float32)
+    return d1, d2, g
+
+
+@pytest.mark.parametrize("n2", [3, 16, 33, 77])
+def test_winners_plain_matches_numpy(n2):
+    """K3's winner mask (its plain version): bit m % 32 of word m // 32 of
+    [B*N1, GB, ceil(N2/32)] is set exactly where similarity m equals its
+    key item's max, ties included (1-, 2- and 3-word layouts)."""
+    b, n1, gb, d = 3, 5, 4, 8
+    d1, d2, _ = _grid_pair(n2, b, n1, gb, n2, d)
+    got = fli.late_interaction_winners_plain(torch.from_numpy(d1),
+                                             torch.from_numpy(d2))
+    assert got.dtype == torch.int32
+    assert got.shape == (b * n1, gb, (n2 + 31) // 32)
+    sim = np.einsum("bnd,lmd->bnlm", d1, d2).reshape(b * n1, gb, n2)
+    want = sim == sim.max(axis=-1, keepdims=True)
+    words = got.numpy().view(np.uint32)
+    bits = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    bits = bits.reshape(b * n1, gb, -1)
+    np.testing.assert_array_equal(bits[..., :n2].astype(bool), want)
+    assert not bits[..., n2:].any()
+    assert (want.sum(-1) >= 2).any() and (want.sum(-1) >= 3).any()
+
+
+@pytest.mark.parametrize("case", ["ties", "nan_key", "nan_query"])
+def test_mask_route_matches_bwd_plain(case):
+    """The kernels' dataflow on the CPU (the winners, then K4's and K5's
+    plain versions from the mask) against late_interaction_bwd_plain, which
+    forms the winners from the similarities: equal on exact ties, and NaN in
+    the same places for a NaN key token or query row (a NaN max sets no
+    bit, and its pair's weights are all NaN)."""
+    b, n1, gb, n2, d = 3, 7, 5, 16, 16
+    d1, d2, g = _grid_pair(17, b, n1, gb, n2, d)
+    if case == "nan_key":
+        d2[2, 4, 3] = np.nan
+    elif case == "nan_query":
+        d1[1, 2, 5] = np.nan
+    d1, d2, g = map(torch.from_numpy, (d1, d2, g))
+    winners = fli.late_interaction_winners_plain(d1, d2)
+    got1 = fli.late_interaction_bwd_d1_plain(winners, d2, g)
+    got2 = fli.late_interaction_bwd_d2_plain(winners, d1, g, n2)
+    want1, want2 = fli.late_interaction_bwd_plain(d1, d2, g)
+    for got, want in ((got1, want1), (got2, want2)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6,
+                                   equal_nan=True)
+    if case != "ties":
+        assert torch.isnan(want1).any() and torch.isnan(want2).any()
+        assert not (torch.isnan(want1).all() and torch.isnan(want2).all())
 
 
 def test_compact_mlm_and_mlm_loss_match_jax():

@@ -176,3 +176,29 @@ def test_fp32_tolerance_is_absolute(smoke):
     want = torch.tensor([100.0, 0.0])
     got = want + torch.tensor([0.0, 3e-5])  # beyond atol 2e-5 at the zero
     assert not smoke._within(got, want, *smoke.TOLERANCE["float32"])[0]
+
+
+@pytest.mark.parametrize("which", ["fwd", "d1", "d2"])
+def test_late_interaction_bound_counts_the_winner_mask(smoke, which):
+    """K3 writes the winner mask; K4 and K5 read it, with g and their one
+    feature tensor, and write their gradient: each bound counts those bytes
+    and, for K4 and K5, 2*D FLOPs per winner only."""
+    b, n1, gb, n2, d = 128, 49, 128, 16, 256
+    winners = b * n1 * gb  # one winner per (row, item)
+    mask = b * n1 * gb * 4
+    feats = (b * n1 + gb * n2) * d * 2
+    want_bytes = {"fwd": feats + b * gb * 4 + mask,
+                  "d1": mask + b * gb * 4 + feats,
+                  "d2": mask + b * gb * 4 + feats}[which]
+    ms, by = smoke.late_interaction_bound(b, n1, gb, n2, d, "bfloat16",
+                                          which, winners)
+    want_flops = (2 * b * n1 * gb * n2 * d if which == "fwd"
+                  else 2 * winners * d)
+    want = max(want_bytes / smoke.HBM_BYTES_PER_S,
+               want_flops / smoke.PEAK_FLOPS["bfloat16"]) * 1e3
+    assert ms == pytest.approx(want, rel=1e-12)
+    assert by == ("operations" if which == "fwd" else "bytes")
+    # two words of mask a pair at N2 = 33
+    ms33, _ = smoke.late_interaction_bound(b, n1, gb, 33, d, "bfloat16",
+                                           which, winners)
+    assert ms33 > ms

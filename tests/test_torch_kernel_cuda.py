@@ -7,7 +7,8 @@ K2 (the backward), each against its plain version; K1's fp32 route also
 at scores up to 30, and the fp32 limit against plain TF32, which it must
 fail. The late-interaction
 kernels K3, K4 and K5: odd N1, N2 and GB across their 64-row and 128-token
-tiles, both dtypes, exact ties, NaN features, and the inputs they refuse.
+tiles, both dtypes, exact ties, NaN features, and the inputs they refuse;
+K3's winner mask bit for bit against its plain version.
 
 Needs a CUDA card and nvcc; marked ``cuda`` and skipped elsewhere. On the
 card (the repository's conftest imports JAX, which the card's machine need
@@ -290,6 +291,17 @@ def _li_check(card, b, n1, gb, n2, d, dtype, seed, d2=None):
                                atol=atol, msg="dd1")
     torch.testing.assert_close(dd2.float(), want2.float(), rtol=rtol,
                                atol=atol, msg="dd2")
+    # each kernel alone against its plain version on the same winners
+    _, winners = fli.late_interaction_fwd(d1, d2)
+    assert torch.equal(winners, fli.late_interaction_winners_plain(d1, d2))
+    torch.testing.assert_close(
+        fli.late_interaction_bwd_d1(winners, d2, g).float(),
+        fli.late_interaction_bwd_d1_plain(winners, d2, g).float(),
+        rtol=rtol, atol=atol, msg="K4")
+    torch.testing.assert_close(
+        fli.late_interaction_bwd_d2(winners, d1, g, n2).float(),
+        fli.late_interaction_bwd_d2_plain(winners, d1, g, n2).float(),
+        rtol=rtol, atol=atol, msg="K5")
     return dd2
 
 
@@ -338,14 +350,43 @@ def test_late_interaction_kernels_propagate_nan(card, where, dtype):
     (fwd_rtol, fwd_atol), (rtol, atol) = _tolerance(smoke.LI_TOLERANCE,
                                                     dtype)
     want1, want2 = fli.late_interaction_bwd_plain(d1, d2, g)
+    raw, winners = fli.late_interaction_fwd(d1, d2)
+    assert torch.equal(winners, fli.late_interaction_winners_plain(d1, d2))
     for got, want, tol in (
-            (fli.late_interaction_fwd(d1, d2),
-             fli.late_interaction_raw_plain(d1, d2), (fwd_rtol, fwd_atol)),
-            (fli.late_interaction_bwd_d1(d1, d2, g), want1, (rtol, atol)),
-            (fli.late_interaction_bwd_d2(d1, d2, g), want2, (rtol, atol))):
+            (raw, fli.late_interaction_raw_plain(d1, d2),
+             (fwd_rtol, fwd_atol)),
+            (fli.late_interaction_bwd_d1(winners, d2, g), want1,
+             (rtol, atol)),
+            (fli.late_interaction_bwd_d2(winners, d1, g, d2.shape[1]),
+             want2, (rtol, atol))):
         assert torch.isnan(want).any()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
                                    atol=tol[1], equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", range(len(smoke.LI_CASES) + 1),
+                         ids=[*("x".join(map(str, c))
+                                for c in smoke.LI_CASES), "ties"])
+def test_late_interaction_winners_match_plain(card, case, dtype):
+    """K3's winner mask equals late_interaction_winners_plain bit for bit,
+    on grid inputs (every similarity exact) at chip_smoke.py's LI_CASES and
+    its ties case (two-way ties in every key item, three-way in half)."""
+    ties = case == len(smoke.LI_CASES)
+    shape = smoke.LI_TIES_CASE if ties else smoke.LI_CASES[case]
+    d1, d2, _ = smoke._li_inputs(shape, dtype, 600 + case, grid=True)
+    if ties:
+        d2[:, 4] = d2[:, 1]
+        d2[::2, 7] = d2[::2, 1]
+    raw, winners = fli.late_interaction_fwd(d1, d2)
+    want = fli.late_interaction_winners_plain(d1, d2)
+    assert winners.dtype == torch.int32 and winners.shape == want.shape
+    assert torch.equal(winners, want)
+    if ties:
+        counts = fli._winner_weights(want, torch.ones_like(raw),
+                                     shape[3]).ne(0).sum(-1)
+        assert (counts >= 2).any() and (counts >= 3).any()
 
 
 def test_late_interaction_forward_unit_vectors(card):
@@ -356,7 +397,7 @@ def test_late_interaction_forward_unit_vectors(card):
         torch.randn(9, 49, 256, generator=g, device=card), dim=-1)
     d2 = torch.nn.functional.normalize(
         torch.randn(131, 16, 256, generator=g, device=card), dim=-1)
-    torch.testing.assert_close(fli.late_interaction_fwd(d1, d2),
+    torch.testing.assert_close(fli.late_interaction_fwd(d1, d2)[0],
                                fli.late_interaction_raw_plain(d1, d2),
                                rtol=1e-5, atol=1e-5)
 
@@ -379,10 +420,25 @@ def test_late_interaction_kernels_refuse(card):
     with pytest.raises(ValueError, match="feature dim of at most 256"):
         fli.late_interaction_fwd(torch.zeros(2, 5, 264, device=card),
                                  torch.zeros(3, 4, 264, device=card))
+    w = torch.zeros(10, 3, 1, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="fp32"):
-        fli.late_interaction_bwd_d1(d1, d2, g.double())
+        fli.late_interaction_bwd_d1(w, d2, g.double())
     with pytest.raises(ValueError, match="fp32"):
-        fli.late_interaction_bwd_d2(d1, d2, g[:, :2])
+        fli.late_interaction_bwd_d2(w, d1, g[:, :2], 4)
+    # the winners: K3's int32 [B*N1, GB, ceil(N2/32)], contiguous, on the
+    # features' device
+    for bad in (w.long(), w[:, :2], w.repeat(1, 1, 2), w[:5],
+                w.transpose(0, 1).contiguous().transpose(0, 1), w.cpu()):
+        with pytest.raises(ValueError, match="winners"):
+            fli.late_interaction_bwd_d1(bad, d2, g)
+        with pytest.raises(ValueError, match="winners"):
+            fli.late_interaction_bwd_d2(bad, d1, g, 4)
+    with pytest.raises(ValueError, match="winners"):  # N2 = 33: two words
+        fli.late_interaction_bwd_d2(w, d1, g, 33)
+    with pytest.raises(ValueError, match="at most 128 key tokens"):
+        fli.late_interaction_bwd_d2(w, d1, g, 129)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fli.late_interaction_bwd_d1(w, d2.cpu(), g)
     # the autograd route refuses the same way, forward and backward
     with pytest.raises(ValueError, match="at most 128 key tokens"):
         fli.late_interaction_logits_kernel(
