@@ -8,10 +8,10 @@ Phases (any failed check raises, and the script exits non-zero):
 1. card and build: the card's name and power limit, nvcc's version, and a
    fresh nvcc build of every CUDA kernel (sm_90a), one nvcc per source, all
    started together; ptxas' registers and spills per kernel; the toolkit's
-   ``cuobjdump -sass`` of the attention libraries, which must show HMMA
-   (tensor-core) instructions in K1's bf16 and fp32 (split TF32) kernels
-   and in K2's bf16 kernels, and no ptxas spill in any of them or in any
-   other kernel that takes bf16;
+   ``cuobjdump -sass`` of the libraries, which must show HMMA (tensor-core)
+   instructions in K1's bf16 and fp32 (split TF32) kernels, in K2's bf16
+   kernels and in K3's bf16 kernels, and no ptxas spill in any of them or
+   in any other kernel that takes bf16;
 2. K1 vs plain: the forward kernel's wrapper against its plain PyTorch
    version on the card, at the shapes the serving path gives it (fp32 at
    B = 1, 8 and 16) and at longer sequences, in fp32 and bf16; times for
@@ -448,7 +448,8 @@ def hmma_counts(sass):
 # HMMA in its SASS (TF32 mma.sync appears as HMMA.1688.F32.TF32) and no
 # ptxas spill
 TENSOR_CORE_KERNELS = {"flash_attn_fwd": ("_bf16_kernel", "_tf32_kernel"),
-                       "flash_attn_bwd": ("_bf16_kernel",)}
+                       "flash_attn_bwd": ("_bf16_kernel",),
+                       "filip_li": ("li_fwd_bf16_kernel",)}
 
 
 def tensor_core_faults(name, hmma, ptxas):
@@ -475,12 +476,12 @@ def tensor_core_faults(name, hmma, ptxas):
 
 
 def check_tensor_cores(ptxas, names=tuple(TENSOR_CORE_KERNELS)):
-    """Phase 1's check of the attention libraries' tensor-core routes: the
-    toolkit's ``cuobjdump -sass`` of each built library, HMMA instructions
-    counted per kernel. Fails unless K1 has its bf16 kernel and its fp32
-    (split TF32) kernel and K2 its bf16 kernel, each holding HMMA, or if
-    ptxas spilled in any of them or in another kernel that takes bf16
-    (``tensor_core_faults``). -> {kernel: HMMA count}."""
+    """Phase 1's check of the libraries' tensor-core routes: the toolkit's
+    ``cuobjdump -sass`` of each built library, HMMA instructions counted
+    per kernel. Fails unless K1 has its bf16 kernel and its fp32 (split
+    TF32) kernel, K2 its bf16 kernel and K3 its bf16 kernel, each holding
+    HMMA, or if ptxas spilled in any of them or in another kernel that
+    takes bf16 (``tensor_core_faults``). -> {kernel: HMMA count}."""
     from declip_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
@@ -1157,7 +1158,8 @@ def kernel_kind(name):
         return "K1"
     if "flash_attn_bwd" in n:
         return "K2"
-    if "li_fwd_kernel" in n or "li_mean_kernel" in n:
+    if ("li_fwd_kernel" in n or "li_fwd_bf16_kernel" in n
+            or "li_mean_kernel" in n):
         return "K3"
     if "li_bwd_d1_kernel" in n:
         return "K4"

@@ -48,13 +48,39 @@
 //    product's work and keep the weights exact.
 //
 // What the design does about it.
-//  * K3 is the CUDA-core tiled similarity of the first port (mma.sync is
-//    later work): a block of 256 threads computes a 64-row tile of the
-//    flattened query rows (B*N1) against up to 128 key tokens (whole key
-//    items only), each thread a 4 x KC micro-tile, d staged through shared
-//    memory 32 at a time (converted to fp32 there), each dot one fmaf chain
-//    over d = 0..D-1 in order. The tile lands in shared memory, where each
-//    item's max and winner bits are taken; it never reaches device memory.
+//  * K3 in bf16 (li_fwd_bf16_kernel) is one product on the tensor cores,
+//    d1 as [B*N1, D] times d2 as [GB*N2, D] transposed, with a segmented
+//    max as its epilogue: mma.sync m16n8k16 with bf16 operands and fp32
+//    accumulators (attn_mma.cuh's fragments; d2's rows along D are the
+//    "col" operand as they stand). Products of bf16 values are exact in
+//    fp32, so only the order of the sums differs from the plain version.
+//    A block keeps a key tile of whole items (up to 256 key tokens, all of
+//    D) in shared memory and walks its run of query rows 32 at a time, so
+//    d2 is read once a block and d1 once a key tile (8 times at N2 = 16).
+//    Its 8 warps form two groups of 4, each warp 32 rows x 64 tokens; a
+//    group takes every other row tile through its own ring of two stages
+//    (16-byte cp.async, the next rows in flight while a tile is used).
+//    The groups take turns on the tensor cores (named barriers), so that
+//    one group's maxima, on the CUDA cores, run under the other's
+//    products: with all warps in step the maxima cost a fifth of the
+//    kernel's time. At D = 256 the loop over d is unrolled, so that each
+//    step's ldmatrix issues ahead of the previous step's mma. Rows are
+//    padded to Dk + 8 elements (Dk: D rounded up to 16, zeros past D), so
+//    ldmatrix reads no two rows on one bank. At N2 = 16, the FILIP
+//    step's width, a key item lies in two n8 tiles of one warp: its max
+//    (PTX's max.NaN, one instruction) and winner bits are taken in
+//    registers over the four lanes of a quad, and each lane stores one
+//    row's items, 16 bytes at a time where aligned. Other N2 land in a
+//    shared-memory fp32 tile, as the fp32 route's do, with one stage a
+//    group.
+//  * K3 in fp32 is the CUDA-core tiled similarity of the first port: a
+//    block of 256 threads computes a 64-row tile of the flattened query
+//    rows (B*N1) against up to 128 key tokens (whole key items only), each
+//    thread a 4 x KC micro-tile, d staged through shared memory 32 at a
+//    time, each dot one fmaf chain over d = 0..D-1 in order. The tile lands
+//    in shared memory, where each item's max and winner bits are taken.
+//    No main path runs it (FILIP trains in bf16).
+//  * Either way the similarities never reach device memory.
 //  * K4 and K5 do little arithmetic per global read, so what bounds them
 //    in practice is latency: a warp whose chain (mask, then token, then
 //    sum) waits on device memory once per key item or row spends
@@ -84,8 +110,10 @@
 //    the sums in the warp's own part of shared memory (N2 * 32QD * 4
 //    bytes). Either way the lane that owns (token, d) does every update of
 //    it: no conflicts, no atomics.
-//  * No padding of N1, D, B or GB to tile sizes (the TPU kernel's Mosaic
-//    layout rules, filip_pallas.py:45-72): ragged edges are masked by bounds.
+//  * No padding of N1, D, B or GB to tile sizes in device memory (the TPU
+//    kernel's Mosaic layout rules, filip_pallas.py:45-72): ragged edges are
+//    masked by bounds, or (K3's bf16 route) filled with zeros in shared
+//    memory, where a zero adds nothing to a dot product.
 //  * Sums across blocks without atomics, so every result is deterministic:
 //    K3 writes each row's max [B*N1, GB] and a second small kernel takes the
 //    mean over each item's N1 rows in row order; K4 splits the key items and
@@ -103,14 +131,17 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "attn_mma.cuh"  // cp.async
+#include "attn_mma.cuh"  // cp.async, ldmatrix, mma.sync
 
 namespace {
 
+using attn_mma::bf16;
 using attn_mma::cp_async16;
 using attn_mma::cp_async4;
 using attn_mma::cp_async_commit;
 using attn_mma::cp_async_wait;
+using attn_mma::ldmatrix_x4;
+using attn_mma::mma_bf16;
 
 constexpr int kThreads = 256;   // 16 x 16 (K3), 8 warps (K5; K4 at most)
 constexpr int kRows = 64;       // K3: query rows per tile (K4: at most)
@@ -221,16 +252,54 @@ __device__ void tile_dots(const T* __restrict__ d1, const T* __restrict__ d2,
   __syncthreads();
 }
 
-// The max of a key item's n similarities. NaN wins, as in jnp.maximum and
-// torch.amax (fmaxf would drop it): K3 then gives NaN and sets no winner bit,
-// and K4 and K5 make every weight of the pair NaN (`for_rest`).
+// The larger of two similarities, NaN winning, as in jnp.maximum and
+// torch.amax (fmaxf would drop it): K3 then gives NaN and sets no winner
+// bit, and K4 and K5 make every weight of the pair NaN (`for_rest`).
+// One instruction: PTX's max.NaN (sm_80 and later) gives NaN where either
+// operand is NaN.
+__device__ __forceinline__ float nan_max(float mx, float x) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(mx), "f"(x));
+  return r;
+}
+
+// The max of a key item's n similarities.
 __device__ __forceinline__ float item_max(const float* s, int n) {
   float mx = s[0];
-  for (int m = 1; m < n; ++m) mx = (s[m] > mx || isnan(s[m])) ? s[m] : mx;
+  for (int m = 1; m < n; ++m) mx = nan_max(mx, s[m]);
   return mx;
 }
 
-// K3, pass 1: grid (row tiles, key groups of kt items).
+// rowmax[r, l] and winners[r, l, :] of a tile of similarities in shared
+// memory, s[row * ld + lk * N2 + m] for query row r0 + row (row < rows)
+// and key item l0 + lk (lk < nk), rows at or past r_end left alone;
+// threads tid of nthreads take the (row, item) pairs in turn.
+__device__ void tile_maxima(const float* s, int ld, int r0, int rows,
+                            int r_end, int l0, int nk, const Shape& sh,
+                            float* __restrict__ rowmax,
+                            uint32_t* __restrict__ winners, int tid,
+                            int nthreads) {
+  const int W = n_words(sh.N2);
+  for (int p = tid; p < rows * nk; p += nthreads) {
+    const int row = p / nk, lk = p % nk;
+    const int r = r0 + row;
+    if (r >= r_end) continue;
+    const float* sp = s + row * ld + lk * sh.N2;
+    const float mx = item_max(sp, sh.N2);
+    const size_t pair = static_cast<size_t>(r) * sh.GB + l0 + lk;
+    rowmax[pair] = mx;
+    for (int w = 0; w < W; ++w) {
+      uint32_t bits = 0;
+      const int m_end = min(sh.N2, 32 * w + 32);
+      for (int m = 32 * w; m < m_end; ++m) {
+        bits |= static_cast<uint32_t>(sp[m] == mx) << (m - 32 * w);
+      }
+      winners[pair * W + w] = bits;
+    }
+  }
+}
+
+// K3 in fp32, pass 1: grid (row tiles, key groups of kt items).
 // rowmax[r, l] = max_m <d1[r], d2[l, m]>, and winners[r, l, :] its bits.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -241,23 +310,286 @@ li_fwd_kernel(const T* __restrict__ d1, const T* __restrict__ d2,
   const int r0 = blockIdx.x * kRows;
   const int l0 = blockIdx.y * kt;
   const int nk = min(kt, sh.GB - l0);
-  const int W = n_words(sh.N2);
   tile_dots<T, kMaxCols / 16>(d1, d2, r0, l0 * sh.N2, nk * sh.N2, sh, sm);
-  for (int p = threadIdx.x; p < kRows * nk; p += kThreads) {
-    const int row = p / nk, lk = p % nk;
-    const int r = r0 + row;
-    if (r >= sh.R) continue;
-    const float* s = &sm.s[row][lk * sh.N2];
-    const float mx = item_max(s, sh.N2);
-    const size_t pair = static_cast<size_t>(r) * sh.GB + l0 + lk;
-    rowmax[pair] = mx;
-    for (int w = 0; w < W; ++w) {
-      uint32_t bits = 0;
-      const int m_end = min(sh.N2, 32 * w + 32);
-      for (int m = 32 * w; m < m_end; ++m) {
-        bits |= static_cast<uint32_t>(s[m] == mx) << (m - 32 * w);
+  tile_maxima(&sm.s[0][0], kMaxCols + 1, r0, kRows, sh.R, l0, nk, sh, rowmax,
+              winners, threadIdx.x, kThreads);
+}
+
+// K3 in bf16 on the tensor cores (see the note at the top). Block: two
+// groups of 4 warps; a group multiplies a tile of 32 query rows by the
+// block's key tile of kMmaCols tokens (kt whole items, zeros past GB*N2),
+// each warp 32 rows x 64 tokens.
+constexpr int kMmaThreads = 256;
+constexpr int kGroupThreads = 128;
+constexpr int kMmaRows = 32;   // a group's row tile
+constexpr int kMmaCols = 256;
+
+// Named barriers: 1 + g holds group g's 128 threads; 3 + g lets group g
+// start its products, once the other group's are done (bar.arrive there).
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(kGroupThreads) : "memory");
+}
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(kMmaThreads) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(kMmaThreads) : "memory");
+}
+
+// rows [0, rows) of a stage: src rows row0 + i (zeros at or past n), d in
+// [0, Dk) (zeros past D), into dst at stride S, by threads tid of
+// nthreads. `vec`: src 16-byte aligned and D a multiple of 8, so that rows
+// go by 16-byte cp.async (a copy of zeros where not valid); else element
+// by element.
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           int row0, int rows, int n, int D,
+                                           int Dk, int S, bool vec, int tid,
+                                           int nthreads) {
+  for (int i = tid; i < rows * (kMaxD / 8); i += nthreads) {
+    const int row = i / (kMaxD / 8), c = (i % (kMaxD / 8)) * 8;
+    if (c >= Dk) continue;
+    const bool ok = row0 + row < n;
+    const size_t at = static_cast<size_t>(ok ? row0 + row : 0) * D + c;
+    bf16* p = dst + row * S + c;
+    if (vec) {
+      cp_async16(p, src + (ok && c < D ? at : 0), ok && c < D);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        p[j] = ok && c + j < D ? src[at + j] : __ushort_as_bfloat16(0);
       }
-      winners[pair * W + w] = bits;
+    }
+  }
+}
+
+// N2 = 16: the maxima and winner bits of a warp's 32 x 64 tile (4 key
+// items), from its accumulators (rows row0 + 16 i + g and + 8 in
+// acc[i][n][0..1] and [2..3], tokens 8 n + 2 q and + 1 of the warp's 64,
+// for lane (g, q)). Key item j is n8 tiles 2 j and 2 j + 1, so each of its
+// rows lies in one quad: two xor shuffles give the quad its max (NaN
+// winning) and its bits. Lane q then stores the items of row (i, h) =
+// (q >> 1, q & 1), 16 bytes at a time where aligned.
+__device__ __forceinline__ void reg_maxima(const float (&acc)[2][8][4],
+                                           int row0, int r_end, int item0,
+                                           const Shape& sh,
+                                           float* __restrict__ rowmax,
+                                           uint32_t* __restrict__ winners) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, q = lane & 3;
+  float keep_mx[4];
+  uint32_t keep_bits[4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float mx = acc[i][2 * j][2 * h];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          mx = nan_max(mx, acc[i][2 * j + n][2 * h]);
+          mx = nan_max(mx, acc[i][2 * j + n][2 * h + 1]);
+        }
+        mx = nan_max(mx, __shfl_xor_sync(full, mx, 1));
+        mx = nan_max(mx, __shfl_xor_sync(full, mx, 2));
+        uint32_t bits = 0;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // token 8 n + 2 q + e of the item
+            bits |= static_cast<uint32_t>(acc[i][2 * j + n][2 * h + e] == mx)
+                    << (8 * n + 2 * q + e);
+          }
+        }
+        bits |= __shfl_xor_sync(full, bits, 1);
+        bits |= __shfl_xor_sync(full, bits, 2);
+        if (q == 2 * i + h) {
+          keep_mx[j] = mx;
+          keep_bits[j] = bits;
+        }
+      }
+    }
+  }
+  const int r = row0 + 16 * (q >> 1) + 8 * (q & 1) + g;
+  const int valid = min(4, sh.GB - item0);
+  if (r >= r_end || valid <= 0) return;
+  const size_t pair0 = static_cast<size_t>(r) * sh.GB + item0;
+  if (valid == 4 && pair0 % 4 == 0) {
+    *reinterpret_cast<float4*>(rowmax + pair0) =
+        make_float4(keep_mx[0], keep_mx[1], keep_mx[2], keep_mx[3]);
+    *reinterpret_cast<uint4*>(winners + pair0) =
+        make_uint4(keep_bits[0], keep_bits[1], keep_bits[2], keep_bits[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < valid) {
+      rowmax[pair0 + j] = keep_mx[j];
+      winners[pair0 + j] = keep_bits[j];
+    }
+  }
+}
+
+// One k16 step of a warp's 32 x 64 product: acc[i][n] += A rows 16 i ..
+// 16 i + 15 (a_ptr: this lane's ldmatrix row) times B tokens 8 n .. 8 n +
+// 7 (b_ptr likewise), d = k0 .. k0 + 15, for the first `pairs` n16 pairs.
+__device__ __forceinline__ void mma_step(float (&acc)[2][8][4],
+                                         const bf16* a_ptr,
+                                         const bf16* b_ptr, int S, int k0,
+                                         int pairs) {
+  uint32_t a[2][4];
+  ldmatrix_x4(a[0], a_ptr + k0);
+  ldmatrix_x4(a[1], a_ptr + 16 * S + k0);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    if (p < pairs) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_ptr + 16 * p * S + k0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_bf16(acc[i][2 * p], a[i], b[0], b[1]);
+        mma_bf16(acc[i][2 * p + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// A warp's product over d: KS k16 steps unrolled where KS > 0 (Dk = 16
+// KS) and all four pairs hold tokens, so that the compiler can issue each
+// step's ldmatrix ahead of the previous step's mma; else a loop.
+template <int KS>
+__device__ __forceinline__ void warp_product(float (&acc)[2][8][4],
+                                             const bf16* a_ptr,
+                                             const bf16* b_ptr, int S,
+                                             int Dk, int pairs) {
+  if constexpr (KS > 0) {
+    if (pairs == 4) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k) mma_step(acc, a_ptr, b_ptr, S, 16 * k, 4);
+      return;
+    }
+  }
+#pragma unroll 2
+  for (int k0 = 0; k0 < Dk; k0 += 16) {
+    mma_step(acc, a_ptr, b_ptr, S, k0, pairs);
+  }
+}
+
+// REG: N2 = 16, each key item in two n8 tiles of one warp, maxima and
+// bits in registers, a ring of two row stages a group. Else any N2, the
+// tile in shared memory (fp32, row stride
+// kMmaCols + 1) over the group's one row stage. KS: k16 steps unrolled
+// (Dk = 16 KS), or 0. Grid (key tiles, row splits); group g takes row
+// tiles g, g + 2, ... of its block's split. The groups take turns on the
+// tensor cores, so that one's maxima overlap the other's products.
+template <bool REG, int KS>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+li_fwd_bf16_kernel(const bf16* __restrict__ d1, const bf16* __restrict__ d2,
+                   float* __restrict__ rowmax, uint32_t* __restrict__ winners,
+                   Shape sh, int kt, int rows_per_split, int Dk, int a_bytes,
+                   bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NS = REG ? 2 : 1;
+  const int S = Dk + 8;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int grp = warp / 4, wc = warp % 4;  // 64 tokens a warp
+  const int gt = threadIdx.x % kGroupThreads;
+  bf16* bs = reinterpret_cast<bf16*>(smem);  // [kMmaCols][S]
+  // the group's stages, [NS][kMmaRows][S] (!REG: the fp32 tile over it)
+  bf16* as = reinterpret_cast<bf16*>(smem + kMmaCols * S * sizeof(bf16) +
+                                     grp * a_bytes);
+  const int l0 = blockIdx.x * kt;
+  const int nk = min(kt, sh.GB - l0);
+  const int C = nk * sh.N2;  // valid key tokens
+  const int jend = sh.GB * sh.N2;
+  const int r_begin = blockIdx.y * rows_per_split;
+  const int r_end = min(sh.R, r_begin + rows_per_split);
+  const int tiles = (r_end - r_begin + kMmaRows - 1) / kMmaRows;
+  const int turns = (tiles + 1) / 2;  // both groups take as many turns
+  // n16 column pairs of this warp that hold valid tokens (warp-uniform)
+  const int pairs = max(0, min(4, (C - 64 * wc + 15) / 16));
+  const int j0 = l0 * sh.N2;
+  auto row_of = [&](int turn) {
+    return r_begin + (2 * turn + grp) * kMmaRows;
+  };
+
+  stage_rows(bs, d2, j0, (C + 15) / 16 * 16, min(jend, j0 + C), sh.D, Dk, S,
+             vec, threadIdx.x, kMmaThreads);
+  stage_rows(as, d1, row_of(0), kMmaRows, r_end, sh.D, Dk, S, vec, gt,
+             kGroupThreads);
+  cp_async_commit();
+  if constexpr (NS == 2) {
+    stage_rows(as + kMmaRows * S, d1, row_of(1), kMmaRows, r_end, sh.D, Dk,
+               S, vec, gt, kGroupThreads);
+    cp_async_commit();
+  }
+  if (grp == 1) turn_pass(3);  // group 0 goes first
+  for (int k = 0; k < turns; ++k) {
+    const int r0 = row_of(k);
+    const bool mine = r0 < r_end;
+    cp_async_wait<NS - 1>();
+    if (k == 0) {
+      __syncthreads();  // the key tile, staged by every thread
+    } else {
+      group_sync(1 + grp);
+    }
+    float acc[2][8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+      }
+    }
+    turn_wait(3 + grp);
+    if (mine && pairs > 0) {
+      const int m = lane >> 3;
+      warp_product<KS>(
+          acc, as + (k % NS) * kMmaRows * S + (lane & 15) * S +
+                   (lane >> 4) * 8,
+          bs + (64 * wc + (m >> 1) * 8 + (lane & 7)) * S + (m & 1) * 8, S,
+          Dk, pairs);
+    }
+    // the other group's turn (group 1 passes its last one to nobody, so
+    // that every bar.arrive meets a bar.sync)
+    if (grp == 0 || k + 1 < turns) turn_pass(3 + (1 - grp));
+    group_sync(1 + grp);  // every warp of the group is done with the stage
+    if constexpr (REG) {
+      stage_rows(as + (k % 2) * kMmaRows * S, d1, row_of(k + 2), kMmaRows,
+                 r_end, sh.D, Dk, S, vec, gt, kGroupThreads);
+      cp_async_commit();
+      if (mine) {
+        reg_maxima(acc, r0, r_end, l0 + wc * 4, sh, rowmax, winners);
+      }
+    } else {
+      float* tile = reinterpret_cast<float*>(as);
+      const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = 64 * wc + 8 * n + 2 * q;
+          const int row = 16 * i + g;
+          if (n / 2 < pairs) {
+            tile[row * (kMmaCols + 1) + col] = acc[i][n][0];
+            tile[row * (kMmaCols + 1) + col + 1] = acc[i][n][1];
+            tile[(row + 8) * (kMmaCols + 1) + col] = acc[i][n][2];
+            tile[(row + 8) * (kMmaCols + 1) + col + 1] = acc[i][n][3];
+          }
+        }
+      }
+      group_sync(1 + grp);
+      if (mine) {
+        tile_maxima(tile, kMmaCols + 1, r0, kMmaRows, r_end, l0, nk, sh,
+                    rowmax, winners, gt, kGroupThreads);
+      }
+      group_sync(1 + grp);  // the tile is read: the stage takes the next rows
+      stage_rows(as, d1, row_of(k + 1), kMmaRows, r_end, sh.D, Dk, S, vec,
+                 gt, kGroupThreads);
+      cp_async_commit();
     }
   }
 }
@@ -1040,6 +1372,56 @@ int launch_d2(const uint32_t* winners, const void* d1, const float* g,
                : launch_d2_reg<T, false>(winners, d1, g, part, dd2, sh, p, s);
 }
 
+// K3's bf16 plan: key tiles of kt = kMmaCols / N2 whole items (at least
+// 2, as N2 <= 128); rows split into runs of whole 32-row tiles, as many
+// runs as fill the SMs with the blocks that fit one (one at D = 256). The
+// groups alternate tiles, so an odd run leaves group 1 one turn short: at
+// N1 = 49 (196 tiles, 8 key tiles) runs of 13 fill 128 SMs in 7 turns,
+// and runs of 14 would take as many turns on 112. Shared memory: the key
+// tile, then each group's row stages (!REG: one, and room for the fp32
+// tile over it).
+template <bool REG, int KS>
+int launch_fwd_bf16_ks(const bf16* d1, const bf16* d2, float* rowmax,
+                       uint32_t* winners, const Shape& sh, cudaStream_t s) {
+  const int Dk = (sh.D + 15) / 16 * 16;
+  const size_t row_bytes = static_cast<size_t>(Dk + 8) * sizeof(bf16);
+  const size_t stage = kMmaRows * row_bytes;
+  const size_t tile = static_cast<size_t>(kMmaRows) * (kMmaCols + 1) * 4;
+  const size_t a_bytes = REG ? 2 * stage : (stage > tile ? stage : tile);
+  const size_t smem = kMmaCols * row_bytes + 2 * a_bytes;
+  const int kt = kMmaCols / sh.N2;
+  const int key_tiles = (sh.GB + kt - 1) / kt;
+  const int row_tiles = (sh.R + kMmaRows - 1) / kMmaRows;
+  const int splits = splits_for(key_tiles, blocks_per_sm(smem), row_tiles);
+  const int per = (row_tiles + splits - 1) / splits;
+  const cudaError_t err = allow_smem(li_fwd_bf16_kernel<REG, KS>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the wrapper refuses bf16 inputs off a 16-byte boundary
+  const bool vec = sh.D % 8 == 0;
+  const dim3 grid(key_tiles, (row_tiles + per - 1) / per);
+  li_fwd_bf16_kernel<REG, KS><<<grid, kMmaThreads, smem, s>>>(
+      d1, d2, rowmax, winners, sh, kt, per * kMmaRows, Dk,
+      static_cast<int>(a_bytes), vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D = 256, the FILIP heads' width, unrolls the product over d
+template <bool REG>
+int launch_fwd_bf16_reg(const bf16* d1, const bf16* d2, float* rowmax,
+                        uint32_t* winners, const Shape& sh, cudaStream_t s) {
+  return sh.D > kMaxD - 16
+             ? launch_fwd_bf16_ks<REG, kMaxD / 16>(d1, d2, rowmax, winners,
+                                                   sh, s)
+             : launch_fwd_bf16_ks<REG, 0>(d1, d2, rowmax, winners, sh, s);
+}
+
+int launch_fwd_bf16(const bf16* d1, const bf16* d2, float* rowmax,
+                    uint32_t* winners, const Shape& sh, cudaStream_t s) {
+  return sh.N2 == 16
+             ? launch_fwd_bf16_reg<true>(d1, d2, rowmax, winners, sh, s)
+             : launch_fwd_bf16_reg<false>(d1, d2, rowmax, winners, sh, s);
+}
+
 }  // namespace
 
 // The launch functions. d1: contiguous [B, N1, D]; d2: contiguous
@@ -1061,18 +1443,19 @@ extern "C" int filip_li_fwd(const void* d1, const void* d2, void* rowmax,
   const Shape sh{B * N1, N1, GB, N2, D};
   if (!valid(sh, B, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kt = N2 >= kMaxCols ? 1 : kMaxCols / N2;
-  const dim3 grid((sh.R + kRows - 1) / kRows, (GB + kt - 1) / kt);
   float* rm = static_cast<float*>(rowmax);
   uint32_t* win = static_cast<uint32_t*>(winners);
   if (dtype == 0) {
+    const int kt = N2 >= kMaxCols ? 1 : kMaxCols / N2;
+    const dim3 grid((sh.R + kRows - 1) / kRows, (GB + kt - 1) / kt);
     li_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(d1), static_cast<const float*>(d2), rm, win,
         sh, kt);
   } else {
-    li_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(d1),
-        static_cast<const __nv_bfloat16*>(d2), rm, win, sh, kt);
+    const int err = launch_fwd_bf16(static_cast<const bf16*>(d1),
+                                    static_cast<const bf16*>(d2), rm, win, sh,
+                                    s);
+    if (err) return err;
   }
   li_mean_kernel<<<(B * GB + 255) / 256, 256, 0, s>>>(
       rm, static_cast<float*>(raw), B, N1, GB);

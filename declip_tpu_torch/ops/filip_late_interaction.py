@@ -7,7 +7,8 @@ kernels are K3 (the forward), K4 (the gradient of the query side) and K5
 sm_90a with a plain C interface, loaded with ctypes. K3 writes down which
 key tokens win each max, as a bit mask, and K4 and K5 read it instead of
 recomputing the similarities; the source says what bounds them on an H100
-and how the design answers that.
+and how the design answers that. K3's bf16 route runs on the tensor cores
+(mma.sync, fp32 accumulation), its fp32 route on the CUDA cores.
 
 ``raw[b, l] = mean_n max_m <d1[b, n], d2[l, m]>`` for d1 ``[B, N1, D]`` and
 d2 ``[GB, N2, D]`` (fp32 or bf16), fp32 out; the gradient routes
@@ -32,7 +33,8 @@ autograd gives d(scale) (filip_pallas.py:263). Through
   included (:func:`late_interaction_bwd_plain` is the end-to-end reference
   the tests hold it to);
 - CUDA tensors launch K3, and K4 and K5 for the gradient, or raise on what
-  the kernels do not take (dtype, N2 > 128, D > 256, layout). There is no
+  the kernels do not take (dtype, N2 > 128, D > 256, layout, and for K3
+  a bf16 tensor that does not start on a 16-byte boundary). There is no
   fallback.
 """
 
@@ -46,6 +48,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from declip_tpu_torch.ops import _build
+from declip_tpu_torch.ops.flash_attention import check_aligned
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N2 = 128
@@ -222,8 +225,10 @@ def _raise_on(err: int, name: str) -> None:
 def late_interaction_fwd(d1: torch.Tensor, d2: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: ``(raw [B, GB] fp32, winners)`` on CUDA tensors; raises on what
-    the kernel does not take."""
+    the kernel does not take (its bf16 route copies rows 16 bytes at a
+    time, so a bf16 d1 or d2 must start on a 16-byte boundary)."""
     _check_features(None, d1, d2)
+    check_aligned(d1=d1, d2=d2)
     b, n1, gb, n2, d = _dims(d1, d2)
     rowmax = torch.empty(b * n1, gb, dtype=torch.float32, device=d1.device)
     raw = torch.empty(b, gb, dtype=torch.float32, device=d1.device)

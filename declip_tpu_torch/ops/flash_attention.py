@@ -135,10 +135,10 @@ def _check_kernel_inputs(q, k, v) -> None:
         raise ValueError("q, k, v must lie on one CUDA device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel takes contiguous q, k, v")
-    _check_aligned(q=q, k=k, v=v)
+    check_aligned(q=q, k=k, v=v)
 
 
-def _check_aligned(**tensors) -> None:
+def check_aligned(**tensors) -> None:
     """The bf16 kernels read rows 16 bytes at a time (cp.async, vector
     loads), so each bf16 tensor they read must start on a 16-byte boundary;
     a view at another storage offset raises here instead of faulting on
@@ -192,7 +192,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{tuple(t.shape)} {t.dtype} {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"the kernel takes a contiguous {name}")
-    _check_aligned(o=o, do=do)
+    check_aligned(o=o, do=do)
     b, h, length, dh = q.shape
     if (lse is None or lse.shape != (b, h, length)
             or lse.dtype != torch.float32 or lse.device != q.device

@@ -9,8 +9,13 @@ without top-k selection), in bf16, on continuous unit vectors
 (chip_smoke.py's ``_li_inputs``) it runs the autograd route forward and
 backward and prints the device time of each kernel kind the profiler saw
 (chip_smoke.py's ``kernel_kind``: K3, K4, K5 and the split sums' reduction)
-per call. Only the autograd route is called, so any checkout's kernels can
-be timed, whatever their wrappers' signatures. ``--root`` names the
+per call. Beside K3 it prints a yardstick: the device time of the product
+alone, ``torch.matmul`` of d1 as [B*N1, D] by d2 as [D, GB*N2] in bf16
+(cuBLAS; it writes the bf16 similarities, which K3 never does, and takes
+no max). No PyTorch call computes K3's max-mean, so this is not a library
+time for it: it says how far K3's product is from the card's own. Only
+the autograd route is called, so any checkout's kernels can be timed,
+whatever their wrappers' signatures. ``--root`` names the
 checkout whose ``declip_tpu_torch`` is timed (default: this one), so that
 two trees can be timed in turns, one process each, on one card. The last
 line is one JSON object.
@@ -81,16 +86,26 @@ def main(argv=None) -> int:
             kind = smoke.kernel_kind(e.name)
             by_kind[kind] = (by_kind.get(kind, 0.0)
                              + e.time_range.elapsed_us() / 1e3 / args.iters)
+        a = d1.detach().reshape(-1, shape[4])
+        bt = d2.detach().reshape(-1, shape[4]).t()
+
+        def product():
+            return torch.matmul(a, bt)
+
+        gemm_ms = (smoke.device_ms(product, args.iters)[0]
+                   or smoke.cuda_ms(product))
         row = {"shape": list(shape), "dtype": "bfloat16",
                "ms": {k: by_kind.get(k, 0.0)
                       for k in ("K3", "K4", "K5", "K4/K5 reduce")},
                "other_ms": {k: v for k, v in by_kind.items()
-                            if k not in ("K3", "K4", "K5", "K4/K5 reduce")}}
+                            if k not in ("K3", "K4", "K5", "K4/K5 reduce")},
+               "k3_product_matmul_ms": gemm_ms}
         rows.append(row)
         print(f"{args.tag} B={shape[0]} N1={shape[1]} GB={shape[2]} "
               f"N2={shape[3]} D={shape[4]} bf16: "
               + " ".join(f"{k} {v:.5f}" for k, v in row["ms"].items())
-              + " ms", flush=True)
+              + f" ms; K3's product alone in torch.matmul {gemm_ms:.5f} ms",
+              flush=True)
     print(card)
     print(json.dumps({"tag": args.tag, "root": root, "card": card,
                       "rows": rows}))

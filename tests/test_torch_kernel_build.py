@@ -202,3 +202,59 @@ def test_late_interaction_bound_counts_the_winner_mask(smoke, which):
     ms33, _ = smoke.late_interaction_bound(b, n1, gb, 33, d, "bfloat16",
                                            which, winners)
     assert ms33 > ms
+
+
+# the late-interaction library's kernels as nvcc names them (cut short)
+LI_BF16 = ("_ZN12_GLOBAL__N_118li_fwd_bf16_kernelILb1ELi16EEEvPK13__nv_"
+           "bfloat16S3_PfPjNS_5ShapeEiiiib")
+LI_FP32 = "_ZN12_GLOBAL__N_113li_fwd_kernelIfEEvPKT_S3_PfPjNS_5ShapeEi"
+LI_K4 = ("_ZN12_GLOBAL__N_116li_bwd_d1_kernelI13__nv_bfloat16Li3EEEvPKjPKT_"
+         "PKfPfPS4_NS_5ShapeEiib")
+LI_SASS = f"""\
+\t\tFunction : {LI_BF16}
+        /*0100*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+        /*0110*/                   HMMA.16816.F32.BF16 R16, R4, R14, R16 ;
+\t\tFunction : {LI_FP32}
+        /*0100*/                   FFMA R1, R2, R3, R1 ;
+\t\tFunction : {LI_K4}
+        /*0100*/                   FFMA R1, R2, R3, R1 ;
+"""
+
+
+@pytest.mark.parametrize("fault", [None, "cuda-cores", "missing", "spill"])
+def test_tensor_core_check_holds_k3_bf16(smoke, fault):
+    """Phase 1 passes K3's bf16 kernel with HMMA and no spill, whatever the
+    fp32 K3 and K4 (CUDA cores) hold, and fails it on the CUDA cores,
+    missing or spilled."""
+    sass = LI_SASS
+    ptxas = {fn: dict(NO_SPILL) for fn in (LI_BF16, LI_FP32, LI_K4)}
+    if fault == "cuda-cores":
+        sass = sass.replace("HMMA.16816.F32.BF16", "FFMA")
+    elif fault == "missing":
+        sass = sass.replace("li_fwd_bf16_kernel", "li_fwd_x_kernel")
+    elif fault == "spill":
+        ptxas[LI_BF16]["spill_loads"] = 8
+    faults, found = smoke.tensor_core_faults("filip_li",
+                                             smoke.hmma_counts(sass), ptxas)
+    if fault is None:
+        assert faults == [] and found == {LI_BF16: 2}
+    else:
+        want = {"cuda-cores": "has no HMMA",
+                "missing": "no tensor-core kernel *li_fwd_bf16_kernel",
+                "spill": "ptxas spilled"}[fault]
+        assert len(faults) == 1 and want in faults[0], faults
+
+
+@pytest.mark.parametrize("name,kind", [
+    (LI_BF16, "K3"),
+    (LI_FP32, "K3"),
+    ("_ZN12_GLOBAL__N_114li_mean_kernelEPKfPfiii", "K3"),
+    (LI_K4, "K4"),
+    ("void (anonymous namespace)::li_fwd_bf16_kernel<true, 16>("
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, float*, unsigned int*, "
+     "(anonymous namespace)::Shape, int, int, int, int, bool)", "K3"),
+])
+def test_kernel_kind_counts_k3_by_either_route(smoke, name, kind):
+    """The profiler's names of K3's kernels, mangled or demangled, count as
+    K3, so the FILIP step's K3 time and the timing tool keep them."""
+    assert smoke.kernel_kind(name) == kind

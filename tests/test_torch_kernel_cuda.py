@@ -8,7 +8,11 @@ at scores up to 30, and the fp32 limit against plain TF32, which it must
 fail. The late-interaction
 kernels K3, K4 and K5: odd N1, N2 and GB across their 64-row and 128-token
 tiles, both dtypes, exact ties, NaN features, and the inputs they refuse;
-K3's winner mask bit for bit against its plain version.
+K3's winner mask bit for bit against its plain version; in bf16 (K3 on
+the tensor cores) N2 = 16, whose maxima are taken in registers, other
+widths of whole n8 tiles (N2 = 8, 32, 64) through the shared-memory
+epilogue, D a multiple of 8 and not of 16, identical key tokens tying on
+continuous inputs, and misaligned views refused.
 
 Needs a CUDA card and nvcc; marked ``cuda`` and skipped elsewhere. On the
 card (the repository's conftest imports JAX, which the card's machine need
@@ -314,6 +318,10 @@ def _li_check(card, b, n1, gb, n2, d, dtype, seed, d2=None):
     (4, 33, 70, 65, 256),   # wide key items (N2 > 64), two d slices in K5
     (1, 200, 9, 128, 96),   # the largest N2, N1 across four row tiles
     (7, 77, 300, 16, 256),  # text queries, GB of three key tiles
+    (3, 50, 41, 16, 200),   # D a multiple of 8, not 16; unaligned items
+    (2, 70, 33, 8, 64),     # whole n8 tiles, shared-memory epilogue
+    (4, 20, 21, 32, 128),   # likewise, one mask word an item
+    (2, 40, 9, 64, 96),     # likewise, two mask words an item
 ])
 def test_late_interaction_kernels_match_plain(card, b, n1, gb, n2, d, dtype):
     _li_check(card, b, n1, gb, n2, d, dtype, seed=b * 1000 + n1 + gb + n2)
@@ -330,6 +338,61 @@ def test_late_interaction_kernels_split_ties(card, dtype):
     dd2 = _li_check(card, 6, 11, 40, 6, 64, dtype, seed=9, d2=d2)
     torch.testing.assert_close(dd2[:, 4], dd2[:, 1], rtol=0, atol=0)
     assert dd2[:, 1].abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n1,gb,n2,d", [(16, 49, 64, 16, 256),
+                                          (5, 30, 20, 17, 64)])
+def test_late_interaction_identical_tokens_tie_on_unit_vectors(
+        card, b, n1, gb, n2, d, dtype):
+    """Key tokens that are copies of one another, on continuous unit
+    vectors (no grid): their similarities are computed alike, so K3 sets
+    their winner bits together, bit for bit, and K5 gives them one
+    gradient."""
+    d1, d2, g = smoke._li_inputs((b, n1, gb, n2, d), dtype, 77, grid=False)
+    d2[:, 4] = d2[:, 1]
+    d2[::2, 7] = d2[::2, 1]
+    _, winners = fli.late_interaction_fwd(d1, d2)
+    bits = ((winners[..., None] >> torch.arange(32, device=card)) & 1)
+    bits = bits.reshape(*winners.shape[:2], -1)
+    assert torch.equal(bits[..., 4], bits[..., 1])
+    assert torch.equal(bits[:, ::2, 7], bits[:, ::2, 1])
+    assert bits[..., 1].any() and bits[:, ::2, 7].any()
+    dd2 = fli.late_interaction_bwd_d2(winners, d1, g, n2)
+    torch.testing.assert_close(dd2[:, 4], dd2[:, 1], rtol=0, atol=0)
+
+
+def test_late_interaction_refuses_misaligned_bf16(card):
+    """K3's bf16 route copies rows 16 bytes at a time: a contiguous bf16
+    view one element into its storage raises ValueError, directly and
+    through the autograd route, and the card stays usable; fp32 has no such
+    rule."""
+    d1 = _grid(card, (2, 5, 64), 41, torch.bfloat16)
+    d2 = _grid(card, (3, 16, 64), 42, torch.bfloat16)
+    for i, x in enumerate((d1, d2)):
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=card)
+        shifted = flat[1:].view(x.shape)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        shifted.copy_(x)
+        args = (shifted, d2) if i == 0 else (d1, shifted)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            fli.late_interaction_fwd(*args)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            fli.late_interaction_logits_kernel(*args, torch.ones(()))
+        flat32 = torch.zeros(x.numel() + 1, device=card)
+        shifted32 = flat32[1:].view(x.shape)
+        shifted32.copy_(x)
+        args32 = ((shifted32, d2.float()) if i == 0
+                  else (d1.float(), shifted32))
+        torch.testing.assert_close(
+            fli.late_interaction_fwd(*args32)[0],
+            fli.late_interaction_raw_plain(d1, d2), rtol=1e-5, atol=1e-5)
+    raw, winners = fli.late_interaction_fwd(d1, d2)
+    torch.cuda.synchronize()
+    assert torch.equal(winners, fli.late_interaction_winners_plain(d1, d2))
+    torch.testing.assert_close(raw, fli.late_interaction_raw_plain(d1, d2),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
