@@ -65,6 +65,23 @@ Phases (any failed check raises, and the script exits non-zero):
    only the weight-0 loss terms reach getting exactly zero from both, and
    K3-K5 against the chunked late interaction behind the same K1 and K2.
 
+6. the DeCLIP-ResNet-50 training slice: ``declip_res50`` at full width in
+   bf16 from seeded weights and a seeded 2^16 x 1024 NN text bank, with
+   the YFCC15M DeCLIP recipe (inlined below: MLM-masked text, EDA
+   captions, two image views, SimSiam, the NN-bank InfoNCE), trained by
+   ``make_train_step`` at batch 128 on one repeated seeded batch; every loss
+   term finite, no skipped update, the bank pointer 2B further each step,
+   the BatchNorm running statistics moved and finite, the logit scale in
+   [3, 6], per step 24 K1 and 24 K2 calls and no self-attention on the
+   plain path (the pooled query of AttentionPool2d is the plain path's by
+   design, 2 a step); step time, pairs/s, device busy and idle, time by
+   kind, the bank query's time and peak memory; then one fp32 step through
+   K1/K2 against the plain attention path from the same weights and bank
+   (each bn3 at a seeded non-zero scale, so that every tower parameter has
+   a gradient): the loss, each parameter's gradient, the bank's neighbour
+   indices and the BatchNorm statistics (the image side's only: the recipe
+   has no BatchNorm after the text tower).
+
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
 JSON object. Full results also go to chiprun_out/chip_smoke.json.
@@ -265,6 +282,55 @@ lr_scheduler:
     kwargs: {base_lr: 0.0001, warmup_lr: 0.001, min_lr: 0.0,
              warmup_steps: 2500, max_iter: 128001}
 """
+
+# experiments/declip_experiments/yfcc15m/yfcc15m_r50_declip/config.yaml, cut
+# and completed as TRAIN_CONFIG is (the reference's image_text_two_view data
+# setting is the default of the loss)
+DECLIP_CONFIG = """
+model:
+    type: declip_res50
+    kwargs:
+        image_encode: {embed_dim: 1024}
+        text_encode: {embed_dim: 1024, vocab_size: 49409}
+        clip: {use_allgather: True, text_mask_type: MLM,
+               return_nn_bank: True, feature_dim: 1024, EDA: True}
+clip_simsiam_loss_weight: {clip_loss: 0.4, nn_text: 0.2, simsiam_loss: 0.2,
+                           masking_language: 0.2}
+precision: {dtype: bfloat16}
+grad_clip: {type: logit_scale_param_value, value: 3, max_value: 6}
+optimizer:
+    type: AdamW
+    kwargs: {lr: 0.0001, weight_decay: 0.1, betas: [0.9, 0.98],
+             eps: 0.00000001}
+    pconfig:
+        bn_w: {weight_decay: 0}
+        bn_b: {weight_decay: 0}
+        ln_w: {weight_decay: 0}
+        ln_b: {weight_decay: 0}
+        linear_b: {weight_decay: 0}
+        conv_b: {weight_decay: 0}
+        logit_scale: {weight_decay: 0}
+lr_scheduler:
+    type: Cosine
+    kwargs: {base_lr: 0.0001, warmup_lr: 0.001, min_lr: 0.0,
+             warmup_steps: 2500, max_iter: 128001}
+"""
+# the reference's NN bank (declip.py, nn_size 2^16) over embed_dim 1024
+DECLIP_BANK = 2 ** 16
+DECLIP_TRAIN_STEPS = 10
+# DeCLIP's fp32 step: BatchNorm running statistics after the forward of the
+# kernel path against the plain path's, as ||a - b|| <= this * ||b|| (the
+# recipe has no BatchNorm after the text tower: a check of the image side)
+STEP_BN_REL_NORM = 1e-5
+# parameters whose gradient is 0 in exact arithmetic: a bias right before a
+# BatchNorm (the batch mean removes it) and attnpool's key bias (the softmax
+# removes it). Their gradients are rounding noise on either path, held to
+# STEP_NOISE_REL_NORM of the gradient of the layer's weight, not to the plain
+# path's noise.
+NOISE_GRADS = ("projector.linear1.bias", "projector.linear2.bias",
+               "projector.linear3.bias", "predictor.linear1.bias",
+               "visual.attnpool.k_proj.bias")
+STEP_NOISE_REL_NORM = 1e-4
 
 
 def check(cond, msg):
@@ -1169,6 +1235,10 @@ def kernel_kind(name):
         return "K4/K5 reduce"
     if "memcpy" in n or "memset" in n:
         return "memcpy/memset"
+    if any(t in n for t in ("batch_norm", "batchnorm", "bn_fw", "bn_bw")):
+        return "BatchNorm"
+    if any(t in n for t in ("fprop", "dgrad", "wgrad", "convolve", "cudnn")):
+        return "conv (cuDNN)"
     if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
         return "GEMM"
     if "multi_tensor_apply" in n or "foreach" in n:
@@ -1292,7 +1362,10 @@ def read_launches():
 class _CallCounter:
     """Counts the calls of the plain attention and late-interaction
     functions where the port's modules look them up, for the length of a
-    ``with`` block."""
+    ``with`` block: ``calls``, and apart from them ``cross``, the plain
+    attention calls whose queries and keys differ in length (the pooled
+    query of AttentionPool2d, which no kernel serves, as in the JAX
+    package)."""
 
     def __init__(self):
         from declip_tpu_torch.ops import (
@@ -1314,7 +1387,7 @@ class _CallCounter:
                        "late_interaction_bwd_d2_plain"),
                       (filip_late_interaction, "late_interaction_bwd_plain"),
                       (filip_ops, "late_interaction_logits")]
-        self.calls = 0
+        self.calls = self.cross = 0
 
     def __enter__(self):
         self.saved = [getattr(mod, name) for mod, name in self.sites]
@@ -1324,7 +1397,11 @@ class _CallCounter:
 
     def _counting(self, fn):
         def wrapper(*args, **kwargs):
-            self.calls += 1
+            if (fn.__name__ == "attention_plain"
+                    and args[0].shape[-2] != args[1].shape[-2]):
+                self.cross += 1
+            else:
+                self.calls += 1
             return fn(*args, **kwargs)
         return wrapper
 
@@ -1517,7 +1594,8 @@ def phase_train():
     check(launches == (24 * TRAIN_STEPS, 24 * TRAIN_STEPS),
           f"{launches} K1/K2 calls in {TRAIN_STEPS} steps (want 24 each "
           f"per step)")
-    check(plain.calls == 0, f"{plain.calls} plain-path attention calls")
+    check(plain.calls + plain.cross == 0,
+          f"{plain.calls + plain.cross} plain-path attention calls")
     print(f"train: losses {[round(x, 4) for x in losses]}", flush=True)
     print(f"train: {TRAIN_STEPS} steps, {step_ms:.2f} ms/step (CUDA events; "
           f"host {wall_s * 1e3 / TRAIN_STEPS:.2f}), "
@@ -1755,7 +1833,8 @@ def phase_train_filip():
     check(launches == {k: n * FILIP_TRAIN_STEPS for k, n in per_step.items()},
           f"{launches} kernel calls in {FILIP_TRAIN_STEPS} steps (want "
           f"{per_step} per step)")
-    check(plain.calls == 0, f"{plain.calls} plain-version calls")
+    check(plain.calls + plain.cross == 0,
+          f"{plain.calls + plain.cross} plain-version calls")
     print(f"train filip: losses {[round(x, 4) for x in losses]} (dense "
           f"{[round(x, 4) for x in dense]}, mlm "
           f"{round(history[-1]['text_mlm_loss'], 4)}, clip "
@@ -1873,6 +1952,331 @@ def phase_train_filip():
             "fp32_zero_grad_params": zero}
 
 
+def _declip_batch(rng):
+    """B=128 seeded two-view images [B, 224, 224, 6], each view noise around
+    a colour of its own image (pure noise gives a random tower nearly equal
+    embeddings, whose BatchNorm in the SimSiam heads then divides by a tiny
+    batch deviation), the captions, a second draw standing in for their EDA
+    versions, and the MLM masking of the captions."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.tokenizer.mlm import mask_tokens
+
+    tokens, tokens_aug = _tokens(rng, TRAIN_BATCH), _tokens(rng, TRAIN_BATCH)
+    mlm_tokens, mlm_labels = mask_tokens(
+        tokens, mask_id=MASK, vocab_size=VOCAB, special_ids=(SOT, EOT),
+        rng=rng)
+    check((mlm_tokens == MASK).any() and (mlm_labels != -100).any(),
+          "MLM masking selected nothing")
+    images = (rng.standard_normal((TRAIN_BATCH, 224, 224, 6), np.float32)
+              + rng.standard_normal((TRAIN_BATCH, 1, 1, 6), np.float32))
+    return {"images": torch.from_numpy(images).cuda(),
+            "tokens": torch.from_numpy(tokens).cuda(),
+            "tokens_aug": torch.from_numpy(tokens_aug).cuda(),
+            "mlm_tokens": torch.from_numpy(mlm_tokens).cuda(),
+            "mlm_labels": torch.from_numpy(mlm_labels).cuda()}
+
+
+def _rel_norm(a, b):
+    import torch
+
+    norm = torch.linalg.vector_norm(b.float()).item()
+    return torch.linalg.vector_norm((a - b).float()).item() / norm, norm
+
+
+def declip_step_kernels_vs_plain(model, from_out, state, batch):
+    """One fp32 loss and gradient of the DeCLIP ``model`` through K1/K2
+    (attn_impl "auto") and through the plain attention path ("xla"), from
+    the same weights and bank: -> {impl: (loss, gradients in parameter
+    order, the bank's neighbour indices of both captions [B, 2], each
+    BatchNorm's new running statistics)}. Checks K1/K2's calls on each
+    path, and that only the plain path made plain self-attention calls."""
+    import torch
+
+    from declip_tpu_torch.models.layers import (
+        BatchNorm,
+        MultiHeadAttention,
+        discard_bn_stats,
+    )
+    from declip_tpu_torch.models.memory_bank import nearest_indices
+
+    params = list(model.parameters())
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    out_by_impl = {}
+    for impl, want in (("auto", (24, 24)), ("xla", (0, 0))):
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.attn_impl = impl
+        discard_bn_stats(model)
+        before = read_launches()
+        with _CallCounter() as plain:
+            out = model(batch)
+            idx = torch.cat([nearest_indices(state.bank_text, out[key])
+                             for key in ("text_embed", "text_embed_aug")],
+                            dim=1)
+            total, _ = from_out(model, state, out)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, torch.autograd.grad(
+                         total, params, allow_unused=True))]
+        used = tuple(read_launches()[k] - before[k] for k in ("K1", "K2"))
+        check(used == want, f"fp32 DeCLIP step with attn_impl {impl}: "
+                            f"K1/K2 calls {used}, want {want}")
+        check((plain.calls == 0) == (impl == "auto"),
+              f"fp32 DeCLIP step with attn_impl {impl}: {plain.calls} "
+              f"plain self-attention calls")
+        out_by_impl[impl] = (float(total.detach()), grads, idx,
+                             [m.pending for m in bns])
+        del out, total
+    discard_bn_stats(model)
+    return out_by_impl
+
+
+def phase_train_declip():
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models import model_entry
+    from declip_tpu_torch.models.layers import BatchNorm
+    from declip_tpu_torch.models.memory_bank import init_bank, query_topk
+    from declip_tpu_torch.models.resnet import ModifiedResNet
+    from declip_tpu_torch.optim import (
+        optim_entry,
+        path_prefix_mask,
+        scheduler_entry,
+    )
+    from declip_tpu_torch.train import (
+        make_losses_from_out,
+        make_train_step,
+        method_of,
+        new_train_state,
+    )
+
+    cfg = parse_config(DECLIP_CONFIG)
+    max_iter = int(cfg.lr_scheduler.kwargs.max_iter)
+
+    def build(dtype):
+        kwargs = dict(cfg.model.kwargs)
+        kwargs["dtype"] = dtype
+        model = model_entry({"type": cfg.model.type, "kwargs": kwargs})
+        model.init_weights(torch.Generator().manual_seed(SEED))
+        return model.cuda()
+
+    def seeded_bank():
+        return init_bank(torch.Generator().manual_seed(SEED + 1),
+                         DECLIP_BANK, 1024, device="cuda")
+
+    t0 = time.perf_counter()
+    model = build(cfg.precision.dtype)
+    vis, txt = model.visual, model.encode_text
+    check(isinstance(vis, ModifiedResNet)
+          and (vis.layers, vis.width, vis.embed_dim, vis.heads,
+               vis.input_resolution, txt.ln_final.normalized_shape[0],
+               len(txt.transformer.resblocks), txt.vocab_size, vis.dtype,
+               txt.dtype, method_of(model), model.return_nn_bank,
+               model.text_label_predictor.out_features)
+          == ((3, 4, 6, 3), 64, 1024, 32, 224, 512, 12, VOCAB,
+              torch.bfloat16, torch.bfloat16, "declip", True, VOCAB),
+          "model is not DeCLIP-ResNet-50 at full width in bf16")
+    named = dict(model.named_parameters())
+    check(all(p.dtype == torch.float32 for p in named.values()),
+          "parameters are not fp32")
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    stats0 = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    sched = scheduler_entry(cfg.lr_scheduler, max_iter=max_iter)
+    tx = optim_entry(cfg.optimizer, model, sched,
+                     pconfig=cfg.optimizer.pconfig,
+                     grad_clip=dict(cfg.grad_clip),
+                     frozen_mask=path_prefix_mask(
+                         named, vis.frozen_param_paths()))
+    state = new_train_state(model=model, opt_state=tx.init(named),
+                            bank_text=seeded_bank())
+    step = make_train_step(model, tx, cfg, sched, total_steps=max_iter)
+    batch = _declip_batch(np.random.default_rng(SEED))
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in named.values())
+    print(f"train declip: declip_res50 bf16, {n_params / 1e6:.1f} M fp32 "
+          f"params, {len(bns)} BatchNorms, bank {DECLIP_BANK} x 1024, batch "
+          f"{TRAIN_BATCH}, set up in {setup_s:.1f} s", flush=True)
+
+    history = []
+    terms = ("clip_loss", "simsiam_loss", "text_mlm_loss",
+             "clip_nn_text_loss")
+
+    def run(n):
+        steps = []
+        for _ in range(n):
+            _, metrics = step(state, batch)
+            steps.append((metrics, model.logit_scale.detach().clone()))
+        for metrics, scale in steps:
+            m = {k: float(v) for k, v in metrics.items()}
+            m["logit_scale_param"] = float(scale)
+            history.append(m)
+            check(m["update_skipped"] == 0.0, f"a step was skipped: {m}")
+            check(all(np.isfinite(m[k]) for k in ("loss",) + terms),
+                  f"a loss term is not finite: {m}")
+            check(3.0 <= m["logit_scale_param"] <= 6.0,
+                  f"logit_scale param outside [3, 6]: {m}")
+
+    run(TRAIN_WARMUP_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ptr0 = state.bank_text.ptr
+    reset_launches()  # main path starts
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with _CallCounter() as plain:
+        t0 = time.perf_counter()
+        start.record()
+        run(DECLIP_TRAIN_STEPS)
+        end.record()
+        end.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = read_launches()  # main path ends
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    step_ms = start.elapsed_time(end) / DECLIP_TRAIN_STEPS
+    losses = [m["loss"] for m in history]
+    per_step = {"K1": 24, "K2": 24, "K3": 0, "K4": 0, "K5": 0}
+    check(launches == {k: n * DECLIP_TRAIN_STEPS
+                       for k, n in per_step.items()},
+          f"{launches} kernel calls in {DECLIP_TRAIN_STEPS} steps (want "
+          f"{per_step} per step)")
+    check(plain.calls == 0, f"{plain.calls} plain self-attention calls")
+    check(plain.cross == 2 * DECLIP_TRAIN_STEPS,
+          f"{plain.cross} pooled-query attention calls in "
+          f"{DECLIP_TRAIN_STEPS} steps (want 2 a step)")
+    want_ptr = (ptr0 + 2 * TRAIN_BATCH * DECLIP_TRAIN_STEPS) % DECLIP_BANK
+    check(state.bank_text.ptr == want_ptr,
+          f"bank pointer {state.bank_text.ptr}, want {want_ptr}")
+    moved = 0
+    for m, (mean0, var0) in zip(bns, stats0):
+        check(bool(torch.isfinite(m.running_mean).all()
+                   and torch.isfinite(m.running_var).all()),
+              "BatchNorm running statistics not finite")
+        moved += int(not torch.equal(m.running_mean, mean0)
+                     and not torch.equal(m.running_var, var0))
+    check(moved == len(bns), f"{len(bns) - moved} of {len(bns)} BatchNorms "
+                             f"kept their running statistics")
+    print(f"train declip: losses {[round(x, 4) for x in losses]}; last "
+          f"step's terms {({k: round(history[-1][k], 4) for k in terms})}",
+          flush=True)
+    print(f"train declip: {DECLIP_TRAIN_STEPS} steps, {step_ms:.2f} ms/step "
+          f"(CUDA events; host {wall_s * 1e3 / DECLIP_TRAIN_STEPS:.2f}), "
+          f"{TRAIN_BATCH * 1e3 / step_ms:.1f} pairs/s, kernel calls "
+          f"{launches}, pooled-query attention calls {plain.cross}, bank "
+          f"pointer {ptr0} -> {state.bank_text.ptr}, peak device memory "
+          f"{peak_mib:.0f} MiB", flush=True)
+
+    breakdown = profile_steps(lambda: step(state, batch), 3, step_ms)
+    query = torch.nn.functional.normalize(torch.randn(
+        TRAIN_BATCH, 1024, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(SEED)), dim=-1).to(torch.bfloat16)
+    bank_ms, bank_kernels = device_ms(
+        lambda: query_topk(state.bank_text, query, 1))
+    print(f"train declip: device busy {breakdown['busy_ms']:.2f} ms/step, "
+          f"idle share {breakdown['idle_share']:.1%}, K1 "
+          f"{breakdown['k1_ms']:.2f} ms, K2 {breakdown['k2_ms']:.2f} ms; "
+          f"one bank query (bf16, B={TRAIN_BATCH}, 2 a step) "
+          f"{bank_ms:.3f} ms of device time", flush=True)
+    print(f"  by kind: {breakdown['by_kind_ms']}")
+    for n, v in breakdown["top_kernels_ms"]:
+        print(f"  {v:8.3f} ms  {n[:110]}")
+    del state, step, tx, model, named, bns, stats0
+    torch.cuda.empty_cache()
+
+    # one fp32 step from the same seeded weights and bank: K1/K2 against
+    # the plain attention path. Each block's bn3 starts at zero scale, which
+    # leaves every layer of its residual branch without a gradient; a
+    # seeded scale in [0.1, 0.5] gives the whole tower one, so that the
+    # image side's gradients, which reach the text tower through the
+    # contrastive terms, are compared too
+    model = build("float32")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm) and m.zero_scale:
+                m.weight.copy_(0.1 + 0.4 * torch.rand(
+                    m.weight.shape, generator=gen).to(m.weight.device))
+    state = new_train_state(model=model, opt_state=None,
+                            bank_text=seeded_bank())
+    from_out = make_losses_from_out(cfg, "declip", total_steps=max_iter)
+    res = declip_step_kernels_vs_plain(model, from_out, state, batch)
+    (k_loss, k_grads, k_idx, k_stats), (p_loss, p_grads, p_idx, p_stats) = \
+        res["auto"], res["xla"]
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"fp32 DeCLIP loss kernels {k_loss} vs plain {p_loss}")
+    names = [n for n, _ in model.named_parameters()]
+    grads_k, grads_p = dict(zip(names, k_grads)), dict(zip(names, p_grads))
+    rel_norm_err, worst, noise, zero = 0.0, [], {}, []
+    for name in names:
+        a, b = grads_k[name], grads_p[name]
+        if name in NOISE_GRADS:
+            weight = name[: -len("bias")] + "weight"
+            for path, grads in (("kernels", grads_k), ("plain", grads_p)):
+                noise[f"{path} {name}"] = (
+                    torch.linalg.vector_norm(grads[name]).item()
+                    / torch.linalg.vector_norm(grads[weight]).item())
+                check(noise[f"{path} {name}"] <= STEP_NOISE_REL_NORM,
+                      f"fp32 grad {name} ({path}): not at the noise level "
+                      f"of {weight}'s: {noise[f'{path} {name}']:.3g}")
+            continue
+        if not b.any().item():
+            check(not a.any().item(), f"fp32 grad {name}: zero on the "
+                                      f"plain path, not through the kernels")
+            zero.append(name)
+            continue
+        rel, norm = _rel_norm(a, b)
+        rel_norm_err = max(rel_norm_err, rel)
+        worst = sorted(worst + [(rel, name)], reverse=True)[:3]
+        check(rel <= STEP_GRAD_REL_NORM,
+              f"fp32 grad {name}: ||kernels - plain|| / ||plain|| = "
+              f"{rel:.3g}, limit {STEP_GRAD_REL_NORM}")
+    idx_diff = int((k_idx != p_idx).sum())
+    check(idx_diff == 0, f"fp32 DeCLIP step: {idx_diff} of {k_idx.numel()} "
+                         f"bank neighbour indices differ between the paths")
+    # structural: no BatchNorm of this recipe sits after the text tower
+    # (no return_simsiam_text / return_simsiam_nn_text), so K1/K2 cannot move
+    # these statistics; the check holds that both paths ran the same image
+    # side, not the kernels
+    bn_err = 0.0
+    for (km, kv), (pm, pv) in zip(k_stats, p_stats):
+        bn_err = max(bn_err, _rel_norm(km, pm)[0], _rel_norm(kv, pv)[0])
+    check(bn_err <= STEP_BN_REL_NORM,
+          f"fp32 DeCLIP step: BatchNorm statistics kernels vs plain "
+          f"{bn_err:.3g}, limit {STEP_BN_REL_NORM}")
+    print(f"train declip fp32 step, kernels vs plain attention: loss "
+          f"{k_loss:.6f} vs {p_loss:.6f} (rel err {loss_err:.2e}); over "
+          f"{len(names) - len(NOISE_GRADS) - len(zero)} parameters with a "
+          f"gradient max relative norm err {rel_norm_err:.3g} (limit "
+          f"{STEP_GRAD_REL_NORM}; largest "
+          f"{[(n, f'{r:.3g}') for r, n in worst]}); {len(zero)} exactly zero "
+          f"on both paths; the {len(NOISE_GRADS)} "
+          f"zero-in-exact-arithmetic biases at most "
+          f"{max(noise.values()):.3g} of their weights' gradient norm; bank "
+          f"neighbour indices differing {idx_diff} of {k_idx.numel()}; "
+          f"BatchNorm statistics max relative norm err {bn_err:.3g} (limit "
+          f"{STEP_BN_REL_NORM})", flush=True)
+    del model, state, res, k_grads, p_grads, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": DECLIP_TRAIN_STEPS,
+            "warmup_steps": TRAIN_WARMUP_STEPS, "losses": losses,
+            "history": history, "step_ms": step_ms,
+            "host_step_ms": wall_s * 1e3 / DECLIP_TRAIN_STEPS,
+            "pairs_per_s": TRAIN_BATCH * 1e3 / step_ms,
+            "peak_device_mib": peak_mib, "setup_s": setup_s, **breakdown,
+            "bank_query_ms": bank_ms, "bank_query_kernels": bank_kernels,
+            "pooled_query_calls": plain.cross,
+            "fp32_loss": {"kernels": k_loss, "plain": p_loss},
+            "fp32_loss_rel_err": loss_err,
+            "fp32_max_grad_rel_norm_err": rel_norm_err,
+            "fp32_worst_grad_rel_norm_errs": worst,
+            "fp32_noise_grads": noise, "fp32_zero_grad_params": zero,
+            "fp32_bank_index_diffs": idx_diff,
+            "fp32_bn_stats_rel_norm_err": bn_err}
+
+
 def _path_sums(rows, cases, dtype_name, prefix=""):
     """Each time summed over the path's shapes in one dtype; the path is
     bound by what bounds its largest bound."""
@@ -1926,7 +2330,7 @@ def _li_entries(li_rows, filip_result):
 
 
 def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
-                 filip_result):
+                 filip_result, declip_result):
     """One entry per kernel. K1 is on every path: its launches are the
     serving run's plus the two training runs', each counted from 0 around
     its path; its times are the serving path's (the sum over its two shapes,
@@ -1934,21 +2338,24 @@ def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
     with the training path's beside them under "train" (B=128, bf16, with
     the log-sum-exp; its error is that of its output O). K2 runs on the
     training paths: its times are the sum over the same two shapes at
-    B=128 in bf16. K3-K5 run on the FILIP training path (``_li_entries``)."""
+    B=128 in bf16 (the DeCLIP step's text passes run both at L=77 causal).
+    K3-K5 run on the FILIP training path (``_li_entries``)."""
     serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
     k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
     k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
     filip = filip_result["launches"]
+    declip = declip_result["launches"]
     return {"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "declip_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "declip_tpu/ops/flash_attention.py:41",
         "launches": (slice_result["launches"] + train_result["launches"]
-                     + filip["K1"]),
+                     + filip["K1"] + declip["K1"]),
         "launches_by_path": {"serve": slice_result["launches"],
                              "train": train_result["launches"],
-                             "train_filip": filip["K1"]},
+                             "train_filip": filip["K1"],
+                             "train_declip": declip["K1"]},
         "max_abs_err": serve["max_abs_err"],
         "ms": serve["ms"],
         "plain_ms": serve["plain_ms"],
@@ -1964,9 +2371,11 @@ def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
         "route": "cuda",
         "source": "declip_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": "declip_tpu/ops/flash_attention.py:72",
-        "launches": train_result["bwd_launches"] + filip["K2"],
+        "launches": (train_result["bwd_launches"] + filip["K2"]
+                     + declip["K2"]),
         "launches_by_path": {"train": train_result["bwd_launches"],
-                             "train_filip": filip["K2"]},
+                             "train_filip": filip["K2"],
+                             "train_declip": declip["K2"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -2000,15 +2409,17 @@ def main():
     slice_result = phase_slice()
     train_result = phase_train()
     filip_result = phase_train_filip()
+    declip_result = phase_train_declip()
     line = kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
-                        filip_result)
+                        filip_result, declip_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "hmma": hmma,
                    "attention": rows,
                    "attention_bwd": bwd_rows, "late_interaction": li_rows,
                    "slice": slice_result, "train": train_result,
-                   "train_filip": filip_result, "kernels": line["kernels"],
+                   "train_filip": filip_result,
+                   "train_declip": declip_result, "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")
     print(card)  # name and power limit, as nvidia-smi gives them

@@ -1,17 +1,22 @@
 """Carry weights into the port.
 
 - :func:`state_from_jax_variables` turns the JAX package's ``{'params':
-  ...}`` tree, as nested dicts of numpy arrays, into this package's state
-  dict: the port's own copy of the name mapping in
-  declip_tpu/tools/convert.py:37-115 (transformer towers, and FILIP's
-  ``image_mapping``, ``text_mapping`` and ``text_label_predictor`` heads and
-  its shape-``()`` ``logit_scale_dense``, which need no renaming; the ResNet
-  and BatchNorm names come with the ResNet towers).
+  ..., 'batch_stats': ...}`` tree, as nested dicts of numpy arrays, into
+  this package's state dict: the port's own copy of the name mapping in
+  declip_tpu/tools/convert.py:37-115 (transformer towers; the ResNet's
+  ``layer{i}.{j}``, ``downsample.{0,1}``, BatchNorm and ``attnpool``
+  names, conv kernels HWIO -> OIHW; the BatchNorm statistics as
+  ``running_mean``/``running_var``, from flax's BatchNorm and from the
+  grouped-statistics layout alike, both under ``BatchNorm_0``; and the
+  method heads, FILIP's shape-``()`` ``logit_scale_dense`` included, which
+  need no renaming).
+- :func:`bank_from_jax` makes the port's ``BankState`` from a JAX
+  ``BankState``'s arrays, so that both packages start from one bank.
 - :func:`load_pth` reads the ``{"model": state, "last_iter": n}`` file that
   ``python -m declip_tpu.tools.convert --to_pth`` writes (the reference's
   checkpoint format).
 
-Either result goes to ``model.load_state_dict(state, strict=True)``, which
+Either state goes to ``model.load_state_dict(state, strict=True)``, which
 is the check that every weight carried across.
 """
 
@@ -23,6 +28,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from declip_tpu_torch.models.memory_bank import BankState
+
 _ATTN_NAMES = (
     (".attn.qkv.kernel", ".attn.in_proj_weight"),
     (".attn.qkv.bias", ".attn.in_proj_bias"),
@@ -31,34 +38,41 @@ _ATTN_NAMES = (
 )
 
 
-def _torch_key(path: str) -> str:
+def _torch_key(path: str, collection: str) -> str:
     if path.startswith("text."):
         path = "encode_text." + path[len("text."):]
+    path = re.sub(r"\blayer(\d)_(\d+)\b", r"layer\1.\2", path)
+    path = path.replace(".downsample_conv.", ".downsample.0.")
+    path = path.replace(".downsample_bn.", ".downsample.1.")
     path = path.replace(".LayerNorm_0.scale", ".weight")
     path = path.replace(".LayerNorm_0.bias", ".bias")
+    if collection == "batch_stats":
+        path = path.replace(".BatchNorm_0.mean", ".running_mean")
+        path = path.replace(".BatchNorm_0.var", ".running_var")
+    else:
+        path = path.replace(".BatchNorm_0.scale", ".weight")
+        path = path.replace(".BatchNorm_0.bias", ".bias")
     return path.replace(".token_embedding.embedding", ".token_embedding.weight")
 
 
 def state_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Flatten a JAX CLIP variables tree into reference-named tensors
+    """Flatten a JAX model's variables tree into reference-named tensors
     (scan-stacked ``transformer.layers`` unstacked into ``resblocks.{i}``,
-    Dense kernels transposed to torch's [out, in])."""
-    if variables.get("batch_stats"):
-        raise NotImplementedError(
-            "batch_stats (BatchNorm towers) are not ported yet")
+    Dense kernels transposed to torch's [out, in], conv kernels to
+    [out, in, kh, kw])."""
     out: Dict[str, torch.Tensor] = {}
 
     def emit(key: str, arr: np.ndarray):
         out[key] = torch.from_numpy(np.array(arr, copy=True))
 
-    def walk(tree: Mapping, prefix: str):
+    def walk(tree: Mapping, prefix: str, collection: str):
         for name, sub in tree.items():
             path = f"{prefix}.{name}" if prefix else name
             if isinstance(sub, Mapping):
-                walk(sub, path)
+                walk(sub, path, collection)
                 continue
             arr = np.asarray(sub)
-            key = _torch_key(path)
+            key = _torch_key(path, collection)
             if key.endswith(".patch_embed.kernel"):
                 # dense [p*p*3, W] -> conv [W, 3, p, p]
                 p = int(round((arr.shape[0] / 3) ** 0.5))
@@ -82,19 +96,32 @@ def state_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                         emit(k, a)
                 continue
             if key.endswith(".kernel"):
-                emit(key[: -len(".kernel")] + ".weight", arr.T)
+                # conv HWIO -> OIHW; dense [in, out] -> [out, in]
+                emit(key[: -len(".kernel")] + ".weight",
+                     arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T)
             else:
                 emit(key, arr)
 
-    walk(variables.get("params", {}), "")
+    walk(variables.get("params", {}), "", "params")
+    walk(variables.get("batch_stats") or {}, "", "batch_stats")
     return out
+
+
+def bank_from_jax(bank, ptr, device=None) -> BankState:
+    """The port's ``BankState`` from a JAX ``BankState``'s ``bank`` [size,
+    dim] and ``ptr`` (arrays or numpy)."""
+    return BankState(torch.from_numpy(np.array(bank, copy=True)).to(device),
+                     int(np.asarray(ptr)))
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
     """State dict from a ``{"model": state, ...}`` .pth.tar, with a leading
-    ``module.`` (DataParallel/DDP) stripped from the keys."""
+    ``module.`` (DataParallel/DDP) stripped from the keys. The reference's
+    BatchNorm counters (``num_batches_tracked``) are dropped: the port's
+    BatchNorm, like flax's, has a fixed momentum and keeps no count."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, Mapping) or "model" not in ckpt:
         raise ValueError(f"{path}: expected a dict with a 'model' state dict")
     return {(k[len("module."):] if k.startswith("module.") else k): v
-            for k, v in ckpt["model"].items()}
+            for k, v in ckpt["model"].items()
+            if not k.endswith(".num_batches_tracked")}

@@ -18,6 +18,10 @@ import torch
 from torch import nn
 
 from declip_tpu_torch.models.layers import as_dtype
+from declip_tpu_torch.models.resnet import (
+    modified_resnet_R50,
+    modified_resnet_R101,
+)
 from declip_tpu_torch.models.text import text_transformers
 from declip_tpu_torch.models.vit import (
     visual_transformer_B16,
@@ -104,12 +108,21 @@ def build_towers(kwargs: dict, image_factory, device=None):
     """Shared factory plumbing (clip.py:149-165): ``image_encode``,
     ``text_encode`` and the method kwargs under ``clip``. The model-level
     ``dtype`` (the solver puts ``precision.dtype`` there) is each tower's
-    compute dtype unless the tower sets its own."""
+    compute dtype unless the tower sets its own. A ResNet tower's
+    ``use_sync_bn``/``bn_group_size`` pass through as the reference's keys:
+    on one process they resolve to the global batch (``bn_stats_groups``
+    1); their mapping over a data-parallel world comes with the multi-rank
+    work (ROADMAP.md item 1.10)."""
     from declip_tpu_torch.tokenizer import get_tokenizer
 
     dtype = as_dtype(kwargs.get("dtype"))
     image_kwargs = dict(kwargs.get("image_encode") or {})
     text_kwargs = dict(kwargs.get("text_encode") or {})
+    for tower in (image_kwargs, text_kwargs):
+        if "moe" in tower or any(k.startswith("moe_") for k in tower):
+            raise NotImplementedError(
+                "MoE towers (moe / moe_* kwargs) are not ported yet "
+                "(ROADMAP.md item 1.10)")
     image_kwargs.setdefault("dtype", dtype)
     text_kwargs.setdefault("dtype", dtype)
     encode_type = text_kwargs.get("text_encode_type") or "Transformer"
@@ -124,6 +137,18 @@ def build_towers(kwargs: dict, image_factory, device=None):
     clip_kwargs = dict(kwargs.get("clip") or {})
     clip_kwargs["device"] = device
     return visual, text, clip_kwargs
+
+
+@MODELS.register
+def clip_res50(device=None, **kwargs) -> CLIP:
+    visual, text, ck = build_towers(kwargs, modified_resnet_R50, device)
+    return CLIP(visual, text, **ck)
+
+
+@MODELS.register
+def clip_res101(device=None, **kwargs) -> CLIP:
+    visual, text, ck = build_towers(kwargs, modified_resnet_R101, device)
+    return CLIP(visual, text, **ck)
 
 
 @MODELS.register

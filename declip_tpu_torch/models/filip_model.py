@@ -29,7 +29,13 @@ from declip_tpu_torch.models.clip_model import (
     compact_mlm,
     l2_normalize,
 )
-from declip_tpu_torch.models.layers import as_dtype, dense, linear
+from declip_tpu_torch.models.layers import (
+    as_dtype,
+    dense,
+    lecun_normal_,
+    linear,
+)
+from declip_tpu_torch.models.resnet import modified_resnet_R50
 from declip_tpu_torch.models.vit import (
     visual_transformer_B32,
     visual_transformer_L14,
@@ -57,14 +63,6 @@ def topk_token_select(feat_1: torch.Tensor, feat_2: torch.Tensor, k: int):
                             idx[..., None].expand(-1, -1, feat.shape[-1]))
 
     return take(feat_1, id_1), take(feat_2, id_2)
-
-
-def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
-    """flax's default Dense kernel init: truncated (+-2 sigma) normal of
-    variance 1/fan_in."""
-    std = (1.0 / weight.shape[1]) ** 0.5 / .87962566103423978
-    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
 
 
 class FILIP(nn.Module):
@@ -105,7 +103,8 @@ class FILIP(nn.Module):
         if return_dense:
             self.logit_scale_dense = nn.Parameter(torch.empty((),
                                                               device=device))
-            self.image_mapping = linear(visual.width, dense_embed_dim, device)
+            self.image_mapping = linear(visual.dense_width, dense_embed_dim,
+                                        device)
             self.text_mapping = linear(text_width, dense_embed_dim, device)
         if text_mask_type is not None:
             self.text_label_predictor = linear(text_width, text.vocab_size,
@@ -122,7 +121,7 @@ class FILIP(nn.Module):
         if self.text_mask_type is not None:
             heads.append(self.text_label_predictor)
         for layer in heads:
-            _lecun_normal_(layer.weight, generator)
+            lecun_normal_(layer.weight, generator)
             nn.init.zeros_(layer.bias)
 
     def scale_value(self) -> torch.Tensor:
@@ -186,9 +185,7 @@ def _filip(kwargs: dict, image_factory, device) -> FILIP:
 
 @MODELS.register
 def filip_res50(device=None, **kwargs) -> FILIP:
-    raise NotImplementedError(
-        "filip_res50: the ResNet towers are not ported yet (ROADMAP.md item "
-        "1.5)")
+    return _filip(kwargs, modified_resnet_R50, device)
 
 
 @MODELS.register

@@ -19,7 +19,7 @@ init scheme (layers.py:258-260).
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +73,14 @@ def init_linear(layer: nn.Linear, std: float, generator: torch.Generator):
     nn.init.zeros_(layer.bias)
 
 
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
+    """flax's default Dense and Conv kernel init: truncated (+-2 sigma)
+    normal of variance 1/fan_in, fan_in the size of one output's slice."""
+    std = (1.0 / weight[0].numel()) ** 0.5 / .87962566103423978
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
 def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to the
@@ -94,6 +102,125 @@ class LayerNorm(nn.LayerNorm):
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
                          self.bias, self.eps)
         return y.to(self.compute_dtype)
+
+
+BN_MOMENTUM = 0.1  # flax's 0.9 as torch counts it
+BN_EPS = 1e-5
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over axis 1 of [N, C] or [N, C, H, W] with flax's
+    semantics, which differ from ``torch.nn.BatchNorm2d``:
+
+    - statistics are fp32 whatever the compute dtype, eps 1e-5, flax
+      momentum 0.9 (torch momentum 0.1);
+    - the running variance is updated with the *biased* batch variance,
+      the one the batch is normalised with (torch uses the unbiased one);
+    - a training forward does not write the running statistics. It leaves
+      them pending on the module, chained call to call as flax's mutable
+      collection chains them, and the train step commits them after a
+      finite step, or drops them (:func:`commit_bn_stats`,
+      :func:`discard_bn_stats`), so that a skipped step leaves them as they
+      were, as the JAX step's ``_keep_if_finite`` does.
+
+    ``weight``/``bias`` and the ``running_mean``/``running_var`` buffers
+    carry the reference's torch names. ``stats_groups > 1`` normalises each
+    of that many contiguous batch groups with its own moments and updates
+    the running statistics with the global ones (the JAX package's ``_GroupedScaleBias``)."""
+
+    def __init__(self, num_features: int, zero_scale: bool = False,
+                 stats_groups: int = 1, device=None):
+        super().__init__()
+        self.zero_scale = zero_scale
+        self.stats_groups = stats_groups
+        self.weight = nn.Parameter(torch.empty(num_features, device=device))
+        self.bias = nn.Parameter(torch.empty(num_features, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(num_features, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(num_features, device=device))
+        self.pending: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def init_weights(self) -> None:
+        nn.init.constant_(self.weight, 0.0 if self.zero_scale else 1.0)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+        self.pending = None
+
+    def forward(self, x: torch.Tensor,
+                use_running_average: Optional[bool] = None) -> torch.Tensor:
+        """Batch statistics in training mode, the running ones in eval mode
+        or where ``use_running_average`` says so. The output has x's
+        dtype."""
+        if use_running_average is None:
+            use_running_average = not self.training
+        if use_running_average:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        base_mean, base_var = self.pending or (self.running_mean,
+                                               self.running_var)
+        if self.stats_groups > 1:
+            return self._grouped(x, base_mean, base_var)
+        mean, var = base_mean.clone(), base_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         BN_MOMENTUM, BN_EPS)
+        with torch.no_grad():
+            # F.batch_norm moved var by the unbiased variance n/(n-1) v:
+            # take the excess back out, leaving the biased v that flax uses
+            # (out of place: autograd saved the tensor F.batch_norm moved)
+            n = x.numel() // x.shape[1]
+            var = var - (var - (1 - BN_MOMENTUM) * base_var) / n
+        self.pending = (mean, var)
+        return y
+
+    def _grouped(self, x, base_mean, base_var):
+        g = self.stats_groups
+        n = x.shape[0]
+        if n % g:
+            raise ValueError(
+                f"BatchNorm stats_groups={g} must divide the batch axis "
+                f"({n}); check batch_size x data-parallel ways vs "
+                f"use_sync_bn/bn_group_size")
+        xs = x.float().reshape(g, n // g, *x.shape[1:])
+        axes = (1,) + tuple(range(3, xs.ndim))
+        mean = xs.mean(dim=axes, keepdim=True)               # [G,1,C,1..]
+        sq = (xs * xs).mean(dim=axes, keepdim=True)
+        var = torch.clamp(sq - mean * mean, min=0.0)
+        shape = (1, 1, -1) + (1,) * (xs.ndim - 3)
+        y = (xs - mean) * torch.rsqrt(var + BN_EPS)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            gmean = mean.mean(dim=0).reshape(-1)
+            gvar = torch.clamp(sq.mean(dim=0).reshape(-1) - gmean * gmean,
+                               min=0.0)
+            self.pending = (
+                (1 - BN_MOMENTUM) * base_mean + BN_MOMENTUM * gmean,
+                (1 - BN_MOMENTUM) * base_var + BN_MOMENTUM * gvar)
+        return y.reshape(x.shape).to(x.dtype)
+
+    def commit(self) -> None:
+        if self.pending is not None:
+            self.running_mean.copy_(self.pending[0])
+            self.running_var.copy_(self.pending[1])
+            self.pending = None
+
+
+def commit_bn_stats(model: nn.Module) -> None:
+    """Write every BatchNorm's pending running statistics into its
+    buffers (after a finite training step)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.commit()
+
+
+def discard_bn_stats(model: nn.Module) -> None:
+    """Drop every BatchNorm's pending running statistics (a skipped step,
+    or a forward that no step commits)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.pending = None
 
 
 class MultiHeadAttention(nn.Module):

@@ -19,7 +19,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from declip_tpu_torch.models.layers import LayerNorm, Transformer, as_dtype
+from declip_tpu_torch.models.layers import (
+    LayerNorm,
+    Transformer,
+    as_dtype,
+    lecun_normal_,
+)
 
 
 class PatchEmbed(nn.Module):
@@ -36,10 +41,7 @@ class PatchEmbed(nn.Module):
             torch.empty(width, 3, patch_size, patch_size, device=device))
 
     def init_weights(self, generator: torch.Generator) -> None:
-        # flax lecun_normal: truncated (+-2 sigma) normal, variance 1/fan_in
-        std = (1.0 / (3 * self.patch_size ** 2)) ** 0.5 / .87962566103423978
-        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std,
-                              generator=generator)
+        lecun_normal_(self.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] -> [B, gh*gw, width], in x's dtype (the weight is
@@ -79,6 +81,8 @@ class VisualTransformer(nn.Module):
         self.input_resolution = input_resolution
         self.patch_size = patch_size
         self.width = width
+        self.dense_width = width
+        self.embed_dim = embed_dim
         self.freeze_conv1 = freeze_conv1
         self.dtype = dtype = as_dtype(dtype)
         g0 = input_resolution // patch_size  # grid the pos-emb was trained at

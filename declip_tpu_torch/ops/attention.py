@@ -10,7 +10,11 @@
   over; a threshold for the H100 would have to come from an H100
   measurement.
 - ``'xla'`` (only ever an explicit config choice) and cross-attention take
-  :func:`attention_plain`, differentiated by torch autograd.
+  :func:`attention_plain`, differentiated by torch autograd. The one
+  cross-attention on a main path is ModifiedResNet's pooled query (Lq = 1
+  against HW + 1 keys, models/resnet.py): the JAX package sends it to XLA
+  (ops/attention.py:80-90 there), and this is that path's counterpart, not
+  K1's; a one-row query has no Pallas kernel to port.
 """
 
 from __future__ import annotations

@@ -18,6 +18,8 @@ from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 from torch.nn.modules.conv import _ConvNd
 
+from declip_tpu_torch.models.layers import BatchNorm
+
 
 def classify_param(module: nn.Module, param_name: str) -> str:
     """Group of ``module``'s own parameter ``param_name``."""
@@ -25,7 +27,8 @@ def classify_param(module: nn.Module, param_name: str) -> str:
         # logit_bias (the SigLIP pairwise-loss bias) rides the logit_scale
         # group so existing zero-wd pconfigs cover it
         return "logit_scale"
-    if isinstance(module, _BatchNorm):
+    if isinstance(module, (_BatchNorm, BatchNorm)):
+        # the port's BatchNorm (flax semantics) is no _BatchNorm subclass
         return "bn_w" if param_name == "weight" else "bn_b"
     if isinstance(module, nn.LayerNorm):
         return "ln_w" if param_name == "weight" else "ln_b"

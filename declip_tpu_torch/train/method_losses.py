@@ -1,5 +1,5 @@
 """Per-method training loss assembly (port of
-declip_tpu/train/method_losses.py; CLIP and FILIP so far).
+declip_tpu/train/method_losses.py; CLIP, FILIP and DeCLIP so far).
 
 Each function takes the model's feature dict and returns
 ``(total_loss, metrics)``. Losses are per-row means, as in the JAX package
@@ -12,12 +12,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from declip_tpu_torch.losses import mlm_loss
+from declip_tpu_torch.losses import mlm_loss, nt_xent_convirt, simsiam_loss
 from declip_tpu_torch.ops.contrastive import (
     clip_infonce,
     gather_features,
     infonce_labels,
+    loss_impl_kind,
     make_pair_loss,
+    similarity_logits,
     topk_accuracy,
 )
 from declip_tpu_torch.ops.filip_ops import dispatch_late_interaction
@@ -84,3 +86,108 @@ def filip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
                    "clip_dense_loss": dense_loss, "text_mlm_loss": mlm,
                    "top1": top1, "top5": top5,
                    "logit_scale": out["logit_scale"]}
+
+
+def _declip_clip_terms(out, cfg, pair_loss):
+    """The 2x2 view x (text, text_aug) CLIP losses (declip_solver.py:
+    442-452): the mean of the four, or of the two on the main captions
+    under ``data.train.only_image_two_view``."""
+    scale = out["logit_scale"]
+    i1, i2 = out["image_embed_1"], out["image_embed_2"]
+    t, ta = out["text_embed"], out["text_embed_aug"]
+    l1, logits_i1, labels_acc = pair_loss(i1, t, scale)
+    l2, _, _ = pair_loss(i2, t, scale)
+    data_cfg = ((cfg or {}).get("data") or {}).get("train") or {}
+    if data_cfg.get("only_image_two_view", False):
+        return (l1 + l2) / 2, logits_i1, labels_acc
+    l1a, _, _ = pair_loss(i1, ta, scale)
+    l2a, _, _ = pair_loss(i2, ta, scale)
+    return (l1 + l2 + l1a + l2a) / 4, logits_i1, labels_acc
+
+
+def declip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
+                  *, nn_text=None, nn_text_aug=None, nn_simsiam=None,
+                  step: int = 0, total_steps: int = 1, pair_loss=None
+                  ) -> Tuple[torch.Tensor, Metrics]:
+    """declip_solver.py:442-533: the CLIP terms, image SimSiam, MLM, text
+    SimSiam, the InfoNCE of the images against the NN-bank neighbours of
+    both captions, and nn-SimSiam, weighted by ``clip_simsiam_loss_weight``
+    and its ``type``: None (each term by its weight), ``convirt`` (CLIP with
+    ConVIRT's NT-Xent, plus SimSiam), ``linear`` (CLIP's weight 0.2 -> 1.0
+    over ``total_steps``, SimSiam the rest) or ``shift`` (CLIP on even
+    steps, SimSiam on odd ones).
+
+    nn_text / nn_text_aug: tuples of [B, D] bank neighbours (normalized by
+    the caller), or None without the bank; nn_simsiam: (the predictor's
+    output on the text, the projected neighbours) or None."""
+    w = dict(cfg.get("clip_simsiam_loss_weight") or {})
+    if pair_loss is None:
+        pair_loss = make_pair_loss(cfg, axis_name=axis_name)
+    clip_loss, logits_i1, labels_acc = _declip_clip_terms(out, cfg, pair_loss)
+    device = clip_loss.device
+    zero = torch.zeros((), device=device)
+
+    simsiam = simsiam_loss(*out["simsiam"])
+    mlm = (mlm_loss(out["mlm_logits"], out["mlm_labels"])
+           if "mlm_logits" in out else zero)
+    text_simsiam = (simsiam_loss(*out["text_simsiam"])
+                    if "text_simsiam" in out else zero)
+    nn_simsiam_loss = zero
+    if nn_simsiam is not None:
+        p_text, z_nn = nn_simsiam
+        nn_simsiam_loss = simsiam_loss(p_text, z_nn[0], p_text, z_nn[0])
+
+    clip_nn_text = zero
+    if nn_text is not None:
+        kind = loss_impl_kind(cfg)
+        if kind != "full":
+            raise NotImplementedError(
+                f"the nn_text term under loss_impl {kind!r} is not ported "
+                f"yet (ROADMAP.md item 1.10)")
+        # image vs NN(text) and vs NN(text_aug) logits through symmetric
+        # InfoNCE, as the reference pairs them (declip_solver.py:474-482)
+        scale = out["logit_scale"]
+        i1, i2 = out["image_embed_1"], out["image_embed_2"]
+        labels = infonce_labels(i1.shape[0], axis_name, device=device)
+        g_nn = torch.cat([gather_features(t, axis_name) for t in nn_text])
+        g_nn_aug = torch.cat([gather_features(t, axis_name)
+                              for t in nn_text_aug])
+        l_nn1 = clip_infonce(similarity_logits(i1, g_nn, scale),
+                             similarity_logits(i1, g_nn_aug, scale), labels)
+        l_nn2 = clip_infonce(similarity_logits(i2, g_nn, scale),
+                             similarity_logits(i2, g_nn_aug, scale), labels)
+        clip_nn_text = (l_nn1 + l_nn2) / 2
+
+    wtype = w.get("type")
+    metrics: Metrics = {}
+    if wtype is None:
+        total = clip_loss * w.get("clip_loss", 1.0)
+        total = total + simsiam * w.get("simsiam_loss", 0.0)
+        total = total + mlm * w.get("masking_language", 0.0)
+        total = total + text_simsiam * w.get("text_simsiam_loss", 0.0)
+        total = total + clip_nn_text * w.get("nn_text", 0.0)
+        total = total + nn_simsiam_loss * w.get("nn_simsiam_loss", 0.0)
+    elif wtype == "convirt":
+        ntx = (nt_xent_convirt(out["image_embed_1"], out["text_embed"])
+               + nt_xent_convirt(out["image_embed_2"], out["text_embed"]))
+        total = (clip_loss + ntx) / 2 * w.get("clip_loss", 1.0)
+        total = total + simsiam * w.get("simsiam_loss", 0.0)
+        metrics["nt_xent_loss"] = ntx
+    elif wtype == "linear":
+        # fp32, as the JAX package computes the weight
+        cw = 0.2 + 0.8 * (torch.tensor(float(step), dtype=torch.float32)
+                          / max(total_steps, 1))
+        cw = cw.to(device)
+        total = clip_loss * cw + simsiam * (1.0 - cw)
+    elif wtype == "shift":
+        total = clip_loss if step % 2 == 0 else simsiam
+    else:
+        raise NotImplementedError(f"loss weight type {wtype!r}")
+
+    top1, top5 = topk_accuracy(logits_i1, labels_acc)
+    metrics.update({
+        "loss": total, "clip_loss": clip_loss, "simsiam_loss": simsiam,
+        "text_mlm_loss": mlm, "clip_nn_text_loss": clip_nn_text,
+        "text_simsiam_loss": text_simsiam, "top1": top1, "top5": top5,
+        "logit_scale": out["logit_scale"]})
+    return total, metrics

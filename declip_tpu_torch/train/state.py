@@ -3,8 +3,9 @@
 
 The JAX package keeps params in an immutable pytree; here they are the fp32
 parameters of the model, which the step updates in place, beside the
-optimizer state, the EMA shadow and the EMA_logit_scale guard's buffers
-(declip_solver.py:64-86).
+optimizer state, the EMA shadow, the EMA_logit_scale guard's buffers
+(declip_solver.py:64-86) and DeCLIP's NN text bank. BatchNorm running
+statistics (the JAX package's ``batch_stats``) are the model's buffers.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from declip_tpu_torch.models.memory_bank import BankState
 from declip_tpu_torch.optim import OptState
 
 
@@ -27,6 +29,8 @@ class TrainState:
     # EMA_logit_scale guard state (declip_solver.py:64-86)
     logit_ema_buffer: Optional[torch.Tensor] = None
     logit_clip_count: Optional[torch.Tensor] = None
+    # DeCLIP's NN memory bank of text features (return_nn_bank)
+    bank_text: Optional[BankState] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -35,8 +39,8 @@ class TrainState:
 
 def new_train_state(*, model: nn.Module, opt_state: OptState,
                     ema_params: Optional[Dict[str, torch.Tensor]] = None,
-                    step: int = 0,
-                    with_logit_guard: bool = False) -> TrainState:
+                    step: int = 0, with_logit_guard: bool = False,
+                    bank_text: Optional[BankState] = None) -> TrainState:
     device = next(model.parameters()).device
     return TrainState(
         step=step,
@@ -49,4 +53,5 @@ def new_train_state(*, model: nn.Module, opt_state: OptState,
         logit_clip_count=(
             torch.zeros((), dtype=torch.int32, device=device)
             if with_logit_guard else None),
+        bank_text=bank_text,
     )

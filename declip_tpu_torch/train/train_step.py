@@ -1,5 +1,5 @@
-"""The training step (port of declip_tpu/train/train_step.py; methods clip
-and filip).
+"""The training step (port of declip_tpu/train/train_step.py; methods clip,
+filip and declip).
 
 ``make_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``, the reference's train-loop body (prototype/solver/
@@ -11,13 +11,23 @@ guard and the EMA. The step updates ``state`` in place and returns it.
 update, as in the JAX package: the gradient of its loss with respect to the
 model's parameters is what ``jax.value_and_grad`` gives there.
 
+DeCLIP (train_step.py:149-199, 304-308 of the JAX package): the step queries
+the NN text bank with both captions' features before the loss, normalizes
+the neighbours, and projects them for nn-SimSiam (``project_nn_text``);
+after an accepted step it enqueues the augmented captions' features, then
+the originals'.
+
 Non-finite containment (train_step.py:323-352; the reference checks every
 iteration, declip_solver.py:548-619): a NaN/inf loss or gradient leaves the
-parameters, optimizer state, EMA and guard buffers untouched (bit-identical)
-and reports ``update_skipped == 1``; the step counter still advances. The
-port decides it on the host: the loss and the global gradient norm come to
-the host once per step (one device synchronisation), and a poisoned step
-never runs the update. The same read gives the norm clip its norm.
+parameters, optimizer state, EMA, guard buffers, BatchNorm running
+statistics and the NN bank untouched (bit-identical) and reports
+``update_skipped == 1``; the step counter still advances. The port decides
+it on the host: the loss and the global gradient norm come to the host once
+per step (one device synchronisation), and a poisoned step never runs the
+update. BatchNorm leaves its new statistics pending through the forward
+(models/layers.py), and the step commits them only after a finite one. The
+same read gives the norm clip its norm. The step puts the model in training
+mode, as the JAX step applies it with ``train=True``.
 """
 
 from __future__ import annotations
@@ -27,8 +37,11 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from declip_tpu_torch.models.clip_model import CLIP
+from declip_tpu_torch.models.clip_model import CLIP, l2_normalize
+from declip_tpu_torch.models.declip_model import DECLIP
 from declip_tpu_torch.models.filip_model import FILIP
+from declip_tpu_torch.models.layers import commit_bn_stats, discard_bn_stats
+from declip_tpu_torch.models.memory_bank import enqueue, query_topk
 from declip_tpu_torch.ops.contrastive import make_pair_loss
 from declip_tpu_torch.optim import AdamRule, global_norm
 from declip_tpu_torch.train import method_losses
@@ -39,17 +52,20 @@ _PASS_THROUGH = (None, "norm", "value", "logit_scale_grad", "constant")
 
 
 _LOSSES = {"clip": method_losses.clip_losses,
-           "filip": method_losses.filip_losses}
+           "filip": method_losses.filip_losses,
+           "declip": method_losses.declip_losses}
 
 
 def method_of(model) -> str:
+    if isinstance(model, DECLIP):
+        return "declip"
     if isinstance(model, FILIP):
         return "filip"
     if isinstance(model, CLIP):
         return "clip"
     raise NotImplementedError(
-        f"{type(model).__name__}: only CLIP and FILIP train in the port so "
-        f"far (ROADMAP.md items 1.5 and 1.8)")
+        f"{type(model).__name__}: only CLIP, FILIP and DeCLIP train in the "
+        f"port so far (ROADMAP.md item 1.8)")
 
 
 @torch.no_grad()
@@ -93,35 +109,87 @@ def logit_scale_guard(s_old: torch.Tensor, logit_scale: torch.Tensor,
     return buffer, count
 
 
-def make_loss_fn(cfg: Dict, method: str = "clip",
-                 axis_name: Optional[str] = None) -> Callable:
-    """``loss_fn(model, state, batch) -> (loss, metrics)`` for ``method``."""
+def _bank_kwargs(model, state: TrainState, out) -> Dict:
+    """DeCLIP's bank inputs to the loss: the neighbours of both captions'
+    features in the bank as it stood before this step, normalized, and
+    with return_simsiam_nn_text the projector over them."""
+    if not getattr(model, "return_nn_bank", False):
+        return {}
+    if state is None or state.bank_text is None:
+        raise ValueError("return_nn_bank needs a train state with a "
+                         "bank_text (models.memory_bank.init_bank)")
+    topk = int(model.nn_topk)
+    nn_text = tuple(l2_normalize(t, eps=1e-10) for t in
+                    query_topk(state.bank_text, out["text_embed"], topk))
+    nn_aug = tuple(l2_normalize(t, eps=1e-10) for t in
+                   query_topk(state.bank_text, out["text_embed_aug"], topk))
+    kwargs = {"nn_text": nn_text, "nn_text_aug": nn_aug}
+    if model.return_simsiam_nn_text:
+        kwargs["nn_simsiam"] = (out["nn_simsiam_p_text"],
+                                [model.project_nn_text(t) for t in nn_text])
+    return kwargs
+
+
+def make_losses_from_out(cfg: Dict, method: str = "clip",
+                         axis_name: Optional[str] = None,
+                         total_steps: int = 1) -> Callable:
+    """``losses(model, state, out) -> (loss, metrics)``: the loss of
+    ``method`` over the model's feature dict ``out`` (with DeCLIP's bank
+    query, which reads ``state``)."""
     if method not in _LOSSES:
         raise NotImplementedError(
-            f"method {method!r}: only clip and filip train in the port so "
-            f"far (ROADMAP.md items 1.5 and 1.8)")
+            f"method {method!r}: only clip, filip and declip train in the "
+            f"port so far (ROADMAP.md item 1.8)")
     losses = _LOSSES[method]
     pair_loss = make_pair_loss(cfg, axis_name=axis_name)
 
-    def loss_fn(model, state: TrainState, batch):
-        out = model(batch)
-        return losses(out, cfg, axis_name, pair_loss)
+    def from_out(model, state: Optional[TrainState], out):
+        if method != "declip":
+            return losses(out, cfg, axis_name, pair_loss)
+        return losses(out, cfg, axis_name, pair_loss=pair_loss,
+                      step=state.step if state is not None else 0,
+                      total_steps=total_steps,
+                      **_bank_kwargs(model, state, out))
+
+    return from_out
+
+
+def make_loss_fn(cfg: Dict, method: str = "clip",
+                 axis_name: Optional[str] = None,
+                 total_steps: int = 1) -> Callable:
+    """``loss_fn(model, state, batch) -> (loss, metrics)`` for ``method``."""
+    from_out = make_losses_from_out(cfg, method, axis_name, total_steps)
+
+    def loss_fn(model, state: Optional[TrainState], batch):
+        return from_out(model, state, model(batch))
 
     return loss_fn
 
 
 def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
                     method: Optional[str] = None,
-                    ema_cfg: Optional[EmaConfig] = None) -> Callable:
+                    ema_cfg: Optional[EmaConfig] = None,
+                    total_steps: int = 1) -> Callable:
     """The step for ``model``'s method, with the update rule ``tx`` from
-    ``optim_entry`` and the lr ``schedule`` (for the ``lr`` metric)."""
+    ``optim_entry`` and the lr ``schedule`` (for the ``lr`` metric).
+    ``total_steps``: the run's length, for DeCLIP's ``linear`` loss
+    weights."""
     method = method or method_of(model)
     grad_clip = dict(cfg.get("grad_clip") or {})
-    loss_fn = make_loss_fn(cfg, method)
+    if int((cfg.get("grad_cache") or {}).get("chunks", 0) or 0) > 1:
+        raise NotImplementedError(
+            "grad_cache is not ported yet (ROADMAP.md item 1.10)")
+    from_out = make_losses_from_out(cfg, method, total_steps=total_steps)
+    use_bank = bool(getattr(model, "return_nn_bank", False))
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        model = state.model
+        if not model.training:
+            model.train()
         params = state.params
-        total, metrics = loss_fn(state.model, state, batch)
+        discard_bn_stats(model)  # statistics of a forward outside a step
+        out = model(batch)
+        total, metrics = from_out(model, state, out)
         grads = torch.autograd.grad(total, list(params.values()),
                                     allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient: it
@@ -141,6 +209,13 @@ def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
                 logit_scale_guard(s_old, logit_scale, grad_clip, state)
             if state.ema_params is not None and ema_cfg is not None:
                 ema_step(state.ema_params, params, state.step + 1, ema_cfg)
+            commit_bn_stats(model)
+            if use_bank:
+                # aug first, then orig (declip.py:288-291)
+                enqueue(state.bank_text, out["text_embed_aug"])
+                enqueue(state.bank_text, out["text_embed"])
+        else:
+            discard_bn_stats(model)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["lr"] = schedule(state.step)
         metrics["grad_norm"] = grad_norm

@@ -157,16 +157,18 @@ def test_forward_and_losses_match_jax(jax_init):
                                        err_msg=key)
 
 
-@pytest.mark.parametrize("kind", ["logit_bias", "filip_res50"])
+@pytest.mark.parametrize("kind", ["logit_bias", "moe"])
 def test_unported_variants_raise(kind):
     """What the port does not train yet raises at construction: a SigLIP
-    logit bias (the sigmoid loss) and the ResNet-50 towers."""
+    logit bias (the sigmoid loss) and MoE towers. (filip_res50 builds:
+    tests/test_torch_resnet.py.)"""
     cfg = {"type": MODEL_CFG["type"], "kwargs": dict(MODEL_CFG["kwargs"])}
     if kind == "logit_bias":
         cfg["kwargs"]["clip"] = {**cfg["kwargs"]["clip"],
                                  "logit_bias_init": -10.0}
     else:
-        cfg["type"] = "filip_res50"
+        cfg["kwargs"]["text_encode"] = {**cfg["kwargs"]["text_encode"],
+                                        "moe": {"num_experts": 4}}
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 1"):
         model_entry(cfg)
 

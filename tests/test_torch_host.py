@@ -209,7 +209,8 @@ def test_registry():
         {"a": 1, "b": 2}
     with pytest.raises(KeyError, match="duplicate"):
         reg.register(lambda: None, name="echo")
-    with pytest.raises(KeyError, match="Known: clip_vitb16, clip_vitb32"):
+    with pytest.raises(KeyError,
+                       match="Known: clip_res101, clip_res50, clip_vitb16"):
         import declip_tpu_torch.models  # noqa: F401 — registers the factories
 
         MODELS.get("clip_r50")

@@ -258,3 +258,33 @@ def test_kernel_kind_counts_k3_by_either_route(smoke, name, kind):
     """The profiler's names of K3's kernels, mangled or demangled, count as
     K3, so the FILIP step's K3 time and the timing tool keep them."""
     assert smoke.kernel_kind(name) == kind
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void at::native::batch_norm_collect_statistics_channels_last_kernel"
+     "<at::native::Var, c10::BFloat16, float, 4>(...)", "BatchNorm"),
+    ("void cudnn::bn_fw_tr_1C11_kernel_NCHW<float, float, int, 512, true, "
+     "1, true>(...)", "BatchNorm"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_"
+     "tilesize128x128x64_warpgroupsize1x1x1", "conv (cuDNN)"),
+    ("sm90_xmma_wgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "conv (cuDNN)"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "GEMM"),
+])
+def test_kernel_kind_parts_convs_and_batchnorm(smoke, name, kind):
+    """The DeCLIP-R50 step's cuDNN convs and BatchNorm kernels get kinds of
+    their own; a plain GEMM stays a GEMM."""
+    assert smoke.kernel_kind(name) == kind
+
+
+def test_call_counter_keeps_the_pooled_query_apart(smoke):
+    """Plain self-attention counts as a plain-path call; a query of another
+    length than its keys (AttentionPool2d's pooled query) counts apart."""
+    from declip_tpu_torch.ops.attention import dot_product_attention
+
+    q = torch.randn(2, 2, 5, 8)
+    with smoke._CallCounter() as plain:
+        dot_product_attention(q[:, :, :1], q, q)
+        dot_product_attention(q[:, :, :1], q, q)
+        dot_product_attention(q, q, q, impl="xla")
+    assert (plain.calls, plain.cross) == (1, 2)

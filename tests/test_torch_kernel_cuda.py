@@ -506,3 +506,45 @@ def test_late_interaction_kernels_refuse(card):
     with pytest.raises(ValueError, match="at most 128 key tokens"):
         fli.late_interaction_logits_kernel(
             d1, torch.zeros(3, 200, 64, device=card), torch.ones(()))
+
+
+def test_resnet_fp32_on_the_card_matches_the_cpu(card):
+    """The port's ModifiedResNet in fp32 on the card (cuDNN convs and
+    BatchNorm, with TF32 off, as the fp32 checks of chip_smoke.py run it)
+    against the same weights on the CPU, in training mode: the output, the
+    input gradient and the committed running statistics. cuDNN's fp32
+    convs default to TF32 on Hopper, which would miss these limits."""
+    from declip_tpu_torch.models.layers import BatchNorm, commit_bn_stats
+    from declip_tpu_torch.models.resnet import ModifiedResNet
+
+    g = torch.Generator().manual_seed(1)
+    x0 = (torch.randn(8, 64, 64, 3, generator=g)
+          + torch.randn(8, 1, 1, 3, generator=g))
+    r = torch.randn(8, 64, generator=g)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = {}
+        for dev in (torch.device("cpu"), card):
+            model = ModifiedResNet(layers=(1, 1, 1, 1), embed_dim=64,
+                                   heads=4, input_resolution=64, width=16)
+            model.init_weights(torch.Generator().manual_seed(0))
+            model.to(dev).train()
+            x = x0.to(dev).detach().requires_grad_(True)
+            y = model(x)
+            (y * r.to(dev)).sum().backward()
+            commit_bn_stats(model)
+            got[dev.type] = (y.detach().cpu(), x.grad.cpu(), [
+                t.cpu() for m in model.modules() if isinstance(m, BatchNorm)
+                for t in (m.running_mean, m.running_var)])
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    (y_c, dx_c, st_c), (y_g, dx_g, st_g) = got["cpu"], got["cuda"]
+    torch.testing.assert_close(y_g, y_c, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dx_g, dx_c, rtol=1e-4,
+                               atol=1e-5 * dx_c.abs().max().item())
+    for a, b in zip(st_g, st_c):
+        assert (a - b).norm() <= 1e-5 * b.norm()
