@@ -80,7 +80,23 @@ Phases (any failed check raises, and the script exits non-zero):
    (each bn3 at a seeded non-zero scale, so that every tower parameter has
    a gradient): the loss, each parameter's gradient, the bank's neighbour
    indices and the BatchNorm statistics (the image side's only: the recipe
-   has no BatchNorm after the text tower).
+   has no BatchNorm after the text tower);
+7. the solver: ``python -m declip_tpu_torch.solver``'s ``main``, in this
+   process, trains the YFCC15M DeCLIP-ResNet-50 recipe as its config file
+   has it (bf16, B=128, MOCOV2 views, EDA and MLM captions, the 2^16 bank,
+   7 loader workers) from a seeded corpus of 1,024 JPEGs on disk (a
+   JSONL metafile read with fseek) for 6 steps, saving at 3 and 6, and
+   validates zero-shot on 10 x 16 images with prompt80; only the data
+   paths, max_iter, print_freq, save_freq, save_many and val_freq are
+   set. Every loss finite and no update skipped, the bank pointer 2B a
+   step further, both checkpoints and ckpt_meta.json, 160 result lines
+   with top-1 and top-5 in [0, 100], at least 24 K1 and 24 K2 calls a
+   step; then a second main() auto-resumes at 6 and ends at 8, and the
+   CLI itself (``python -m declip_tpu_torch.solver ... --evaluate``) runs
+   once and prints a metric. The solver's step time and pairs/s at steps
+   4-6 beside phase 6's, the wait for data and its share of the step, the
+   host-to-device copy, os.cpu_count(), the checkpoint's size and write
+   time and the eval's time. The corpus is deleted at the end.
 
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
@@ -331,6 +347,26 @@ NOISE_GRADS = ("projector.linear1.bias", "projector.linear2.bias",
                "projector.linear3.bias", "predictor.linear1.bias",
                "visual.attnpool.k_proj.bias")
 STEP_NOISE_REL_NORM = 1e-4
+
+# phase 7: the YFCC15M DeCLIP-ResNet-50 recipe as a user runs it, through
+# python -m declip_tpu_torch.solver's main(), over a seeded JPEG corpus on
+# disk: 1,024 images whose long side spans 256-640 px and aspect 0.75-1.33
+# (as YFCC's do), captions of 5-20 words from EDA's synonym vocabulary, a
+# 10-class x 16-image zero-shot set
+DECLIP_RECIPE = os.path.join(
+    "experiments", "declip_experiments", "yfcc15m", "yfcc15m_r50_declip",
+    "config.yaml")
+SOLVER_IMAGES = 1024
+SOLVER_CLASSES, SOLVER_PER_CLASS = 10, 16
+SOLVER_PROMPTS = 80  # the recipe's label_texts_ensemble, prompt80
+SOLVER_STEPS, SOLVER_SAVE_FREQ, SOLVER_RESUME_STEPS = 6, 3, 8
+# steps whose wall times are read (the first ones wait for the loader's
+# first batches and for cuDNN's first calls)
+SOLVER_TIMED = (4, 6)
+# the recipe's loader alone: batches it builds, and the ones after the
+# first SOLVER_LOADER_SKIP (its workers start together, so the first
+# num_workers batches land at once) whose arrivals give its steady rate
+SOLVER_LOADER_BATCHES, SOLVER_LOADER_SKIP = 24, 10
 
 
 def check(cond, msg):
@@ -2277,6 +2313,319 @@ def phase_train_declip():
             "fp32_bn_stats_rel_norm_err": bn_err}
 
 
+def write_corpus(root, n_images, classes, per_class, seed):
+    """The phase's image-text corpus under ``root``: ``train/`` JPEGs
+    (quality 90) with a JSONL metafile read with fseek, and ``val/`` with
+    ``label``/``label_name``. Each image is a smooth field (an 8 x 8 grid
+    of random colours, upsampled) with noise on top; written by 8 threads
+    (PIL's encoder releases the GIL). -> (train meta, val meta)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from declip_tpu_torch.tokenizer.eda import default_synonym_table
+
+    rng = np.random.default_rng(seed)
+    vocab = sorted(default_synonym_table())
+    names = [str(w) for w in rng.choice(vocab, size=classes, replace=False)]
+
+    def spec():
+        long_side = int(rng.integers(256, 641))
+        aspect = float(rng.uniform(0.75, 1.33))
+        w, h = ((long_side, int(round(long_side / aspect))) if aspect >= 1
+                else (int(round(long_side * aspect)), long_side))
+        return w, h, int(rng.integers(2 ** 31))
+
+    def write(path, w, h, s):
+        r = np.random.default_rng(s)
+        grid = Image.fromarray(r.integers(0, 256, (8, 8, 3), np.uint8))
+        field = np.asarray(grid.resize((w, h), Image.BILINEAR), np.int16)
+        noise = r.integers(-12, 13, (h, w, 3), np.int16)
+        Image.fromarray(np.clip(field + noise, 0, 255).astype(np.uint8)
+                        ).save(path, "JPEG", quality=90)
+
+    jobs, train, val = [], [], []
+    for sub in ("train", "val"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n_images):
+        name = f"train/{i:05d}.jpg"
+        jobs.append((os.path.join(root, name), *spec()))
+        words = rng.choice(vocab, size=int(rng.integers(5, 21)))
+        train.append({"filename": name, "caption": " ".join(words)})
+    for c in range(classes):
+        for j in range(per_class):
+            name = f"val/{c:02d}_{j:02d}.jpg"
+            jobs.append((os.path.join(root, name), *spec()))
+            val.append({"filename": name, "caption": f"a photo of a "
+                        f"{names[c]}", "label": c, "label_name": names[c]})
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: write(*job), jobs))
+    metas = []
+    for sub, rows in (("train", train), ("val", val)):
+        path = os.path.join(root, f"{sub}.jsonl")
+        with open(path, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+        metas.append(path)
+    return metas
+
+
+def scalars_by_tag(path):
+    """events/scalars.jsonl as {tag: [(step, value), ...]}."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            row = json.loads(line)
+            out.setdefault(row["tag"], []).append((row["step"], row["value"]))
+    return out
+
+
+def solver_window(timings, first, last, batch):
+    """The solver's per-print timings (print_freq 1: one step each) over
+    steps ``first``..``last``: mean step seconds and pairs/s, also without
+    the synchronous part of the saves that fell in the window; the mean
+    wait for data and its share of the step; the host-to-device copy's
+    median and largest over every step."""
+    rows = [t for t in timings if first <= t["step"] <= last]
+    check(len(rows) == last - first + 1 and all(t["steps"] == 1
+                                                for t in rows),
+          f"solver timings for steps {first}-{last} missing: {timings}")
+    step_s = sum(t["batch_time"] for t in rows) / len(rows)
+    data_s = sum(t["data_time"] for t in rows) / len(rows)
+    save_s = sum(t["save_time"] for t in rows) / len(rows)
+    h2d = sorted(t["h2d_ms"] for t in timings)
+    return {"steps": [first, last], "step_s": step_s,
+            "pairs_per_s": batch / step_s, "save_s": save_s,
+            "step_s_without_saves": step_s - save_s,
+            "pairs_per_s_without_saves": batch / (step_s - save_s),
+            "data_s": data_s, "data_share": data_s / step_s,
+            "h2d_ms_median": h2d[len(h2d) // 2], "h2d_ms_max": h2d[-1]}
+
+
+def loader_rate(arrivals, skip, batch):
+    """Batches/s and pairs/s of a loader from the host times its batches
+    arrived at, past the first ``skip`` (which its workers build at
+    once)."""
+    check(len(arrivals) > skip + 1, f"{len(arrivals)} batches, want more "
+                                    f"than {skip + 1}")
+    span = arrivals[-1] - arrivals[skip]
+    rate = (len(arrivals) - 1 - skip) / span
+    return {"batches": len(arrivals), "first_batch_s": arrivals[0],
+            "batches_per_s": rate, "pairs_per_s": rate * batch,
+            "ms_per_batch": 1e3 / rate}
+
+
+def solver_kernel_calls(solver, steps):
+    """The launches a solver run of ``steps`` steps makes: K1 and K2 24 a
+    step (both text passes, as phase 6 counts them), and K1 once a text
+    layer for each class-embedding chunk of each zero-shot eval (the
+    solver packs min(2048 // prompts, classes) classes into a chunk)."""
+    layers = len(solver.model.encode_text.transformer.resblocks)
+    per_chunk = min(2048 // SOLVER_PROMPTS, SOLVER_CLASSES)
+    chunks = -(-SOLVER_CLASSES // per_chunk)
+    evals = len(solver.eval_seconds)
+    return {"K1": 24 * steps + evals * chunks * layers, "K2": 24 * steps,
+            "K3": 0, "K4": 0, "K5": 0}
+
+
+def phase_solver(declip_result):
+    """Phase 7: ``declip_tpu_torch.solver.main`` trains the recipe from the
+    corpus on disk, saves, validates, resumes, and the CLI evaluates. Only
+    the data paths, max_iter, print_freq, save_freq, save_many and val_freq
+    are set. The launch counts are the kernels' over the first run (and,
+    apart, the resume)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.solver import main as solver_main
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_solver_")
+    try:
+        t0 = time.perf_counter()
+        train_meta, val_meta = write_corpus(
+            os.path.join(tmp, "corpus"), SOLVER_IMAGES, SOLVER_CLASSES,
+            SOLVER_PER_CLASS, SEED)
+        corpus_s = time.perf_counter() - t0
+        exp = os.path.join(tmp, "exp")
+        os.makedirs(exp)
+        cfg_path = os.path.join(exp, "config.yaml")
+        shutil.copy(os.path.join(ROOT, DECLIP_RECIPE), cfg_path)
+        recipe = parse_config(cfg_path)
+        tests = []
+        for entry in recipe.data.test:
+            entry = json.loads(json.dumps(entry))
+            entry["test"].update(root_dir=os.path.join(tmp, "corpus"),
+                                 meta_file=val_meta)
+            tests.append(entry)
+        sets = [f"data.train.root_dir={json.dumps([os.path.join(tmp, 'corpus')])}",
+                f"data.train.meta_file={json.dumps([train_meta])}",
+                f"data.test={json.dumps(tests)}",
+                "saver.print_freq=1", f"saver.save_freq={SOLVER_SAVE_FREQ}",
+                "saver.save_many=true", "saver.val_freq=0"]
+
+        def run(max_iter):
+            argv = ["--config", cfg_path, "--device", "cuda", "--set",
+                    *sets, f"lr_scheduler.kwargs.max_iter={max_iter}"]
+            reset_launches()  # a main path starts
+            t = time.perf_counter()
+            solver = solver_main(argv)
+            wall = time.perf_counter() - t
+            return solver, read_launches(), wall  # ... and ends
+
+        solver, launches, wall_s = run(SOLVER_STEPS)
+        st = solver.state
+        batch, bank_rows = solver.global_batch, st.bank_text.bank.shape[0]
+        vis = solver.model.visual  # the recipe as its file has it
+        check((vis.layers, vis.width, vis.embed_dim, vis.dtype,
+               solver.method, batch, bank_rows,
+               solver.train_cfg["num_workers"],
+               solver.train_cfg["transforms"])
+              == ((3, 4, 6, 3), 64, 1024, torch.bfloat16, "declip",
+                  TRAIN_BATCH, DECLIP_BANK, 7, {"type": "MOCOV2"}),
+              "phase 7 does not run the DeCLIP-ResNet-50 recipe")
+        scalars = scalars_by_tag(os.path.join(exp, "events",
+                                              "scalars.jsonl"))
+        losses = [v for _, v in scalars["loss"]]
+        check(len(losses) == SOLVER_STEPS and np.isfinite(losses).all(),
+              f"solver losses {losses}")
+        skipped = [v for _, v in scalars["update_skipped"]]
+        check(skipped == [0.0] * SOLVER_STEPS, f"skipped updates {skipped}")
+        want_ptr = 2 * batch * SOLVER_STEPS % bank_rows
+        check(st.step == SOLVER_STEPS and st.bank_text.ptr == want_ptr,
+              f"solver at step {st.step}, bank pointer {st.bank_text.ptr} "
+              f"(want {SOLVER_STEPS}, {want_ptr})")
+        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        check(ckpts == [f"ckpt_{SOLVER_SAVE_FREQ}.pth.tar",
+                        f"ckpt_{SOLVER_STEPS}.pth.tar", "ckpt_meta.json"],
+              f"checkpoints {ckpts}")
+        with open(os.path.join(exp, "results", "results.txt.rank0")) as f:
+            n_results = sum(1 for _ in f)
+        n_val = SOLVER_CLASSES * SOLVER_PER_CLASS
+        top = {k: scalars[f"eval0/{k}"][-1][1] for k in ("top1", "top5")}
+        check(n_results == n_val and all(0 <= v <= 100 for v in
+                                         top.values()),
+              f"{n_results} zero-shot results (want {n_val}), {top}")
+        want = solver_kernel_calls(solver, SOLVER_STEPS)
+        check(launches == want,
+              f"solver path kernel calls {launches}, want {want}")
+        window = solver_window(solver.timings, *SOLVER_TIMED, batch)
+        ckpt = os.path.join(exp, "checkpoints",
+                            f"ckpt_{SOLVER_STEPS}.pth.tar")
+        out = {"device": str(solver.device), "batch": batch,
+               "cpu_count": os.cpu_count(), "corpus_s": corpus_s,
+               "images": SOLVER_IMAGES, "wall_s": wall_s,
+               "launches": launches,
+               "losses": losses, "timings": solver.timings, **window,
+               "bank_ptr": st.bank_text.ptr, "top1": top["top1"],
+               "top5": top["top5"], "ckpt_bytes": os.path.getsize(ckpt),
+               "ckpt_write_s": solver.save_seconds[-1],
+               "eval_s": solver.eval_seconds[-1],
+               "phase6": {k: declip_result.get(k) for k in
+                          ("step_ms", "host_step_ms", "pairs_per_s")}}
+        print(f"solver: {SOLVER_STEPS} steps of {DECLIP_RECIPE} from "
+              f"{SOLVER_IMAGES} JPEGs on disk (corpus written in {corpus_s:.1f} s),"
+              f" run in {wall_s:.1f} s; losses "
+              f"{[round(x, 4) for x in losses]}; bank pointer "
+              f"{st.bank_text.ptr}; zero-shot top1 {top['top1']:.2f} top5 "
+              f"{top['top5']:.2f} over {n_results}; kernel calls "
+              f"{launches}", flush=True)
+        print(f"solver: steps {SOLVER_TIMED[0]}-{SOLVER_TIMED[1]}: "
+              f"{window['step_s'] * 1e3:.2f} ms/step, "
+              f"{window['pairs_per_s']:.1f} pairs/s; without the saves' "
+              f"synchronous {window['save_s'] * 1e3:.2f} ms/step: "
+              f"{window['step_s_without_saves'] * 1e3:.2f} ms/step, "
+              f"{window['pairs_per_s_without_saves']:.1f} pairs/s "
+              f"(phase 6, one repeated "
+              f"batch: {declip_result.get('step_ms', float('nan')):.2f} "
+              f"ms/step device, {declip_result.get('host_step_ms', float('nan')):.2f} "
+              f"host, {declip_result.get('pairs_per_s', float('nan')):.1f} "
+              f"pairs/s); waiting for data {window['data_s'] * 1e3:.2f} "
+              f"ms/step ({window['data_share']:.1%} of the step); "
+              f"host-to-device copy median {window['h2d_ms_median']:.3f} "
+              f"ms, largest {window['h2d_ms_max']:.3f} ms; "
+              f"os.cpu_count() {os.cpu_count()}; checkpoint "
+              f"{out['ckpt_bytes'] / 2 ** 20:.1f} MiB written in "
+              f"{out['ckpt_write_s']:.2f} s; eval {out['eval_s']:.2f} s",
+              flush=True)
+
+        # the recipe's loader alone, longer than the run: 6 steps end
+        # before its workers' first round does
+        solver.max_iter = SOLVER_LOADER_BATCHES
+        t = time.perf_counter()
+        arrivals = [time.perf_counter() - t
+                    for _ in solver._train_loader(-1)]
+        out["loader"] = loader_rate(arrivals, SOLVER_LOADER_SKIP, batch)
+        # one batch built on this thread alone, and its images' decode and
+        # two MOCOV2 views apart: how far the workers scale, and where a
+        # batch's host time goes
+        loader = solver._train_loader(-1)
+        ds = solver.train_dataset
+        t = time.perf_counter()
+        loader._build_batch(list(range(batch)), 0)
+        out["loader"]["one_thread_batch_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        pics = [ds._load_image(i, ds._meta(i)) for i in range(32)]
+        out["loader"]["decode_ms_per_image"] = (time.perf_counter() - t) * 1e3 / 32
+        t = time.perf_counter()
+        for pic in pics:
+            ds.transform(pic)
+        out["loader"]["views_ms_per_image"] = (time.perf_counter() - t) * 1e3 / 32
+        lo = out["loader"]
+        print(f"solver loader alone ({solver.train_cfg['num_workers']} "
+              f"thread workers, {os.cpu_count()} CPUs): first batch "
+              f"{lo['first_batch_s']:.2f} s, then {lo['ms_per_batch']:.1f} "
+              f"ms a batch, {lo['pairs_per_s']:.1f} pairs/s; one batch on "
+              f"one thread {lo['one_thread_batch_s']:.2f} s (a JPEG decode "
+              f"{lo['decode_ms_per_image']:.2f} ms, its two MOCOV2 views "
+              f"{lo['views_ms_per_image']:.2f} ms)", flush=True)
+        del solver, st
+
+        resumed, out["resume_launches"], out["resume_wall_s"] = run(
+            SOLVER_RESUME_STEPS)
+        check(resumed.start_step == SOLVER_STEPS
+              and resumed.state.step == SOLVER_RESUME_STEPS,
+              f"resume started at {resumed.start_step}, ended at "
+              f"{resumed.state.step} (want {SOLVER_STEPS}, "
+              f"{SOLVER_RESUME_STEPS})")
+        want = solver_kernel_calls(resumed, SOLVER_RESUME_STEPS - SOLVER_STEPS)
+        check(out["resume_launches"] == want,
+              f"resume path kernel calls {out['resume_launches']}, want "
+              f"{want}")
+        with open(os.path.join(exp, "log.txt")) as f:
+            check(re.search(r"auto-resumed from \S+ckpt_%d\.pth\.tar at "
+                            r"step %d\b" % (SOLVER_STEPS, SOLVER_STEPS),
+                            f.read()) is not None,
+                  "no auto-resume at the last save in log.txt")
+        print(f"solver resume: from step {resumed.start_step} to "
+              f"{resumed.state.step} in {out['resume_wall_s']:.1f} s",
+              flush=True)
+        del resumed
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "declip_tpu_torch.solver", "--config",
+             cfg_path, "--evaluate", "--device", "cuda", "--set", *sets,
+             f"lr_scheduler.kwargs.max_iter={SOLVER_RESUME_STEPS}"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [ROOT, os.environ.get("PYTHONPATH", "")])))
+        out["cli_s"] = time.perf_counter() - t
+        metric = re.search(r'"top1": ([0-9.]+)', cli.stdout)
+        check(cli.returncode == 0 and metric is not None,
+              f"the CLI --evaluate: rc {cli.returncode}, stdout "
+              f"{cli.stdout[-2000:]}, stderr {cli.stderr[-2000:]}")
+        out["cli_top1"] = float(metric.group(1))
+        print(f"solver CLI --evaluate: top1 {out['cli_top1']:.2f} in "
+              f"{out['cli_s']:.1f} s", flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _path_sums(rows, cases, dtype_name, prefix=""):
     """Each time summed over the path's shapes in one dtype; the path is
     bound by what bounds its largest bound."""
@@ -2330,7 +2679,7 @@ def _li_entries(li_rows, filip_result):
 
 
 def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
-                 filip_result, declip_result):
+                 filip_result, declip_result, solver_result):
     """One entry per kernel. K1 is on every path: its launches are the
     serving run's plus the two training runs', each counted from 0 around
     its path; its times are the serving path's (the sum over its two shapes,
@@ -2339,23 +2688,30 @@ def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
     the log-sum-exp; its error is that of its output O). K2 runs on the
     training paths: its times are the sum over the same two shapes at
     B=128 in bf16 (the DeCLIP step's text passes run both at L=77 causal).
-    K3-K5 run on the FILIP training path (``_li_entries``)."""
+    K3-K5 run on the FILIP training path (``_li_entries``). The solver's
+    run (phase 7: the DeCLIP recipe through ``solver.main``, eval included)
+    adds to K1's and K2's launches, its resume apart."""
     serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
     k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
     k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
     filip = filip_result["launches"]
     declip = declip_result["launches"]
+    solver = solver_result["launches"]
+    resume = solver_result["resume_launches"]
     return {"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "declip_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "declip_tpu/ops/flash_attention.py:41",
         "launches": (slice_result["launches"] + train_result["launches"]
-                     + filip["K1"] + declip["K1"]),
+                     + filip["K1"] + declip["K1"] + solver["K1"]
+                     + resume["K1"]),
         "launches_by_path": {"serve": slice_result["launches"],
                              "train": train_result["launches"],
                              "train_filip": filip["K1"],
-                             "train_declip": declip["K1"]},
+                             "train_declip": declip["K1"],
+                             "solver": solver["K1"],
+                             "solver_resume": resume["K1"]},
         "max_abs_err": serve["max_abs_err"],
         "ms": serve["ms"],
         "plain_ms": serve["plain_ms"],
@@ -2372,10 +2728,12 @@ def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
         "source": "declip_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": "declip_tpu/ops/flash_attention.py:72",
         "launches": (train_result["bwd_launches"] + filip["K2"]
-                     + declip["K2"]),
+                     + declip["K2"] + solver["K2"] + resume["K2"]),
         "launches_by_path": {"train": train_result["bwd_launches"],
                              "train_filip": filip["K2"],
-                             "train_declip": declip["K2"]},
+                             "train_declip": declip["K2"],
+                             "solver": solver["K2"],
+                             "solver_resume": resume["K2"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -2410,8 +2768,9 @@ def main():
     train_result = phase_train()
     filip_result = phase_train_filip()
     declip_result = phase_train_declip()
+    solver_result = phase_solver(declip_result)
     line = kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
-                        filip_result, declip_result)
+                        filip_result, declip_result, solver_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "hmma": hmma,
@@ -2419,7 +2778,8 @@ def main():
                    "attention_bwd": bwd_rows, "late_interaction": li_rows,
                    "slice": slice_result, "train": train_result,
                    "train_filip": filip_result,
-                   "train_declip": declip_result, "kernels": line["kernels"],
+                   "train_declip": declip_result, "solver": solver_result,
+                   "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")
     print(card)  # name and power limit, as nvidia-smi gives them

@@ -1,5 +1,5 @@
-"""YAML config loading (copy of ``parse_config``/``Cfg`` from
-declip_tpu/config.py).
+"""YAML config loading (copy of ``parse_config``, ``Cfg`` and ``override``
+from declip_tpu/config.py).
 
 The reference parses a single YAML into an EasyDict with no validation
 (prototype/utils/misc.py:65-70). We load into an attribute-dict (`Cfg`) for
@@ -8,9 +8,10 @@ the same ergonomics; builders never mutate the config.
 
 from __future__ import annotations
 
+import copy
 import io
 import os
-from typing import Any
+from typing import Any, Mapping
 
 import yaml
 
@@ -30,6 +31,15 @@ class Cfg(dict):
 
     def __setattr__(self, key: str, value: Any) -> None:
         self[key] = value
+
+    def get_path(self, dotted: str, default: Any = None) -> Any:
+        """cfg.get_path('model.kwargs.image_encode') with a default."""
+        node: Any = self
+        for part in dotted.split("."):
+            if not isinstance(node, Mapping) or part not in node:
+                return default
+            node = node[part]
+        return node
 
 
 def _wrap(node: Any) -> Any:
@@ -54,3 +64,16 @@ def parse_config(path_or_str: str) -> Cfg:
             raise FileNotFoundError(f"config file not found: {path_or_str}")
         cfg = _wrap(yaml.safe_load(io.StringIO(path_or_str)) or {})
     return cfg
+
+
+def override(cfg: Cfg, dotted: str, value: Any) -> Cfg:
+    """Return a copy of cfg with `a.b.c=value` applied (CLI override)."""
+    out = _wrap(copy.deepcopy(dict(cfg)))
+    parts = dotted.split(".")
+    node = out
+    for p in parts[:-1]:
+        if p not in node or not isinstance(node[p], dict):
+            node[p] = Cfg()
+        node = node[p]
+    node[parts[-1]] = value
+    return out

@@ -50,10 +50,11 @@ from declip_tpu_torch.utils.registry import MODELS
 
 
 class DECLIP(nn.Module):
-    """The JAX package's fields. ``use_allgather``, ``nn_size``,
-    ``return_dense``, ``return_caption``, ``EDA``, ``feature_dim`` and
-    ``forward_type`` are accepted and unused, as there (the bank's size is
-    the train state's). ``fuse_views`` runs the two text passes, and under
+    """The JAX package's fields. ``use_allgather``, ``return_dense``,
+    ``return_caption`` and ``forward_type`` are accepted and unused, as
+    there. ``nn_size`` and ``feature_dim`` size the bank the solver makes,
+    and ``EDA`` tells its loader to make EDA captions (the bank itself is
+    train state). ``fuse_views`` runs the two text passes, and under
     a ViT the two image views, as one batch each; never a ResNet's views,
     whose BatchNorm statistics are per view (declip.py:225-232). The heads
     take the towers' embedding widths."""
@@ -86,6 +87,8 @@ class DECLIP(nn.Module):
         self.use_allgather = use_allgather
         self.nn_size = nn_size
         self.nn_topk = nn_topk
+        self.EDA = EDA
+        self.feature_dim = feature_dim
         self.return_simsiam_text = return_simsiam_text
         self.return_simsiam_nn_text = return_simsiam_nn_text
         self.return_nn_bank = return_nn_bank

@@ -48,11 +48,15 @@ _CLIP_TYPES = ("norm", "value", "logit_scale_grad", "constant")
 
 @dataclass
 class OptState:
-    """Adam's state: the step count and fp32 moments by parameter name."""
+    """Adam's state: the step count (bias correction), fp32 moments by
+    parameter name, and the schedule's own count, which optax keeps apart
+    in ``ScaleByScheduleState`` (the two advance together unless
+    :func:`fast_forward_schedule` moves the schedule's)."""
 
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    sched_count: int = 0
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -142,7 +146,8 @@ class AdamRule:
         torch._foreach_add_(mu, g, alpha=1 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
-        lr = self.schedule(state.count)
+        lr = self.schedule(state.sched_count)
+        state.sched_count += 1
         state.count += 1
         # bias corrections in fp32, as optax computes them
         bc1 = float(1 - torch.tensor(self.b1, dtype=torch.float32)
@@ -197,3 +202,16 @@ def optim_entry(cfg: Mapping, model: nn.Module, schedule: Schedule, *,
         logit_names=[n for n, g in labels.items() if g == "logit_scale"],
         frozen=[n for n, f in (frozen_mask or {}).items() if f],
         schedule=schedule)
+
+
+def fast_forward_schedule(opt_state: OptState, step: int) -> OptState:
+    """Set ``opt_state``'s schedule count to ``step`` (port of
+    declip_tpu/optim/__init__.py:225).
+
+    Used by the reference-exact rollback mode (declip_solver.py:600-607):
+    the reference rebuilds a FRESH optimizer after a crash (Adam moments
+    zeroed, bias correction restarted) but keeps evaluating its rebuilt
+    scheduler at the current step. Adam's own ``count`` (bias correction)
+    is deliberately NOT touched: the reference restarts it."""
+    opt_state.sched_count = int(step)
+    return opt_state

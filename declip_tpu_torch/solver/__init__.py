@@ -1,0 +1,878 @@
+"""Config-driven training/eval solver (port of declip_tpu/solver/__init__.py).
+
+    python -m declip_tpu_torch.solver --config <experiment>/config.yaml \
+        [--set dotted.key=value ...] [--evaluate] [--device cuda]
+
+One generic Solver replaces the reference's five per-method ClsSolver
+classes (prototype/solver/{clip,slip,filip,declip,defilip}_solver.py); the
+method is inferred from the model type. Preserved reference contracts, as
+in the JAX package:
+
+- experiment-dir layout: checkpoints/ events/ results/ log.txt next to
+  config.yaml (clip_solver.py:110-117);
+- saver semantics: auto_resume from the newest ckpt, save every save_freq,
+  long-horizon copies every 20x save_freq (declip_solver.py:796-815);
+- zero-shot protocol: per-class prompt-ensemble text embeddings, image@class
+  logits, softmax x ensemble matrix, per-rank JSONL dump, top-k
+  (clip_solver.py:675-737);
+- loss-spike/NaN auto-rollback: reload an old checkpoint, decay warmup_lr by
+  0.997, rebuild optimizer+schedule (declip_solver.py:548-619);
+- EMA evaluation swap (declip_solver.py:778-787).
+
+The port trains on one process and one device: ``device`` defaults to
+``cuda`` and raises where CUDA is absent (pass ``cpu`` to run on the CPU).
+The host loader's batches are staged into pinned memory on a prefetch
+thread and copied to the card on a side stream, which the step's stream
+waits for. Not in the port yet, each raising: ``parallelism`` (mesh,
+TP/PP/EP/FSDP; ROADMAP.md item 1.10), the methods without a port model
+(SLIP, DeFILIP, MoCo, SimCLR, CLSA) and FILIP's dense zero-shot eval (item
+1.8), ``device_aug`` (item 1.7a), and the orbax backend and ``gs://`` saves
+(TPU/pod-only in the JAX package). The JAX package's compile cache and
+profiler hook have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import os.path as osp
+import signal
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from declip_tpu_torch.checkpoint import (
+    find_last_checkpoint,
+    gc_checkpoints,
+    list_checkpoints,
+    load_checkpoint_meta,
+    load_pretrain,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_pending_saves,
+)
+from declip_tpu_torch.config import Cfg, override, parse_config
+from declip_tpu_torch.data.dataloader import (
+    ClipDataLoader,
+    build_clip_dataloader,
+    build_clip_dataset,
+)
+from declip_tpu_torch.data.evaluator import (
+    ImageNetEvaluator,
+    Metric,
+    RetrievalEvaluator,
+)
+from declip_tpu_torch.data.sampler import compute_total_iter
+from declip_tpu_torch.models import model_entry
+from declip_tpu_torch.models.clip_model import l2_normalize
+from declip_tpu_torch.models.layers import discard_bn_stats
+from declip_tpu_torch.models.memory_bank import init_bank
+from declip_tpu_torch.optim import (
+    fast_forward_schedule,
+    optim_entry,
+    path_prefix_mask,
+    scheduler_entry,
+)
+from declip_tpu_torch.tokenizer import get_tokenizer
+from declip_tpu_torch.tools._common import find_jax_checkpoint, resolve_device
+from declip_tpu_torch.train import (
+    EmaConfig,
+    init_ema,
+    make_train_step,
+    method_of,
+    new_train_state,
+)
+from declip_tpu_torch.utils.logging import ScalarWriter, create_logger
+from declip_tpu_torch.utils.meters import AverageMeter, MeterGroup
+from declip_tpu_torch.utils.registry import MODELS
+
+# batch entries the model takes; the loader's labels and raw lists stay on
+# the host
+_HOST_ONLY = ("labels",)
+
+
+def batched_class_embeddings(encode_text, ids: np.ndarray, n_class: int,
+                             prompts_num: int, classes_per_call: int,
+                             device) -> torch.Tensor:
+    """[n_class, D] normalized class embeddings from ``encode_text`` over
+    [n_class * prompts_num, L] prompt ids, in chunks of
+    ``classes_per_call`` classes; the tail chunk is padded with copies of
+    the last class so every call has one shape. Per class, as the reference
+    (clip_solver.py:688-700): L2-normalize each prompt embedding, mean over
+    the class's prompts, L2-normalize the mean."""
+    out = []
+    for beg in range(0, n_class, classes_per_call):
+        cls = min(classes_per_call, n_class - beg)
+        chunk = ids[beg * prompts_num:(beg + cls) * prompts_num]
+        if cls < classes_per_call:
+            pad = np.tile(chunk[-prompts_num:], (classes_per_call - cls, 1))
+            chunk = np.concatenate([chunk, pad])
+        emb = l2_normalize(encode_text(torch.from_numpy(chunk).to(device)))
+        emb = emb.reshape((classes_per_call, prompts_num) + emb.shape[1:])
+        out.append(l2_normalize(emb.mean(dim=1))[:cls])
+    return torch.cat(out)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md item {item})")
+
+
+class Solver:
+    def __init__(self, config, *, device="cuda"):
+        if isinstance(config, str):
+            config = parse_config(config)
+        self.config = config
+        self.device = resolve_device(device)
+        self.rank, self.world = 0, 1
+        pcfg = dict(self.config.get("parallelism") or {})
+        if any(int(pcfg.get(k, 1) or 1) > 1
+               for k in ("tp", "pp", "ep", "slices")) \
+                or pcfg.get("fsdp") or pcfg.get("sp"):
+            raise _not_ported(f"parallelism {pcfg}", "1.10")
+        self.data_ways = 1
+        self.setup_env()
+        self.build_model()
+        self.build_data()
+        self.build_optimizer()
+        self.init_state()
+        self.build_step()
+
+    # ------------------------------------------------------------------ env
+    def setup_env(self):
+        cfg_path = self.config.get("_config_path")
+        base = osp.dirname(cfg_path) if cfg_path else os.getcwd()
+        save_root = self.config.get_path("saver.save_path")
+        if save_root and "://" in str(save_root):
+            raise NotImplementedError(
+                f"saver.save_path {save_root}: object-store checkpoints are "
+                f"not ported; the port saves to a local path")
+        if save_root:
+            ckpt_path = str(save_root)
+            ckpt_k = osp.join(osp.dirname(ckpt_path.rstrip("/")),
+                              "checkpoints_k_times")
+        else:
+            ckpt_path = osp.join(base, "checkpoints")
+            ckpt_k = osp.join(base, "checkpoints_k_times")
+        self.path = Cfg(
+            root_path=base,
+            ckpt_path=ckpt_path,
+            ckpt_k_times_path=ckpt_k,
+            event_path=osp.join(base, "events"),
+            result_path=osp.join(base, "results"),
+        )
+        for p in (self.path.ckpt_path, self.path.event_path,
+                  self.path.result_path):
+            os.makedirs(p, exist_ok=True)
+        self.logger = create_logger(osp.join(base, "log.txt"))
+        self.writer = ScalarWriter(self.path.event_path, enabled=True)
+        self.meters = MeterGroup(length=int(
+            self.config.get_path("saver.print_freq", 10)))
+        # per print: the window's wall time, its waits for data, the
+        # synchronous part of its saves, and the newest batch's
+        # host-to-device copy
+        self.timings: List[Dict] = []
+        self.eval_seconds: List[float] = []
+        self.save_seconds: List[float] = []
+
+    # ---------------------------------------------------------------- model
+    def build_model(self):
+        mcfg = self.config.model
+        mtype = mcfg["type"]
+        if mtype not in MODELS:
+            raise _not_ported(
+                f"model type {mtype!r} (the port has CLIP, FILIP and DeCLIP; "
+                f"SLIP, MoCo, SimCLR and CLSA are missing)", "1.8")
+        kwargs = dict(mcfg.get("kwargs") or {})
+        prec = self.config.get_path("precision.dtype", "bfloat16")
+        kwargs["dtype"] = prec
+        # weights made on the CPU from a seed, then moved: one seed gives
+        # the same weights on every device
+        self.model = model_entry({"type": mtype, "kwargs": kwargs})
+        self.model.init_weights(torch.Generator().manual_seed(
+            int(self.config.get_path("seed", 0))))
+        self.model.to(self.device)
+        self.method = method_of(self.model)
+        self.logger.info(
+            f"model={mtype} method={self.method} dtype={prec} "
+            f"device={self.device}")
+
+    # ----------------------------------------------------------------- data
+    @staticmethod
+    def normalize_data_config(dcfg: Dict) -> Dict:
+        """Accept both the reference layout (batch_size/read_from at the
+        data level, test entries nesting a second ``test`` dict —
+        yfcc15m_r50_declip/config.yaml:81-131) and the flat layout."""
+        dcfg = dict(dcfg or {})
+        train = dict(dcfg.get("train") or {})
+        for key in ("batch_size", "num_workers", "read_from", "input_size"):
+            if key in dcfg and key not in train:
+                train[key] = dcfg[key]
+        tests = dcfg.get("test") or []
+        if isinstance(tests, dict):
+            tests = [tests]
+        norm_tests = []
+        for entry in tests:
+            entry = dict(entry)
+            inner = dict(entry.pop("test", {}) or {})
+            norm_tests.append({**entry, **inner})
+        return {"train": train, "test": norm_tests}
+
+    def build_data(self):
+        dcfg = self.normalize_data_config(self.config.get("data") or {})
+        train_cfg = dict(dcfg.get("train") or {})
+        if train_cfg.get("device_aug", False):
+            raise _not_ported("device_aug (on-device augmentation)", "1.7a")
+        train_cfg.setdefault("transforms", {"type": "STANDARD_CLIP"})
+        self.per_chip_batch = int(train_cfg.get("batch_size", 8))
+        self.host_batch = self.per_chip_batch
+        self.global_batch = self.per_chip_batch * self.data_ways
+        ds = build_clip_dataset(
+            train_cfg, world_size=self.world, rank=self.rank)
+        max_iter = self.config.get_path("lr_scheduler.kwargs.max_iter")
+        self.max_iter = compute_total_iter(
+            {**train_cfg, **({"max_iter": max_iter} if max_iter else {})},
+            len(ds), self.data_ways)
+        self.train_dataset = ds
+        self.train_cfg = train_cfg
+        self.test_cfgs: List[Dict] = list(dcfg.get("test") or [])
+
+    def _ckpt_meta(self) -> dict:
+        """Topology sidecar: what the sampler stream was laid out for when
+        this checkpoint was written."""
+        return {"world_size": self.world, "host_batch": self.host_batch,
+                "global_batch": self.global_batch}
+
+    def _train_loader(self, last_iter: int) -> ClipDataLoader:
+        split_cfg = dict(self.train_cfg)
+        split_cfg["batch_size"] = self.host_batch
+        split_cfg.setdefault("seed", int(self.config.get_path("seed", 0)))
+        # DeCLIP extras flow from the model config (declip.py:203-212)
+        split_cfg["eda"] = bool(getattr(self.model, "EDA", False)) and \
+            self.method in ("declip", "defilip")
+        split_cfg["text_mask_type"] = getattr(
+            self.model, "text_mask_type", None)
+        return build_clip_dataloader(
+            split_cfg, world_size=self.world, rank=self.rank,
+            last_iter=last_iter, total_iter=self.max_iter,
+            dataset=self.train_dataset,
+        )
+
+    # ------------------------------------------------------------ optimizer
+    def build_optimizer(self):
+        ocfg = dict(self.config.get("optimizer") or
+                    {"type": "AdamW", "kwargs": {"lr": 1e-4}})
+        scfg = dict(self.config.get("lr_scheduler") or
+                    {"type": "Cosine",
+                     "kwargs": {"base_lr": 0.0, "warmup_lr": 1e-3,
+                                "warmup_steps": 0}})
+        self._sched_cfg = scfg
+        self._warmup_decay = 1.0
+        self._iters_per_epoch = max(
+            1, len(self.train_dataset) // max(self.global_batch, 1))
+        self.schedule = scheduler_entry(
+            scfg, max_iter=self.max_iter,
+            iters_per_epoch=self._iters_per_epoch)
+        self._opt_cfg = ocfg
+
+    def _make_tx(self):
+        named = dict(self.model.named_parameters())
+        frozen_paths = getattr(self.model.visual, "frozen_param_paths",
+                               lambda: ())()
+        return optim_entry(
+            self._opt_cfg, self.model, self.schedule,
+            pconfig=self._opt_cfg.get("pconfig") or {},
+            grad_clip=dict(self.config.get("grad_clip") or {}),
+            frozen_mask=(path_prefix_mask(named, tuple(frozen_paths))
+                         if frozen_paths else None),
+        )
+
+    # ---------------------------------------------------------------- state
+    def _feature_dim(self) -> int:
+        dim = getattr(self.model, "feature_dim", None)
+        if dim:
+            return int(dim)
+        return int(self.model.encode_text.text_projection.out_features)
+
+    def init_state(self):
+        named = dict(self.model.named_parameters())
+        self.tx = self._make_tx()
+        seed = int(self.config.get_path("seed", 0))
+
+        ema_cfg = None
+        ema_params = None
+        if self.config.get_path("ema.enable", False):
+            kw = dict(self.config.get_path("ema.kwargs", {}) or {})
+            kw.pop("model", None)
+            ema_cfg = EmaConfig(
+                decay=float(kw.get("decay", 0.999)),
+                warmup=int(kw.get("warmup", 1)),
+                inner_T=int(kw.get("inner_T", 1)),
+                copy_init=bool(kw.get("copy_init", False)),
+            )
+            ema_params = init_ema(named, ema_cfg)
+        self.ema_cfg = ema_cfg
+
+        bank = None
+        if getattr(self.model, "return_nn_bank", False):
+            bank = init_bank(
+                torch.Generator().manual_seed(seed + 1),
+                int(getattr(self.model, "nn_size", 2 ** 16)),
+                self._feature_dim(), device=self.device)
+
+        guard = dict(self.config.get("grad_clip") or {}).get(
+            "type") == "logit_scale_param_ema"
+        state = new_train_state(
+            model=self.model, opt_state=self.tx.init(named),
+            ema_params=ema_params, bank_text=bank, with_logit_guard=guard)
+
+        # auto-resume (clip_solver.py:128-139)
+        self.start_step = 0
+        if self.config.get_path("saver.pretrain.auto_resume", True):
+            if self.config.get_path("saver.backend") == "orbax":
+                raise NotImplementedError(
+                    "saver.backend orbax is TPU/pod-only and not ported; "
+                    "the port writes ckpt_<step>.pth.tar")
+            ckpt_dir = self.path.ckpt_path
+            last = find_last_checkpoint(ckpt_dir)
+            jax_ckpt = find_jax_checkpoint(ckpt_dir) if last is None else None
+            if jax_ckpt is not None:
+                cfg_path = self.config.get("_config_path", "<config.yaml>")
+                raise FileNotFoundError(
+                    f"{ckpt_dir} holds the JAX package's checkpoint "
+                    f"{jax_ckpt} and no ckpt*.pth.tar; the port does not "
+                    f"start such an experiment from scratch. Convert it "
+                    f"(model weights only) and start from it with "
+                    f"saver.pretrain.path:\n  python -m "
+                    f"declip_tpu.tools.convert --config {cfg_path} --to_pth "
+                    f"{jax_ckpt} --out <file>.pth.tar")
+            if last is not None:
+                restore_checkpoint(last, state)
+                self.start_step = int(state.step)
+                self.logger.info(
+                    f"auto-resumed from {last} at step {self.start_step}")
+        # the topology the checkpoint was written for: the sampler stream
+        # resumes only on the same world and host batch (re-sharding it for
+        # another world is ROADMAP 1.10)
+        if self.start_step > 0:
+            meta = load_checkpoint_meta(self.path.ckpt_path)
+            ow = int(meta.get("world_size", self.world))
+            ohb = int(meta.get("host_batch", self.host_batch))
+            if (ow, ohb) != (self.world, self.host_batch):
+                raise ValueError(
+                    f"resuming a {ow} host(s) x batch {ohb} checkpoint on "
+                    f"{self.world} x {self.host_batch}: the port resumes "
+                    "only the topology it saved (a world-size-elastic "
+                    "resume is ROADMAP.md item 1.10); set batch_size back")
+        # pretrain weights (model only, fresh optimizer/step) when nothing
+        # was resumed (clip_solver.py:140-163 + misc.py modify_state)
+        pretrain_path = self.config.get_path("saver.pretrain.path")
+        if self.start_step == 0 and pretrain_path:
+            ignore = tuple(
+                self.config.get_path("saver.pretrain.ignore") or ())
+            state, unmatched = load_pretrain(
+                pretrain_path, state, ignore=ignore)
+            msg = f"loaded pretrain weights from {pretrain_path}"
+            if unmatched:
+                msg += (f" ({len(unmatched)} keys kept at init, e.g. "
+                        f"{unmatched[:5]})")
+            self.logger.info(msg)
+        self.state = state
+
+    # ----------------------------------------------------------------- step
+    def build_step(self):
+        self._train_step = make_train_step(
+            self.model, self.tx, self.config, self.schedule,
+            method=self.method, ema_cfg=self.ema_cfg,
+            total_steps=self.max_iter)
+
+    # ----------------------------------------------------------- preemption
+    @contextlib.contextmanager
+    def _preemption_guard(self):
+        """Save-and-exit-clean on SIGTERM/SIGUSR1: the handler only sets an
+        Event, and the loop checks it each step and cuts a final checkpoint
+        before the kill (all checkpoint IO on the main thread, at a step
+        boundary). Callers off the main thread skip handler installation —
+        signal.signal is main-thread only."""
+        self._preempt = threading.Event()
+        prev = {}
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGUSR1):
+                try:
+                    prev[sig] = signal.signal(
+                        sig, lambda *_: self._preempt.set())
+                except (ValueError, OSError):  # pragma: no cover
+                    pass
+        try:
+            yield self._preempt
+        finally:
+            for sig, handler in prev.items():
+                signal.signal(sig, handler)
+
+    # ---------------------------------------------------------------- train
+    def train(self):
+        with self._preemption_guard() as preempt:
+            self._train_loop(preempt)
+
+    def _train_loop(self, preempt):
+        saver = self.config.get("saver") or {}
+        print_freq = int(saver.get("print_freq", 10))
+        val_freq = int(saver.get("val_freq", 0) or 0)
+        save_freq = int(saver.get("save_freq", 0) or 0)
+        save_many = bool(saver.get("save_many", True))
+
+        spike_window = AverageMeter(length=100)
+        it = self._device_prefetch(iter(self._train_loader(
+            self.start_step - 1)))
+        step = self.start_step
+        t_last = time.perf_counter()
+        data_time = save_time = 0.0
+        window = 0
+        try:
+            while step < self.max_iter:
+                t_wait = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                data_time += time.perf_counter() - t_wait
+                self.state, metrics = self._train_step(self.state, batch)
+                # the step is host-predictable; only a rollback resyncs it
+                step += 1
+                window += 1
+
+                if step % print_freq == 0 or step == self.max_iter:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    loss = metrics.get("loss", float("nan"))
+                    # loss-spike / NaN rollback (declip_solver.py:548-619)
+                    if self._spike(loss, spike_window) and \
+                            self._rollback(step):
+                        step = int(self.state.step)
+                        it.close()
+                        it = self._device_prefetch(iter(
+                            self._train_loader(step - 1)))
+                        t_last, window = time.perf_counter(), 0
+                        data_time = save_time = 0.0
+                        continue
+                    if np.isfinite(loss):  # a NaN would poison the avg
+                        spike_window.update(loss)
+                    batch_time = time.perf_counter() - t_last
+                    h2d_ms = self._h2d_ms()
+                    self.timings.append({
+                        "step": step, "steps": window,
+                        "batch_time": batch_time, "data_time": data_time,
+                        "save_time": save_time, "h2d_ms": h2d_ms})
+                    self.meters.update(
+                        {**metrics, "batch_time": batch_time,
+                         "data_time": data_time})
+                    for k, v in metrics.items():
+                        self.writer.add_scalar(k, v, step)
+                    pairs_per_sec = (
+                        self.global_batch * window / max(batch_time, 1e-9)
+                        if step > self.start_step + print_freq else 0.0)
+                    remain = (self.max_iter - step) * self.meters[
+                        "batch_time"].avg / max(print_freq, 1)
+                    self.logger.info(
+                        f"Iter [{step}/{self.max_iter}] "
+                        f"loss {loss:.4f} ({self.meters['loss'].avg:.4f}) "
+                        f"lr {metrics.get('lr', 0):.2e} "
+                        f"top1 {metrics.get('top1', 0):.2f} "
+                        f"pairs/s {pairs_per_sec:.1f} "
+                        f"data {data_time / window:.3f}s/step "
+                        f"h2d {h2d_ms:.2f}ms "
+                        f"eta {remain / 3600:.2f}h")
+                    self.writer.flush()
+                    t_last, window = time.perf_counter(), 0
+                    data_time = save_time = 0.0
+
+                if val_freq and step % val_freq == 0 and step > 0:
+                    self.validate(step)
+                if save_freq and step % save_freq == 0:
+                    t_save = time.perf_counter()
+                    keep = int(self.config.get_path("saver.keep", 10))
+                    k_dir = (self.path.ckpt_k_times_path
+                             if step % (save_freq * 20) == 0 else None)
+                    save_checkpoint(
+                        self.path.ckpt_path, self.state,
+                        save_many=save_many, k_times_dir=k_dir,
+                        async_write=bool(self.config.get_path(
+                            "saver.async_save", True)),
+                        meta=self._ckpt_meta())
+                    gc_checkpoints(self.path.ckpt_path, keep=keep)
+                    save_time += time.perf_counter() - t_save
+
+                if preempt.is_set():
+                    self.logger.info(
+                        f"Preemption signal received at iter {step} — "
+                        "writing final checkpoint and exiting (auto_resume "
+                        "continues from here)")
+                    break
+        finally:
+            it.close()
+
+        # drain in-flight async writes BEFORE the final synchronous save
+        # (they share ckpt_meta.json; last writer must be the newest)
+        wait_for_pending_saves()
+        t0 = time.perf_counter()
+        save_checkpoint(self.path.ckpt_path, self.state, save_many=True,
+                        meta=self._ckpt_meta())
+        self.save_seconds.append(time.perf_counter() - t0)
+        if not preempt.is_set():  # the grace window is for IO, not eval
+            self.validate(step)
+        self.writer.close()
+
+    def _h2d_ms(self) -> float:
+        """Device time of the newest batch's host-to-device copy (0 on the
+        CPU). The step's stream waited for it, so it has ended."""
+        events = getattr(self, "_h2d_events", None)
+        if events is None:
+            return 0.0
+        return float(events[0].elapsed_time(events[1]))
+
+    def _stage(self, batch) -> Dict:
+        """On the prefetch thread: the model's arrays into pinned host
+        memory, then copied to the card without blocking on a side stream
+        (the stream's event rides along). On the CPU: tensors over the
+        arrays."""
+        arrays = {k: v for k, v in batch.items()
+                  if isinstance(v, np.ndarray) and k not in _HOST_ONLY}
+        if self.device.type != "cuda":
+            return {"tensors": {k: torch.from_numpy(v)
+                                for k, v in arrays.items()}}
+        pinned = {k: torch.from_numpy(v).pin_memory()
+                  for k, v in arrays.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self._copy_stream):
+            start.record()
+            tensors = {k: t.to(self.device, non_blocking=True)
+                       for k, t in pinned.items()}
+            done.record()
+        return {"tensors": tensors, "events": (start, done)}
+
+    def _device_prefetch(self, it, depth: int = 2):
+        """Keep ``depth`` batches staged ahead on a background thread (the
+        reference's DataPrefetcher role, clip_solver.py:30-61): each is read
+        from the loader, pinned and copied on a side stream there; the
+        consumer's stream waits on the copy's event. Closing the generator
+        drains the thread and closes the loader's iterator."""
+        if self.device.type == "cuda" and \
+                getattr(self, "_copy_stream", None) is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        pool = ThreadPoolExecutor(1, thread_name_prefix="prefetch")
+        buf: deque = deque()
+
+        def fetch():
+            try:
+                return self._stage(next(it))
+            except StopIteration:
+                return None
+
+        def fill():
+            while len(buf) < depth:
+                buf.append(pool.submit(fetch))
+
+        try:
+            fill()
+            while buf:
+                staged = buf.popleft().result()
+                if staged is None:
+                    break
+                fill()
+                tensors = staged["tensors"]
+                if "events" in staged:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(staged["events"][1])
+                    for t in tensors.values():
+                        # the step's stream uses memory the copy stream
+                        # allocated
+                        t.record_stream(stream)
+                    self._h2d_events = staged["events"]
+                yield tensors
+        finally:
+            for f in buf:
+                with contextlib.suppress(Exception):
+                    f.result()
+            pool.shutdown(wait=True)
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    def _spike(self, loss: float, window: AverageMeter) -> bool:
+        if not np.isfinite(loss):
+            return True
+        thr = float(self.config.get_path("saver.spike_threshold", 10.0))
+        return window.count > 20 and loss > window.avg + thr
+
+    def _rollback(self, step: int) -> bool:
+        """Reload an old checkpoint, decay warmup lr, rebuild optimizer
+        (declip_solver.py:548-619). Returns True if a rollback happened."""
+        if not bool(self.config.get_path("saver.rollback", False)):
+            self.logger.warning(
+                f"loss spike/NaN at step {step} (rollback disabled)")
+            return False
+        wait_for_pending_saves()  # in-flight async writes must land first
+        ckpts = list_checkpoints(self.path.ckpt_path)
+        if not ckpts:
+            self.logger.warning("spike but no checkpoint to roll back to")
+            return False
+        # >= 3 save-points back from the newest (declip_solver.py:590-594);
+        # clamp to the oldest when fewer exist
+        target = ckpts[max(0, len(ckpts) - 4)]
+        self.logger.warning(
+            f"loss spike at {step}: rolling back to step {target[0]}, "
+            f"warmup_lr x= 0.997")
+        self._warmup_decay *= 0.997
+        scfg = dict(self._sched_cfg)
+        kwargs = dict(scfg.get("kwargs") or {})
+        kwargs["warmup_lr"] = float(kwargs.get("warmup_lr", 1e-3)) * \
+            self._warmup_decay
+        scfg["kwargs"] = kwargs
+        self.schedule = scheduler_entry(
+            scfg, max_iter=self.max_iter,
+            iters_per_epoch=self._iters_per_epoch)
+        # model, optimizer state, EMA, guard and bank, in place. Default:
+        # keep the restored optimizer state — it belongs to the good
+        # checkpoint and carries the schedule count for that step (a delta
+        # from the reference, which reloads only the model and rebuilds its
+        # optimizer, kept from the JAX package)
+        restore_checkpoint(target[1], self.state)
+        # the update rule binds the schedule: rebuild it
+        self.tx = self._make_tx()
+        if bool(self.config.get_path("saver.rollback_reset_opt", False)):
+            # reference-exact mode (declip_solver.py:600-607): a fresh
+            # optimizer, with the rebuilt schedule still evaluated at the
+            # restored step
+            self.state.opt_state = fast_forward_schedule(
+                self.tx.init(dict(self.model.named_parameters())),
+                int(self.state.step))
+        self.build_step()
+        return True
+
+    # ----------------------------------------------------------------- eval
+    @contextlib.contextmanager
+    def _eval_mode(self, use_ema: bool = False):
+        """The model in eval mode (running BatchNorm statistics), with the
+        EMA weights swapped in under ``use_ema``; afterwards the weights are
+        put back bit for bit, no BatchNorm statistic is left pending, and
+        the mode is what it was."""
+        model = self.model
+        was_training = model.training
+        saved = None
+        if use_ema:
+            params = dict(model.named_parameters())
+            saved = {n: params[n].detach().clone()
+                     for n in self.state.ema_params}
+            with torch.no_grad():
+                for n, t in self.state.ema_params.items():
+                    params[n].copy_(t)
+        model.eval()
+        try:
+            with torch.no_grad():
+                yield model
+        finally:
+            if saved is not None:
+                with torch.no_grad():
+                    for n, t in saved.items():
+                        params[n].copy_(t)
+            discard_bn_stats(model)
+            model.train(was_training)
+
+    def _eval_loader(self, tcfg: Dict):
+        split_cfg = dict(tcfg)
+        split_cfg.setdefault("meta_file", "256")
+        split_cfg.setdefault("label_texts_ensemble", "prompt80")
+        ds = build_clip_dataset(split_cfg)
+        return ds, int(tcfg.get("batch_size", self.host_batch))
+
+    def validate(self, step: int):
+        for i, tcfg in enumerate(self.test_cfgs):
+            t0 = time.perf_counter()
+            metrics = self.evaluate(tcfg)
+            self.eval_seconds.append(time.perf_counter() - t0)
+            self.logger.info(
+                f"eval[{i}] @ {step}: " + json.dumps(dict(metrics)))
+            for k, v in metrics.items():
+                if isinstance(v, (int, float)):
+                    self.writer.add_scalar(f"eval{i}/{k}", v, step)
+            if self.state.ema_params is not None:
+                ema_metrics = self.evaluate(tcfg, use_ema=True)
+                self.logger.info(
+                    f"eval[{i}] EMA @ {step}: "
+                    + json.dumps(dict(ema_metrics)))
+                for k, v in ema_metrics.items():
+                    if isinstance(v, (int, float)):
+                        self.writer.add_scalar(f"eval{i}/ema_{k}", v, step)
+
+    def class_embeddings(self, model, label_texts: List[str],
+                         n_class: int) -> torch.Tensor:
+        """Prompt-ensemble class embeddings (clip_solver.py:688-700), the
+        classes packed into [cpc*P, 77] chunks as in the JAX package."""
+        if n_class == 0:
+            raise ValueError(
+                "zero-shot eval needs class names: the test metafile has no "
+                "'label_name' fields (use a JSONL metafile with label/"
+                "label_name like the reference's val_official.json, or pass "
+                "class_names).")
+        prompts_num = len(label_texts) // n_class
+        ids = np.asarray(get_tokenizer().tokenize(label_texts))
+        cpc = min(max(1, 2048 // prompts_num), n_class)
+        return batched_class_embeddings(
+            model.encode_text, ids, n_class, prompts_num, cpc, self.device)
+
+    def _idx_batches(self, n: int, batch_size: int):
+        # hosts split the val set by interleaved batches; results merge
+        # via the per-rank dumps (base_dataset.py:122-139)
+        return [range(beg, min(beg + batch_size, n))
+                for beg in range(self.rank * batch_size, n,
+                                 batch_size * self.world)]
+
+    def _padded(self, arr: np.ndarray, batch_size: int) -> torch.Tensor:
+        """A batch padded to ``batch_size`` rows with copies of the last
+        (every call has one shape), on the device."""
+        if arr.shape[0] < batch_size:
+            arr = np.concatenate(
+                [arr, np.repeat(arr[-1:], batch_size - arr.shape[0], 0)])
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def evaluate(self, tcfg: Dict, *, use_ema: bool = False) -> Metric:
+        if (tcfg.get("evaluation") or {}).get("type") == "retrieval":
+            return self.evaluate_retrieval(tcfg, use_ema=use_ema)
+        # FILIP-family evaluates with token-wise late interaction by default
+        # (filip_solver.py:839-960); the port's FILIP has no dense encoders
+        if bool(tcfg.get("dense_eval", self.method in ("filip", "defilip"))):
+            raise _not_ported(
+                "FILIP's dense zero-shot eval (encode_*_dense; set "
+                "dense_eval: false for the pooled eval)", "1.8")
+        dataset, batch_size = self._eval_loader(tcfg)
+        label_texts, ensemble = dataset.get_label_texts()
+        n_class = ensemble.shape[0]
+        res_path = osp.join(
+            self.path.result_path, f"results.txt.rank{self.rank}")
+        all_scores, all_labels = [], []
+        idx_batches = self._idx_batches(len(dataset), batch_size)
+        workers = max(1, int(tcfg.get("num_workers", 4)))
+        ens = torch.from_numpy(ensemble).to(self.device)
+
+        def _fetch(idxs):
+            return [dataset[i] for i in idxs]
+
+        # decode/transform runs on worker threads a few batches ahead
+        with self._eval_mode(use_ema) as model, \
+                open(res_path, "w") as writer, \
+                ThreadPoolExecutor(workers) as pool:
+            class_emb = self.class_embeddings(model, label_texts, n_class)
+            inflight: deque = deque()
+            queued = 0
+            while queued < len(idx_batches) and len(inflight) < workers + 2:
+                inflight.append(pool.submit(_fetch, idx_batches[queued]))
+                queued += 1
+            while inflight:
+                items = inflight.popleft().result()
+                if queued < len(idx_batches):
+                    inflight.append(pool.submit(_fetch, idx_batches[queued]))
+                    queued += 1
+                valid = len(items)
+                imgs = self._padded(
+                    np.stack([it["image"] for it in items]), batch_size)
+                emb = model.encode_image(imgs)
+                emb = emb / torch.linalg.vector_norm(emb, dim=-1,
+                                                     keepdim=True)
+                logits = emb.float() @ class_emb.float().t()
+                scores = torch.softmax(logits, dim=-1) @ ens
+                scores = scores[:valid].cpu().numpy()
+                preds = scores.argmax(-1)
+                for j, it in enumerate(items):
+                    writer.write(json.dumps({
+                        "image_id": it["image_id"],
+                        "filename": it["filename"],
+                        "label": it["label"],
+                        "label_name": it["label_name"],
+                        "caption": it["caption"],
+                        "tag": it["tag"],
+                        "prediction": int(preds[j]),
+                        "score": [round(float(s), 8) for s in scores[j]],
+                    }, ensure_ascii=False) + "\n")
+                all_scores.append(scores)
+                all_labels.append(np.asarray([it["label"] for it in items]))
+        if not all_scores:
+            return Metric({"top1": 0.0, "top5": 0.0, "n": 0})
+        return ImageNetEvaluator().eval_arrays(
+            np.concatenate(all_scores), np.concatenate(all_labels))
+
+    def evaluate_retrieval(self, tcfg: Dict, *, use_ema: bool = False
+                           ) -> Metric:
+        """Image<->text retrieval eval (beyond-reference, as in the JAX
+        package): a data.test entry with ``evaluation: {type: retrieval,
+        kwargs: {topk: [1, 5, 10]}}``; every sample's own caption is its
+        positive, metrics come from RetrievalEvaluator on the host."""
+        dataset, batch_size = self._eval_loader(tcfg)
+        tok = get_tokenizer()
+        idx_all, img_all, txt_all = [], [], []
+        with self._eval_mode(use_ema) as model:
+            for idxs in self._idx_batches(len(dataset), batch_size):
+                items = [dataset[i] for i in idxs]
+                valid = len(items)
+                imgs = self._padded(
+                    np.stack([it["image"] for it in items]), batch_size)
+                toks = self._padded(np.asarray(tok.tokenize(
+                    [it["caption"] for it in items])), batch_size)
+                img_all.append(model.encode_image(imgs).float()[:valid]
+                               .cpu().numpy())
+                txt_all.append(model.encode_text(toks).float()[:valid]
+                               .cpu().numpy())
+                idx_all.append(np.asarray(idxs, np.int64))
+        kwargs = dict((tcfg.get("evaluation") or {}).get("kwargs") or {})
+        evaluator = RetrievalEvaluator(**kwargs)
+        idx = (np.concatenate(idx_all) if idx_all
+               else np.zeros((0,), np.int64))
+        img = (np.concatenate(img_all) if img_all
+               else np.zeros((0, 1), np.float32))
+        txt = (np.concatenate(txt_all) if txt_all
+               else np.zeros((0, 1), np.float32))
+        order = np.argsort(idx)
+        return evaluator.eval_arrays(img[order], txt[order])
+
+
+def main(argv: Optional[List[str]] = None) -> Solver:
+    """The CLI: train, or with ``--evaluate`` run the config's test sets.
+    Returns the Solver (for callers that drive it in-process)."""
+    parser = argparse.ArgumentParser(description="declip_tpu_torch solver")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--evaluate", action="store_true")
+    parser.add_argument("--set", nargs="*", default=[],
+                        help="dotted.key=value config overrides")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default; raises where CUDA is "
+                             "absent) or cpu")
+    args = parser.parse_args(argv)
+
+    cfg = parse_config(args.config)
+    for kv in args.set:
+        key, _, value = kv.partition("=")
+        try:
+            value = json.loads(value)
+        except json.JSONDecodeError:
+            pass
+        cfg = override(cfg, key, value)
+    cfg["_config_path"] = osp.abspath(args.config)
+
+    solver = Solver(cfg, device=args.device)
+    if args.evaluate:
+        for tcfg in solver.test_cfgs:
+            metrics = solver.evaluate(tcfg)
+            solver.logger.critical(json.dumps(dict(metrics), indent=2))
+    else:
+        solver.train()
+    return solver
+
+
+if __name__ == "__main__":
+    main()

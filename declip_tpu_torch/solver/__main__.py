@@ -1,0 +1,6 @@
+"""``python -m declip_tpu_torch.solver``: see declip_tpu_torch/solver."""
+
+from declip_tpu_torch.solver import main
+
+if __name__ == "__main__":
+    main()

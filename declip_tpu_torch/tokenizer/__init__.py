@@ -1,4 +1,6 @@
 from declip_tpu_torch.tokenizer.bpe import BpeTokenizer  # noqa: F401
+from declip_tpu_torch.tokenizer.eda import EDA  # noqa: F401
+from declip_tpu_torch.tokenizer.mlm import IGNORE_INDEX, mask_tokens  # noqa: F401
 
 _default_tokenizer = None
 _default_merges_path = None

@@ -45,6 +45,12 @@ class Registry:
         kwargs.update(extra)
         return self.get(cfg["type"])(**kwargs)
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._entries
+
 
 MODELS = Registry("model")
 SCHEDULERS = Registry("lr_scheduler")
+SAMPLERS = Registry("sampler")
+EVALUATORS = Registry("evaluator")
+DATASETS = Registry("dataset")

@@ -111,8 +111,11 @@ def test_onecrop_matches_jax(aug, size):
 
 
 def test_unported_augmentation_raises():
-    with pytest.raises(KeyError, match="not ported"):
-        build_common_augmentation("STANDARD")
+    for aug in ("AUTOAUG", "CLSA5-16-24"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            build_common_augmentation(aug)
+    with pytest.raises(KeyError, match="undefined augmentation"):
+        build_common_augmentation("NO_SUCH_AUG")
 
 
 def test_find_last_checkpoint(tmp_path):

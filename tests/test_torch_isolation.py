@@ -86,3 +86,49 @@ def test_chip_smoke_fails_without_cuda():
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and "kernels" not in out.stdout
+
+
+def test_data_path_imports_no_torch():
+    """The host data path (what ``worker_type: process`` workers import)
+    loads neither torch nor JAX: a spawned worker never touches CUDA."""
+    code = (
+        "import sys\n"
+        "import declip_tpu_torch.data.dataloader, declip_tpu_torch.data.dataset\n"
+        "import declip_tpu_torch.data.evaluator, declip_tpu_torch.data.sampler\n"
+        "import declip_tpu_torch.data.transforms, declip_tpu_torch.tokenizer\n"
+        "print('LOADED', sorted(m for m in sys.modules\n"
+        "                       if m.split('.')[0] in ('torch', 'jax')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("alias", ["clip", "slip", "filip", "declip",
+                                   "defilip"])
+def test_solver_aliases_run_the_one_engine(alias):
+    import importlib
+
+    from declip_tpu_torch import solver
+
+    mod = importlib.import_module(f"declip_tpu_torch.solver.{alias}_solver")
+    assert mod.main is solver.main
+
+
+def test_solver_cli_refuses_absent_cuda(tmp_path):
+    """``python -m declip_tpu_torch.solver`` with no --device and no card
+    exits non-zero naming the missing CUDA, and trains nothing."""
+    import shutil
+
+    shutil.copy(REPO / "experiments" / "unit" / "tiny_clip" / "config.yaml",
+                tmp_path / "config.yaml")
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "declip_tpu_torch.solver", "--config",
+         str(tmp_path / "config.yaml")], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert not (tmp_path / "checkpoints").exists()

@@ -288,3 +288,96 @@ def test_call_counter_keeps_the_pooled_query_apart(smoke):
         dot_product_attention(q[:, :, :1], q, q)
         dot_product_attention(q, q, q, impl="xla")
     assert (plain.calls, plain.cross) == (1, 2)
+
+
+def test_solver_window_reads_steps_of_one(smoke):
+    """Phase 7's reader of the solver's per-print timings: means over the
+    asked steps, pairs/s from the batch, the data wait's share."""
+    timings = [{"step": s, "steps": 1, "batch_time": 0.1 * s,
+                "data_time": 0.05 * s, "save_time": 0.3 if s == 4 else 0.0,
+                "h2d_ms": float(s)} for s in range(1, 7)]
+    w = smoke.solver_window(timings, 4, 6, 128)
+    assert w["step_s"] == pytest.approx(0.5)
+    assert w["pairs_per_s"] == pytest.approx(256.0)
+    assert w["save_s"] == pytest.approx(0.1)
+    assert w["pairs_per_s_without_saves"] == pytest.approx(320.0)
+    assert w["data_s"] == pytest.approx(0.25)
+    assert w["data_share"] == pytest.approx(0.5)
+    assert (w["h2d_ms_median"], w["h2d_ms_max"]) == (4.0, 6.0)
+    with pytest.raises(AssertionError, match="missing"):
+        smoke.solver_window(timings[:5], 4, 6, 128)
+    windowed = [dict(t, steps=2) for t in timings]
+    with pytest.raises(AssertionError, match="missing"):
+        smoke.solver_window(windowed, 4, 6, 128)
+
+
+def test_loader_rate_skips_the_first_round(smoke):
+    """A loader whose first 3 batches land together at 2 s, then one every
+    0.5 s: 2 batches/s once past them."""
+    arrivals = [2.0, 2.0, 2.0, 2.5, 3.0, 3.5, 4.0]
+    r = smoke.loader_rate(arrivals, 3, 128)
+    assert r["batches_per_s"] == pytest.approx(2.0)
+    assert r["pairs_per_s"] == pytest.approx(256.0)
+    assert (r["first_batch_s"], r["batches"]) == (2.0, 7)
+    with pytest.raises(AssertionError):
+        smoke.loader_rate(arrivals[:4], 3, 128)
+
+
+def test_scalars_by_tag_and_corpus(smoke, tmp_path):
+    """Phase 7's reader of events/scalars.jsonl, and its corpus writer:
+    JPEGs of the stated sizes, captions of 5-20 words, a labelled val
+    set."""
+    import json
+
+    from PIL import Image
+
+    path = tmp_path / "scalars.jsonl"
+    path.write_text("".join(json.dumps({"t": 0, "step": s, "tag": tag,
+                                        "value": v}) + "\n"
+                            for s, tag, v in [(1, "loss", 2.0),
+                                              (1, "lr", 1e-4),
+                                              (2, "loss", 1.5)]))
+    assert smoke.scalars_by_tag(str(path)) == {
+        "loss": [(1, 2.0), (2, 1.5)], "lr": [(1, 1e-4)]}
+    train, val = smoke.write_corpus(str(tmp_path / "c"), 6, 3, 2, seed=0)
+    rows = [json.loads(x) for x in open(train)]
+    assert len(rows) == 6
+    for r in rows:
+        assert 5 <= len(r["caption"].split()) <= 20
+        img = Image.open(tmp_path / "c" / r["filename"])
+        assert img.format == "JPEG" and 256 <= max(img.size) <= 640
+        assert 0.74 <= img.size[0] / img.size[1] <= 1.34
+    labels = [json.loads(x) for x in open(val)]
+    assert sorted({(r["label"], r["label_name"]) for r in labels}) == \
+        sorted({(r["label"], r["label_name"]) for r in labels[::2]})
+    assert len(labels) == 6 and {r["label"] for r in labels} == {0, 1, 2}
+
+
+def test_solver_kernel_calls_counts_the_solvers_prompt_chunks(smoke):
+    """Phase 7's exact launch count: 24 K1 and K2 a step, and K1 once a text
+    layer for each chunk the solver's zero-shot eval encodes (its own
+    chunking, over the recipe's 80 prompts and the phase's classes)."""
+    from types import SimpleNamespace
+
+    from declip_tpu_torch.solver import Solver
+
+    calls = []
+
+    def encode_text(ids):
+        calls.append(ids.shape[0])
+        return torch.ones(ids.shape[0], 4)
+
+    names = [f"class {i}" for i in range(smoke.SOLVER_CLASSES)]
+    texts = [f"a photo of a {n} {p}." for n in names
+             for p in range(smoke.SOLVER_PROMPTS)]
+    emb = Solver.class_embeddings(SimpleNamespace(device="cpu"),
+                                  SimpleNamespace(encode_text=encode_text),
+                                  texts, smoke.SOLVER_CLASSES)
+    assert emb.shape == (smoke.SOLVER_CLASSES, 4)
+    blocks = SimpleNamespace(resblocks=[None] * 12)
+    fake = SimpleNamespace(
+        model=SimpleNamespace(encode_text=SimpleNamespace(transformer=blocks)),
+        eval_seconds=[1.0, 2.0])
+    assert smoke.solver_kernel_calls(fake, 6) == {
+        "K1": 24 * 6 + 2 * len(calls) * 12, "K2": 24 * 6,
+        "K3": 0, "K4": 0, "K5": 0}
