@@ -96,7 +96,22 @@ Phases (any failed check raises, and the script exits non-zero):
    once and prints a metric. The solver's step time and pairs/s at steps
    4-6 beside phase 6's, the wait for data and its share of the step, the
    host-to-device copy, os.cpu_count(), the checkpoint's size and write
-   time and the eval's time. The corpus is deleted at the end.
+   time and the eval's time;
+8. the fast input path: the same recipe and corpus through ``main`` with
+   ``data.train.device_aug=true`` on webdataset shards (the corpus packed
+   into 4 by ``python -m declip_tpu_torch.tools.make_wds``'s ``pack``) read
+   by process workers, the loader shipping uint8 geometry crops and the
+   step running MOCOV2's photometrics on the card, for 6 steps; phase 7's
+   checks (losses, no skipped update, the bank pointer, K1 and K2's exact
+   launches, no plain self-attention), the batch on the card checked to be
+   uint8 [128, 224, 224, 6]; steps 4-6, the wait for data, the copy; the
+   photometrics on the card against the CPU on the same parameters (fp32,
+   1e-5) and their device time; the loader alone with device_aug's crops,
+   (a) thread workers on the JSONL metafile, (b) process workers, (c)
+   process workers on the shards, beside phase 7's host-MOCOV2 loader, and
+   one batch of (a) on one thread. Every input decodes with PIL: the
+   card's host has no libjpeg headers to build the native decoder with.
+   The corpus is deleted at the end.
 
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
@@ -108,6 +123,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -367,6 +383,13 @@ SOLVER_TIMED = (4, 6)
 # first SOLVER_LOADER_SKIP (its workers start together, so the first
 # num_workers batches land at once) whose arrivals give its steady rate
 SOLVER_LOADER_BATCHES, SOLVER_LOADER_SKIP = 24, 10
+# phase 8: the same recipe and corpus on the fast input path; the corpus
+# packed into this many webdataset shards
+FAST_SHARDS = 4
+# photometric_apply on the card against the CPU on the same parameters:
+# fp32, the luma sums, the 3x3 hue product and the blur's taps summed in
+# other orders, a few ulps of values in [-2.2, 2.7]
+AUG_ATOL = 1e-5
 
 
 def check(cond, msg):
@@ -2428,203 +2451,447 @@ def solver_kernel_calls(solver, steps):
             "K3": 0, "K4": 0, "K5": 0}
 
 
-def phase_solver(declip_result):
+def solver_corpus(tmp):
+    """Phases 7 and 8's corpus under ``tmp``: -> {"root", "train_meta",
+    "val_meta", "seconds"}."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "corpus")
+    train_meta, val_meta = write_corpus(root, SOLVER_IMAGES, SOLVER_CLASSES,
+                                        SOLVER_PER_CLASS, SEED)
+    return {"root": root, "train_meta": train_meta, "val_meta": val_meta,
+            "seconds": time.perf_counter() - t0}
+
+
+def solver_experiment(tmp, name, corpus):
+    """An experiment directory ``tmp/name`` holding the recipe's config,
+    and the --set arguments phase 7 gives it (the corpus's paths, print,
+    save and val frequencies). -> (config path, sets)."""
+    from declip_tpu_torch.config import parse_config
+
+    exp = os.path.join(tmp, name)
+    os.makedirs(exp)
+    cfg_path = os.path.join(exp, "config.yaml")
+    shutil.copy(os.path.join(ROOT, DECLIP_RECIPE), cfg_path)
+    recipe = parse_config(cfg_path)
+    tests = []
+    for entry in recipe.data.test:
+        entry = json.loads(json.dumps(entry))
+        entry["test"].update(root_dir=corpus["root"],
+                             meta_file=corpus["val_meta"])
+        tests.append(entry)
+    sets = [f"data.train.root_dir={json.dumps([corpus['root']])}",
+            f"data.train.meta_file={json.dumps([corpus['train_meta']])}",
+            f"data.test={json.dumps(tests)}",
+            "saver.print_freq=1", f"saver.save_freq={SOLVER_SAVE_FREQ}",
+            "saver.save_many=true", "saver.val_freq=0"]
+    return cfg_path, sets
+
+
+def phase_solver(declip_result, tmp, corpus):
     """Phase 7: ``declip_tpu_torch.solver.main`` trains the recipe from the
     corpus on disk, saves, validates, resumes, and the CLI evaluates. Only
     the data paths, max_iter, print_freq, save_freq, save_many and val_freq
     are set. The launch counts are the kernels' over the first run (and,
     apart, the resume)."""
-    import shutil
-
     import numpy as np
     import torch
 
-    from declip_tpu_torch.config import parse_config
     from declip_tpu_torch.solver import main as solver_main
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_solver_")
-    try:
-        t0 = time.perf_counter()
-        train_meta, val_meta = write_corpus(
-            os.path.join(tmp, "corpus"), SOLVER_IMAGES, SOLVER_CLASSES,
-            SOLVER_PER_CLASS, SEED)
-        corpus_s = time.perf_counter() - t0
-        exp = os.path.join(tmp, "exp")
-        os.makedirs(exp)
-        cfg_path = os.path.join(exp, "config.yaml")
-        shutil.copy(os.path.join(ROOT, DECLIP_RECIPE), cfg_path)
-        recipe = parse_config(cfg_path)
-        tests = []
-        for entry in recipe.data.test:
-            entry = json.loads(json.dumps(entry))
-            entry["test"].update(root_dir=os.path.join(tmp, "corpus"),
-                                 meta_file=val_meta)
-            tests.append(entry)
-        sets = [f"data.train.root_dir={json.dumps([os.path.join(tmp, 'corpus')])}",
-                f"data.train.meta_file={json.dumps([train_meta])}",
-                f"data.test={json.dumps(tests)}",
-                "saver.print_freq=1", f"saver.save_freq={SOLVER_SAVE_FREQ}",
-                "saver.save_many=true", "saver.val_freq=0"]
+    corpus_s = corpus["seconds"]
+    cfg_path, sets = solver_experiment(tmp, "exp", corpus)
+    exp = os.path.dirname(cfg_path)
 
-        def run(max_iter):
-            argv = ["--config", cfg_path, "--device", "cuda", "--set",
-                    *sets, f"lr_scheduler.kwargs.max_iter={max_iter}"]
+    def run(max_iter):
+        argv = ["--config", cfg_path, "--device", "cuda", "--set",
+                *sets, f"lr_scheduler.kwargs.max_iter={max_iter}"]
+        reset_launches()  # a main path starts
+        t = time.perf_counter()
+        solver = solver_main(argv)
+        wall = time.perf_counter() - t
+        return solver, read_launches(), wall  # ... and ends
+
+    solver, launches, wall_s = run(SOLVER_STEPS)
+    st = solver.state
+    batch, bank_rows = solver.global_batch, st.bank_text.bank.shape[0]
+    vis = solver.model.visual  # the recipe as its file has it
+    check((vis.layers, vis.width, vis.embed_dim, vis.dtype,
+           solver.method, batch, bank_rows,
+           solver.train_cfg["num_workers"],
+           solver.train_cfg["transforms"])
+          == ((3, 4, 6, 3), 64, 1024, torch.bfloat16, "declip",
+              TRAIN_BATCH, DECLIP_BANK, 7, {"type": "MOCOV2"}),
+          "phase 7 does not run the DeCLIP-ResNet-50 recipe")
+    scalars = scalars_by_tag(os.path.join(exp, "events",
+                                          "scalars.jsonl"))
+    losses = [v for _, v in scalars["loss"]]
+    check(len(losses) == SOLVER_STEPS and np.isfinite(losses).all(),
+          f"solver losses {losses}")
+    skipped = [v for _, v in scalars["update_skipped"]]
+    check(skipped == [0.0] * SOLVER_STEPS, f"skipped updates {skipped}")
+    want_ptr = 2 * batch * SOLVER_STEPS % bank_rows
+    check(st.step == SOLVER_STEPS and st.bank_text.ptr == want_ptr,
+          f"solver at step {st.step}, bank pointer {st.bank_text.ptr} "
+          f"(want {SOLVER_STEPS}, {want_ptr})")
+    ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    check(ckpts == [f"ckpt_{SOLVER_SAVE_FREQ}.pth.tar",
+                    f"ckpt_{SOLVER_STEPS}.pth.tar", "ckpt_meta.json"],
+          f"checkpoints {ckpts}")
+    with open(os.path.join(exp, "results", "results.txt.rank0")) as f:
+        n_results = sum(1 for _ in f)
+    n_val = SOLVER_CLASSES * SOLVER_PER_CLASS
+    top = {k: scalars[f"eval0/{k}"][-1][1] for k in ("top1", "top5")}
+    check(n_results == n_val and all(0 <= v <= 100 for v in
+                                     top.values()),
+          f"{n_results} zero-shot results (want {n_val}), {top}")
+    want = solver_kernel_calls(solver, SOLVER_STEPS)
+    check(launches == want,
+          f"solver path kernel calls {launches}, want {want}")
+    window = solver_window(solver.timings, *SOLVER_TIMED, batch)
+    ckpt = os.path.join(exp, "checkpoints",
+                        f"ckpt_{SOLVER_STEPS}.pth.tar")
+    out = {"device": str(solver.device), "batch": batch,
+           "cpu_count": os.cpu_count(), "corpus_s": corpus_s,
+           "images": SOLVER_IMAGES, "wall_s": wall_s,
+           "launches": launches,
+           "losses": losses, "timings": solver.timings, **window,
+           "bank_ptr": st.bank_text.ptr, "top1": top["top1"],
+           "top5": top["top5"], "ckpt_bytes": os.path.getsize(ckpt),
+           "ckpt_write_s": solver.save_seconds[-1],
+           "eval_s": solver.eval_seconds[-1],
+           "phase6": {k: declip_result.get(k) for k in
+                      ("step_ms", "host_step_ms", "pairs_per_s")}}
+    print(f"solver: {SOLVER_STEPS} steps of {DECLIP_RECIPE} from "
+          f"{SOLVER_IMAGES} JPEGs on disk (corpus written in {corpus_s:.1f} s),"
+          f" run in {wall_s:.1f} s; losses "
+          f"{[round(x, 4) for x in losses]}; bank pointer "
+          f"{st.bank_text.ptr}; zero-shot top1 {top['top1']:.2f} top5 "
+          f"{top['top5']:.2f} over {n_results}; kernel calls "
+          f"{launches}", flush=True)
+    print(f"solver: steps {SOLVER_TIMED[0]}-{SOLVER_TIMED[1]}: "
+          f"{window['step_s'] * 1e3:.2f} ms/step, "
+          f"{window['pairs_per_s']:.1f} pairs/s; without the saves' "
+          f"synchronous {window['save_s'] * 1e3:.2f} ms/step: "
+          f"{window['step_s_without_saves'] * 1e3:.2f} ms/step, "
+          f"{window['pairs_per_s_without_saves']:.1f} pairs/s "
+          f"(phase 6, one repeated "
+          f"batch: {declip_result.get('step_ms', float('nan')):.2f} "
+          f"ms/step device, {declip_result.get('host_step_ms', float('nan')):.2f} "
+          f"host, {declip_result.get('pairs_per_s', float('nan')):.1f} "
+          f"pairs/s); waiting for data {window['data_s'] * 1e3:.2f} "
+          f"ms/step ({window['data_share']:.1%} of the step); "
+          f"host-to-device copy median {window['h2d_ms_median']:.3f} "
+          f"ms, largest {window['h2d_ms_max']:.3f} ms; "
+          f"os.cpu_count() {os.cpu_count()}; checkpoint "
+          f"{out['ckpt_bytes'] / 2 ** 20:.1f} MiB written in "
+          f"{out['ckpt_write_s']:.2f} s; eval {out['eval_s']:.2f} s",
+          flush=True)
+
+    # the recipe's loader alone, longer than the run: 6 steps end
+    # before its workers' first round does
+    solver.max_iter = SOLVER_LOADER_BATCHES
+    t = time.perf_counter()
+    arrivals = [time.perf_counter() - t
+                for _ in solver._train_loader(-1)]
+    out["loader"] = loader_rate(arrivals, SOLVER_LOADER_SKIP, batch)
+    # one batch built on this thread alone, and its images' decode and
+    # two MOCOV2 views apart: how far the workers scale, and where a
+    # batch's host time goes
+    loader = solver._train_loader(-1)
+    ds = solver.train_dataset
+    t = time.perf_counter()
+    loader._build_batch(list(range(batch)), 0)
+    out["loader"]["one_thread_batch_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pics = [ds._load_image(i, ds._meta(i)) for i in range(32)]
+    out["loader"]["decode_ms_per_image"] = (time.perf_counter() - t) * 1e3 / 32
+    t = time.perf_counter()
+    for pic in pics:
+        ds.transform(pic)
+    out["loader"]["views_ms_per_image"] = (time.perf_counter() - t) * 1e3 / 32
+    lo = out["loader"]
+    print(f"solver loader alone ({solver.train_cfg['num_workers']} "
+          f"thread workers, {os.cpu_count()} CPUs): first batch "
+          f"{lo['first_batch_s']:.2f} s, then {lo['ms_per_batch']:.1f} "
+          f"ms a batch, {lo['pairs_per_s']:.1f} pairs/s; one batch on "
+          f"one thread {lo['one_thread_batch_s']:.2f} s (a JPEG decode "
+          f"{lo['decode_ms_per_image']:.2f} ms, its two MOCOV2 views "
+          f"{lo['views_ms_per_image']:.2f} ms)", flush=True)
+    del solver, st
+
+    resumed, out["resume_launches"], out["resume_wall_s"] = run(
+        SOLVER_RESUME_STEPS)
+    check(resumed.start_step == SOLVER_STEPS
+          and resumed.state.step == SOLVER_RESUME_STEPS,
+          f"resume started at {resumed.start_step}, ended at "
+          f"{resumed.state.step} (want {SOLVER_STEPS}, "
+          f"{SOLVER_RESUME_STEPS})")
+    want = solver_kernel_calls(resumed, SOLVER_RESUME_STEPS - SOLVER_STEPS)
+    check(out["resume_launches"] == want,
+          f"resume path kernel calls {out['resume_launches']}, want "
+          f"{want}")
+    with open(os.path.join(exp, "log.txt")) as f:
+        check(re.search(r"auto-resumed from \S+ckpt_%d\.pth\.tar at "
+                        r"step %d\b" % (SOLVER_STEPS, SOLVER_STEPS),
+                        f.read()) is not None,
+              "no auto-resume at the last save in log.txt")
+    print(f"solver resume: from step {resumed.start_step} to "
+          f"{resumed.state.step} in {out['resume_wall_s']:.1f} s",
+          flush=True)
+    del resumed
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "declip_tpu_torch.solver", "--config",
+         cfg_path, "--evaluate", "--device", "cuda", "--set", *sets,
+         f"lr_scheduler.kwargs.max_iter={SOLVER_RESUME_STEPS}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT, os.environ.get("PYTHONPATH", "")])))
+    out["cli_s"] = time.perf_counter() - t
+    metric = re.search(r'"top1": ([0-9.]+)', cli.stdout)
+    check(cli.returncode == 0 and metric is not None,
+          f"the CLI --evaluate: rc {cli.returncode}, stdout "
+          f"{cli.stdout[-2000:]}, stderr {cli.stderr[-2000:]}")
+    out["cli_top1"] = float(metric.group(1))
+    print(f"solver CLI --evaluate: top1 {out['cli_top1']:.2f} in "
+          f"{out['cli_s']:.1f} s", flush=True)
+    return out
+
+
+
+def loader_configs(train_cfg, shards):
+    """Phase 8's three loaders of the recipe's train split, each with
+    device_aug's geometry crops: (a) thread workers, PIL, the JSONL
+    metafile; (b) the same with process workers; (c) the webdataset shards
+    with process workers. The card's host has no libjpeg headers (jpeglib.h
+    is absent there, so the native decoder cannot be built), so every input
+    decodes with PIL."""
+    jsonl = {k: v for k, v in train_cfg.items()
+             if k not in ("type", "tar_files", "worker_type")}
+    jsonl.update(device_aug=True, image_reader={"type": "pil"})
+    wds = {k: v for k, v in jsonl.items()
+           if k not in ("root_dir", "meta_file", "fseek", "read_from")}
+    return {"a": {**jsonl, "worker_type": "thread"},
+            "b": {**jsonl, "worker_type": "process"},
+            "c": {**wds, "type": "clip_wds", "tar_files": shards,
+                  "worker_type": "process"}}
+
+
+def phase_fast_input(solver_result, tmp, corpus):
+    """Phase 8: the recipe of phase 7 through ``declip_tpu_torch.solver.main``
+    on the fast input path: the corpus packed into webdataset shards by the
+    port's make_wds, ``train.device_aug`` (uint8 geometry crops from the
+    loader, MOCOV2's photometrics on the card), process workers. The loader
+    alone in configurations (a)-(c) (``loader_configs``) beside phase 7's
+    host-MOCOV2 loader; the solver's steps 4-6, its wait for data, the copy
+    of a uint8 batch; the checks of phase 7; the photometrics on the card
+    against the CPU and their device time."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch import solver as solver_mod
+    from declip_tpu_torch.data import device_aug
+    from declip_tpu_torch.data.dataloader import build_clip_dataset
+    from declip_tpu_torch.tools import make_wds
+
+    t = time.perf_counter()
+    shard_dir = os.path.join(tmp, "shards")
+    os.makedirs(shard_dir)
+    per_shard = -(-SOLVER_IMAGES // FAST_SHARDS)
+    packed = make_wds.pack(corpus["train_meta"], corpus["root"],
+                           os.path.join(shard_dir, "s-%05d.tar"), per_shard)
+    pack_s = time.perf_counter() - t
+    check(packed == (SOLVER_IMAGES, FAST_SHARDS, 0),
+          f"make_wds packed {packed}")
+    shards = os.path.join(shard_dir, "s-{00000..%05d}.tar" % (FAST_SHARDS - 1))
+
+    cfg_path, sets = solver_experiment(tmp, "exp_fast", corpus)
+    exp = os.path.dirname(cfg_path)
+    sets += ["data.train.device_aug=true", "data.train.type=clip_wds",
+             f"data.train.tar_files={shards}",
+             "data.train.worker_type=process",
+             'data.train.image_reader={"type": "pil"}']
+
+    # the batches the step receives, as they lie on the card
+    seen = []
+    make_step = solver_mod.make_train_step
+
+    def recording_make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def recorded(state, batch):
+            if not seen:
+                seen.append(batch["images"].clone())
+            return step(state, batch)
+        return recorded
+
+    solver_mod.make_train_step = recording_make_train_step
+    try:
+        with _CallCounter() as plain:
             reset_launches()  # a main path starts
             t = time.perf_counter()
-            solver = solver_main(argv)
-            wall = time.perf_counter() - t
-            return solver, read_launches(), wall  # ... and ends
-
-        solver, launches, wall_s = run(SOLVER_STEPS)
-        st = solver.state
-        batch, bank_rows = solver.global_batch, st.bank_text.bank.shape[0]
-        vis = solver.model.visual  # the recipe as its file has it
-        check((vis.layers, vis.width, vis.embed_dim, vis.dtype,
-               solver.method, batch, bank_rows,
-               solver.train_cfg["num_workers"],
-               solver.train_cfg["transforms"])
-              == ((3, 4, 6, 3), 64, 1024, torch.bfloat16, "declip",
-                  TRAIN_BATCH, DECLIP_BANK, 7, {"type": "MOCOV2"}),
-              "phase 7 does not run the DeCLIP-ResNet-50 recipe")
-        scalars = scalars_by_tag(os.path.join(exp, "events",
-                                              "scalars.jsonl"))
-        losses = [v for _, v in scalars["loss"]]
-        check(len(losses) == SOLVER_STEPS and np.isfinite(losses).all(),
-              f"solver losses {losses}")
-        skipped = [v for _, v in scalars["update_skipped"]]
-        check(skipped == [0.0] * SOLVER_STEPS, f"skipped updates {skipped}")
-        want_ptr = 2 * batch * SOLVER_STEPS % bank_rows
-        check(st.step == SOLVER_STEPS and st.bank_text.ptr == want_ptr,
-              f"solver at step {st.step}, bank pointer {st.bank_text.ptr} "
-              f"(want {SOLVER_STEPS}, {want_ptr})")
-        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
-        check(ckpts == [f"ckpt_{SOLVER_SAVE_FREQ}.pth.tar",
-                        f"ckpt_{SOLVER_STEPS}.pth.tar", "ckpt_meta.json"],
-              f"checkpoints {ckpts}")
-        with open(os.path.join(exp, "results", "results.txt.rank0")) as f:
-            n_results = sum(1 for _ in f)
-        n_val = SOLVER_CLASSES * SOLVER_PER_CLASS
-        top = {k: scalars[f"eval0/{k}"][-1][1] for k in ("top1", "top5")}
-        check(n_results == n_val and all(0 <= v <= 100 for v in
-                                         top.values()),
-              f"{n_results} zero-shot results (want {n_val}), {top}")
-        want = solver_kernel_calls(solver, SOLVER_STEPS)
-        check(launches == want,
-              f"solver path kernel calls {launches}, want {want}")
-        window = solver_window(solver.timings, *SOLVER_TIMED, batch)
-        ckpt = os.path.join(exp, "checkpoints",
-                            f"ckpt_{SOLVER_STEPS}.pth.tar")
-        out = {"device": str(solver.device), "batch": batch,
-               "cpu_count": os.cpu_count(), "corpus_s": corpus_s,
-               "images": SOLVER_IMAGES, "wall_s": wall_s,
-               "launches": launches,
-               "losses": losses, "timings": solver.timings, **window,
-               "bank_ptr": st.bank_text.ptr, "top1": top["top1"],
-               "top5": top["top5"], "ckpt_bytes": os.path.getsize(ckpt),
-               "ckpt_write_s": solver.save_seconds[-1],
-               "eval_s": solver.eval_seconds[-1],
-               "phase6": {k: declip_result.get(k) for k in
-                          ("step_ms", "host_step_ms", "pairs_per_s")}}
-        print(f"solver: {SOLVER_STEPS} steps of {DECLIP_RECIPE} from "
-              f"{SOLVER_IMAGES} JPEGs on disk (corpus written in {corpus_s:.1f} s),"
-              f" run in {wall_s:.1f} s; losses "
-              f"{[round(x, 4) for x in losses]}; bank pointer "
-              f"{st.bank_text.ptr}; zero-shot top1 {top['top1']:.2f} top5 "
-              f"{top['top5']:.2f} over {n_results}; kernel calls "
-              f"{launches}", flush=True)
-        print(f"solver: steps {SOLVER_TIMED[0]}-{SOLVER_TIMED[1]}: "
-              f"{window['step_s'] * 1e3:.2f} ms/step, "
-              f"{window['pairs_per_s']:.1f} pairs/s; without the saves' "
-              f"synchronous {window['save_s'] * 1e3:.2f} ms/step: "
-              f"{window['step_s_without_saves'] * 1e3:.2f} ms/step, "
-              f"{window['pairs_per_s_without_saves']:.1f} pairs/s "
-              f"(phase 6, one repeated "
-              f"batch: {declip_result.get('step_ms', float('nan')):.2f} "
-              f"ms/step device, {declip_result.get('host_step_ms', float('nan')):.2f} "
-              f"host, {declip_result.get('pairs_per_s', float('nan')):.1f} "
-              f"pairs/s); waiting for data {window['data_s'] * 1e3:.2f} "
-              f"ms/step ({window['data_share']:.1%} of the step); "
-              f"host-to-device copy median {window['h2d_ms_median']:.3f} "
-              f"ms, largest {window['h2d_ms_max']:.3f} ms; "
-              f"os.cpu_count() {os.cpu_count()}; checkpoint "
-              f"{out['ckpt_bytes'] / 2 ** 20:.1f} MiB written in "
-              f"{out['ckpt_write_s']:.2f} s; eval {out['eval_s']:.2f} s",
-              flush=True)
-
-        # the recipe's loader alone, longer than the run: 6 steps end
-        # before its workers' first round does
-        solver.max_iter = SOLVER_LOADER_BATCHES
-        t = time.perf_counter()
-        arrivals = [time.perf_counter() - t
-                    for _ in solver._train_loader(-1)]
-        out["loader"] = loader_rate(arrivals, SOLVER_LOADER_SKIP, batch)
-        # one batch built on this thread alone, and its images' decode and
-        # two MOCOV2 views apart: how far the workers scale, and where a
-        # batch's host time goes
-        loader = solver._train_loader(-1)
-        ds = solver.train_dataset
-        t = time.perf_counter()
-        loader._build_batch(list(range(batch)), 0)
-        out["loader"]["one_thread_batch_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        pics = [ds._load_image(i, ds._meta(i)) for i in range(32)]
-        out["loader"]["decode_ms_per_image"] = (time.perf_counter() - t) * 1e3 / 32
-        t = time.perf_counter()
-        for pic in pics:
-            ds.transform(pic)
-        out["loader"]["views_ms_per_image"] = (time.perf_counter() - t) * 1e3 / 32
-        lo = out["loader"]
-        print(f"solver loader alone ({solver.train_cfg['num_workers']} "
-              f"thread workers, {os.cpu_count()} CPUs): first batch "
-              f"{lo['first_batch_s']:.2f} s, then {lo['ms_per_batch']:.1f} "
-              f"ms a batch, {lo['pairs_per_s']:.1f} pairs/s; one batch on "
-              f"one thread {lo['one_thread_batch_s']:.2f} s (a JPEG decode "
-              f"{lo['decode_ms_per_image']:.2f} ms, its two MOCOV2 views "
-              f"{lo['views_ms_per_image']:.2f} ms)", flush=True)
-        del solver, st
-
-        resumed, out["resume_launches"], out["resume_wall_s"] = run(
-            SOLVER_RESUME_STEPS)
-        check(resumed.start_step == SOLVER_STEPS
-              and resumed.state.step == SOLVER_RESUME_STEPS,
-              f"resume started at {resumed.start_step}, ended at "
-              f"{resumed.state.step} (want {SOLVER_STEPS}, "
-              f"{SOLVER_RESUME_STEPS})")
-        want = solver_kernel_calls(resumed, SOLVER_RESUME_STEPS - SOLVER_STEPS)
-        check(out["resume_launches"] == want,
-              f"resume path kernel calls {out['resume_launches']}, want "
-              f"{want}")
-        with open(os.path.join(exp, "log.txt")) as f:
-            check(re.search(r"auto-resumed from \S+ckpt_%d\.pth\.tar at "
-                            r"step %d\b" % (SOLVER_STEPS, SOLVER_STEPS),
-                            f.read()) is not None,
-                  "no auto-resume at the last save in log.txt")
-        print(f"solver resume: from step {resumed.start_step} to "
-              f"{resumed.state.step} in {out['resume_wall_s']:.1f} s",
-              flush=True)
-        del resumed
-        torch.cuda.empty_cache()
-
-        t = time.perf_counter()
-        cli = subprocess.run(
-            [sys.executable, "-m", "declip_tpu_torch.solver", "--config",
-             cfg_path, "--evaluate", "--device", "cuda", "--set", *sets,
-             f"lr_scheduler.kwargs.max_iter={SOLVER_RESUME_STEPS}"],
-            cwd=ROOT, capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
-                [ROOT, os.environ.get("PYTHONPATH", "")])))
-        out["cli_s"] = time.perf_counter() - t
-        metric = re.search(r'"top1": ([0-9.]+)', cli.stdout)
-        check(cli.returncode == 0 and metric is not None,
-              f"the CLI --evaluate: rc {cli.returncode}, stdout "
-              f"{cli.stdout[-2000:]}, stderr {cli.stderr[-2000:]}")
-        out["cli_top1"] = float(metric.group(1))
-        print(f"solver CLI --evaluate: top1 {out['cli_top1']:.2f} in "
-              f"{out['cli_s']:.1f} s", flush=True)
-        return out
+            solver = solver_mod.main(
+                ["--config", cfg_path, "--device", "cuda", "--set", *sets,
+                 f"lr_scheduler.kwargs.max_iter={SOLVER_STEPS}"])
+            wall_s = time.perf_counter() - t
+            launches = read_launches()  # ... and ends
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        solver_mod.make_train_step = make_step
+    st = solver.state
+    batch, bank_rows = solver.global_batch, st.bank_text.bank.shape[0]
+    vis = solver.model.visual
+    check((vis.layers, vis.width, vis.embed_dim, vis.dtype, solver.method,
+           batch, bank_rows, solver.train_cfg["num_workers"],
+           solver.device_aug, type(solver.train_dataset).__name__)
+          == ((3, 4, 6, 3), 64, 1024, torch.bfloat16, "declip",
+              TRAIN_BATCH, DECLIP_BANK, 7, {"views": 2, "preset": "MOCOV2"},
+              "WdsClipDataset"),
+          "phase 8 does not run the DeCLIP-ResNet-50 recipe on the fast "
+          "input path")
+    images = seen[0]
+    check(images.dtype == torch.uint8 and images.is_cuda
+          and tuple(images.shape) == (TRAIN_BATCH, 224, 224, 6),
+          f"the step's images on the card: {images.dtype} "
+          f"{tuple(images.shape)} on {images.device}")
+    scalars = scalars_by_tag(os.path.join(exp, "events", "scalars.jsonl"))
+    losses = [v for _, v in scalars["loss"]]
+    check(len(losses) == SOLVER_STEPS and np.isfinite(losses).all(),
+          f"fast-input solver losses {losses}")
+    skipped = [v for _, v in scalars["update_skipped"]]
+    check(skipped == [0.0] * SOLVER_STEPS, f"skipped updates {skipped}")
+    want_ptr = 2 * batch * SOLVER_STEPS % bank_rows
+    check(st.step == SOLVER_STEPS and st.bank_text.ptr == want_ptr,
+          f"solver at step {st.step}, bank pointer {st.bank_text.ptr} "
+          f"(want {SOLVER_STEPS}, {want_ptr})")
+    want = solver_kernel_calls(solver, SOLVER_STEPS)
+    check(launches == want,
+          f"fast-input solver kernel calls {launches}, want {want}")
+    check(plain.calls == 0, f"{plain.calls} plain-path attention calls")
+    window = solver_window(solver.timings, *SOLVER_TIMED, batch)
+    # the copies of steps 4-6 apart: the first round's overlap the workers'
+    # start and cuDNN's first calls
+    timed_h2d = sorted(t["h2d_ms"] for t in solver.timings
+                       if SOLVER_TIMED[0] <= t["step"] <= SOLVER_TIMED[1])
+    window["h2d_ms_timed"] = timed_h2d
+    out = {"shards": FAST_SHARDS, "pack_s": pack_s, "wall_s": wall_s,
+           "launches": launches, "pooled_query_calls": plain.cross,
+           "losses": losses, "timings": solver.timings, **window,
+           "bank_ptr": st.bank_text.ptr,
+           "images": {"dtype": str(images.dtype),
+                      "shape": list(images.shape),
+                      "bytes": images.numel() * images.element_size()}}
+    print(f"fast input: {SOLVER_IMAGES} JPEGs packed into {FAST_SHARDS} "
+          f"shards in {pack_s:.2f} s; {SOLVER_STEPS} steps with "
+          f"train.device_aug on input (c) in {wall_s:.1f} s; losses "
+          f"{[round(x, 4) for x in losses]}; kernel calls {launches}; the "
+          f"step's images on the card {images.dtype} "
+          f"{tuple(images.shape)} ({out['images']['bytes'] / 1e6:.1f} MB)",
+          flush=True)
+    print(f"fast input: steps {SOLVER_TIMED[0]}-{SOLVER_TIMED[1]}: "
+          f"{window['step_s'] * 1e3:.2f} ms/step, "
+          f"{window['pairs_per_s']:.1f} pairs/s; without the saves' "
+          f"synchronous {window['save_s'] * 1e3:.2f} ms/step: "
+          f"{window['step_s_without_saves'] * 1e3:.2f} ms/step, "
+          f"{window['pairs_per_s_without_saves']:.1f} pairs/s (phase 7: "
+          f"{solver_result['step_s'] * 1e3:.2f} and "
+          f"{solver_result['step_s_without_saves'] * 1e3:.2f} ms/step); "
+          f"waiting for data {window['data_s'] * 1e3:.2f} ms/step "
+          f"({window['data_share']:.1%} of the step); host-to-device copy "
+          f"median {window['h2d_ms_median']:.3f} ms, largest "
+          f"{window['h2d_ms_max']:.3f} ms, steps 4-6 "
+          f"{[round(x, 3) for x in timed_h2d]} ms (phase 7: median "
+          f"{solver_result['h2d_ms_median']:.3f} ms)", flush=True)
 
+    # the photometrics on the card: against the CPU on the same drawn
+    # parameters (fp32, TF32 off since main()), and their device time for
+    # one step's two views in the model's dtype
+    params = device_aug.photometric_params(
+        torch.Generator(device=images.device).manual_seed(SEED),
+        images.shape[0])
+    got = device_aug.photometric_apply(images[..., :3], params)
+    want_cpu = device_aug.photometric_apply(
+        images[..., :3].cpu(), {k: v.cpu() for k, v in params.items()})
+    aug_err = (got.cpu() - want_cpu).abs().max().item()
+    check(aug_err <= AUG_ATOL, f"photometric_apply on the card vs the CPU: "
+                               f"{aug_err:.3g} > {AUG_ATOL}")
+
+    def step_views():
+        return device_aug.augment_views(images, views=2, seed=SEED, step=1,
+                                        dtype=vis.dtype)
+
+    aug_ms, aug_kernels = device_ms(step_views)
+    aug_wall_ms = cuda_ms(step_views, iters=20, warmup=3)
+    out["augment"] = {"max_abs_err": aug_err, "device_ms": aug_ms,
+                      "stream_ms": aug_wall_ms,
+                      "by_kernel": dict(sorted(aug_kernels.items(),
+                                               key=lambda kv: -kv[1])[:8])}
+    top = ", ".join(f"{k[:60]} {v:.3f}" for k, v in
+                    list(out["augment"]["by_kernel"].items())[:4])
+    print(f"fast input: augment_views on the card (two MOCOV2 views, B="
+          f"{images.shape[0]}, bf16 out): {aug_ms} ms device, "
+          f"{aug_wall_ms:.3f} ms on the stream; vs the CPU, fp32, max abs "
+          f"err {aug_err:.3g} (limit {AUG_ATOL}); largest kernels: {top}",
+          flush=True)
+
+    # the loader alone, past its first round, in configurations (a)-(c),
+    # through the solver's own loader builder
+    solver.max_iter = SOLVER_LOADER_BATCHES
+    out["loader"] = {}
+    configs = loader_configs(solver.train_cfg, shards)
+    for name, cfg in configs.items():
+        solver.train_cfg = cfg
+        solver.train_dataset = build_clip_dataset(
+            cfg, transform=solver.train_transform)
+        t = time.perf_counter()
+        arrivals = []
+        for b in solver._train_loader(-1):
+            arrivals.append(time.perf_counter() - t)
+            check(b["images"].dtype == np.uint8
+                  and b["images"].shape == (batch, 224, 224, 6),
+                  f"loader ({name}) gave {b['images'].dtype} "
+                  f"{b['images'].shape}")
+        out["loader"][name] = loader_rate(arrivals, SOLVER_LOADER_SKIP,
+                                          batch)
+    # one batch of (a) built on this thread alone, and its images' decode
+    # and two geometry crops apart
+    solver.train_cfg = configs["a"]
+    ds = solver.train_dataset = build_clip_dataset(
+        configs["a"], transform=solver.train_transform)
+    loader = solver._train_loader(-1)
+    t = time.perf_counter()
+    loader._build_batch(list(range(batch)), 0)
+    one = {"one_thread_batch_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    pics = [ds._load_image(i, ds._meta(i)) for i in range(32)]
+    one["decode_ms_per_image"] = (time.perf_counter() - t) * 1e3 / 32
+    t = time.perf_counter()
+    for pic in pics:
+        ds.transform(pic)
+    one["crops_ms_per_image"] = (time.perf_counter() - t) * 1e3 / 32
+    out["loader"]["a"].update(one)
+    lo, ref = out["loader"], solver_result["loader"]
+    print(f"fast input, the loader alone ({solver.train_cfg['num_workers']} "
+          f"workers, {os.cpu_count()} CPUs, ms a batch past the first round, "
+          f"pairs/s): phase 7's host MOCOV2 {ref['ms_per_batch']:.1f}, "
+          f"{ref['pairs_per_s']:.1f}; (a) device_aug crops, threads, "
+          f"JSONL {lo['a']['ms_per_batch']:.1f}, {lo['a']['pairs_per_s']:.1f}"
+          f"; (b) processes {lo['b']['ms_per_batch']:.1f}, "
+          f"{lo['b']['pairs_per_s']:.1f}; (c) shards, processes "
+          f"{lo['c']['ms_per_batch']:.1f}, {lo['c']['pairs_per_s']:.1f}; "
+          f"first batch {lo['a']['first_batch_s']:.2f} / "
+          f"{lo['b']['first_batch_s']:.2f} / {lo['c']['first_batch_s']:.2f}"
+          f" s; one batch of (a) on one thread "
+          f"{one['one_thread_batch_s']:.2f} s (a JPEG decode "
+          f"{one['decode_ms_per_image']:.2f} ms, its two geometry crops "
+          f"{one['crops_ms_per_image']:.2f} ms; phase 7: "
+          f"{ref['one_thread_batch_s']:.2f} s, "
+          f"{ref['decode_ms_per_image']:.2f} ms, "
+          f"{ref['views_ms_per_image']:.2f} ms)", flush=True)
+    del solver, st, images, seen
+    torch.cuda.empty_cache()
+    return out
 
 def _path_sums(rows, cases, dtype_name, prefix=""):
     """Each time summed over the path's shapes in one dtype; the path is
@@ -2679,7 +2946,7 @@ def _li_entries(li_rows, filip_result):
 
 
 def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
-                 filip_result, declip_result, solver_result):
+                 filip_result, declip_result, solver_result, fast_result):
     """One entry per kernel. K1 is on every path: its launches are the
     serving run's plus the two training runs', each counted from 0 around
     its path; its times are the serving path's (the sum over its two shapes,
@@ -2690,7 +2957,8 @@ def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
     B=128 in bf16 (the DeCLIP step's text passes run both at L=77 causal).
     K3-K5 run on the FILIP training path (``_li_entries``). The solver's
     run (phase 7: the DeCLIP recipe through ``solver.main``, eval included)
-    adds to K1's and K2's launches, its resume apart."""
+    adds to K1's and K2's launches, its resume apart, and so does phase 8's
+    (the same recipe on the fast input path)."""
     serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
     k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
     k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
@@ -2698,6 +2966,7 @@ def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
     declip = declip_result["launches"]
     solver = solver_result["launches"]
     resume = solver_result["resume_launches"]
+    fast = fast_result["launches"]
     return {"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -2705,13 +2974,14 @@ def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
         "replaces": "declip_tpu/ops/flash_attention.py:41",
         "launches": (slice_result["launches"] + train_result["launches"]
                      + filip["K1"] + declip["K1"] + solver["K1"]
-                     + resume["K1"]),
+                     + resume["K1"] + fast["K1"]),
         "launches_by_path": {"serve": slice_result["launches"],
                              "train": train_result["launches"],
                              "train_filip": filip["K1"],
                              "train_declip": declip["K1"],
                              "solver": solver["K1"],
-                             "solver_resume": resume["K1"]},
+                             "solver_resume": resume["K1"],
+                             "solver_fast_input": fast["K1"]},
         "max_abs_err": serve["max_abs_err"],
         "ms": serve["ms"],
         "plain_ms": serve["plain_ms"],
@@ -2728,12 +2998,14 @@ def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
         "source": "declip_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": "declip_tpu/ops/flash_attention.py:72",
         "launches": (train_result["bwd_launches"] + filip["K2"]
-                     + declip["K2"] + solver["K2"] + resume["K2"]),
+                     + declip["K2"] + solver["K2"] + resume["K2"]
+                     + fast["K2"]),
         "launches_by_path": {"train": train_result["bwd_launches"],
                              "train_filip": filip["K2"],
                              "train_declip": declip["K2"],
                              "solver": solver["K2"],
-                             "solver_resume": resume["K2"]},
+                             "solver_resume": resume["K2"],
+                             "solver_fast_input": fast["K2"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -2768,9 +3040,16 @@ def main():
     train_result = phase_train()
     filip_result = phase_train_filip()
     declip_result = phase_train_declip()
-    solver_result = phase_solver(declip_result)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_solver_")
+    try:
+        corpus = solver_corpus(tmp)
+        solver_result = phase_solver(declip_result, tmp, corpus)
+        fast_result = phase_fast_input(solver_result, tmp, corpus)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     line = kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
-                        filip_result, declip_result, solver_result)
+                        filip_result, declip_result, solver_result,
+                        fast_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "hmma": hmma,
@@ -2779,6 +3058,7 @@ def main():
                    "slice": slice_result, "train": train_result,
                    "train_filip": filip_result,
                    "train_declip": declip_result, "solver": solver_result,
+                   "solver_fast_input": fast_result,
                    "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")

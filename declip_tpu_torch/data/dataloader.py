@@ -20,8 +20,9 @@ one non-replayed source, as in the reference and the JAX package. With the
 same seeds and the same transform draws, the batches are the JAX loader's,
 bit for bit. ``worker_type: process`` builds whole batches in spawned worker
 processes with identical batch/keying semantics; the workers import no
-torch kernels and never touch CUDA. Webdataset shards (``type: clip_wds``)
-are not ported yet (ROADMAP.md item 1.7a).
+torch kernels and never touch CUDA. A uint8 image batch (the geometry-only
+crops of the on-device augmentation) stays uint8. ``type: clip_wds`` reads
+webdataset tar shards (data/wds.py).
 """
 
 from __future__ import annotations
@@ -232,9 +233,19 @@ def build_clip_dataset(split_cfg: Dict, *, world_size: int = 1, rank: int = 0,
             transform = build_common_augmentation(
                 tcfg.get("type", "ONECROP"))
     if split_cfg.get("type") == "clip_wds":
-        raise NotImplementedError(
-            "webdataset shards (type: clip_wds, data/wds.py) are not ported "
-            "yet (ROADMAP.md item 1.7a)")
+        # webdataset tar shards: ``tar_files`` (or meta_file) carries the
+        # shard spec; root_dir, read_from and fseek do not apply
+        from declip_tpu_torch.data.wds import WdsClipDataset
+
+        return WdsClipDataset(
+            tar_files=split_cfg.get("tar_files", split_cfg.get("meta_file")),
+            transform=transform,
+            caption_key=split_cfg.get("caption_key", "caption"),
+            label_texts_ensemble=split_cfg.get("label_texts_ensemble",
+                                               "none"),
+            image_reader_type=image_reader.get("type", "pil"),
+            native_min_side=int(image_reader.get("min_side", 512)),
+        )
     read_from = split_cfg.get("read_from", "fs")
     common = dict(
         root_dir=split_cfg.get("root_dir", ""),

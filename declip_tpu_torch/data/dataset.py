@@ -16,17 +16,26 @@ base_dataset}.py:
   sample, base_dataset.py:81-86), and 'synthetic' (procedural images, no
   files at all, the same images as the JAX package's).
 
+Image readers: PIL, or ``image_reader: {type: native, min_side}``, the C++
+libjpeg decoder (data/native.py) with DCT prescale to ``min_side`` (512 by
+default, as in JAX). Bytes that are not a JPEG (by their magic bytes) go
+to PIL, as in JAX. A JPEG that libjpeg rejects (CMYK, a decode error) also
+goes to PIL, as in JAX, and is counted in the dataset's
+``native_fallbacks`` (the first one is logged). Unlike JAX, a native
+library that cannot be built raises when the dataset is built, with the
+compiler's message, instead of sending every image to PIL.
+
 Not in the port yet, each raising ``NotImplementedError`` (ROADMAP.md item
-1.7a) rather than reading something else: Google Cloud Storage
+1.7a.5) rather than reading something else: Google Cloud Storage
 (``read_from: gcs``, ``gs://`` metafiles), the reference's mc/ceph/petrel
-stores, the HTTP metadata server (``server_cfg``) and the native JPEG
-decoder (``image_reader: {type: native}``).
+stores and the HTTP metadata server (``server_cfg``).
 """
 
 from __future__ import annotations
 
 import io
 import json
+import logging
 import os.path as osp
 import random
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -35,6 +44,8 @@ import numpy as np
 from PIL import Image
 
 from declip_tpu_torch.utils.registry import DATASETS
+
+_log = logging.getLogger(__name__)
 
 PROMPT_DIR = osp.join(osp.dirname(osp.abspath(__file__)), "prompts")
 
@@ -85,14 +96,30 @@ def contains_chinese(s: str) -> bool:
     return any("一" <= ch <= "龥" for ch in s)
 
 
+_JPEG_MAGIC = b"\xff\xd8"
 _UNPORTED_STORES = ("gcs", "mc", "ceph", "petrel")
 _STORES = ("fs", "fake", "synthetic")
+_READERS = ("pil", "native")
 
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md item 1.7a); the port reads "
+        f"{what} is not ported yet (ROADMAP.md item 1.7a.5); the port reads "
         f"local files (read_from: fs or fake) and synthetic images")
+
+
+def check_image_reader(image_reader_type: str) -> None:
+    """Refuse a reader the port lacks; build the native library now (it
+    raises with the compiler's message) so that no image falls back."""
+    if image_reader_type not in _READERS:
+        raise NotImplementedError(
+            f"image_reader type {image_reader_type!r}: the port decodes with "
+            f"{' or '.join(_READERS)} (the reference's kestrel decoder is "
+            f"SenseTime hardware and not ported)")
+    if image_reader_type == "native":
+        from declip_tpu_torch.data import native
+
+        native.load()
 
 
 def _check_store(read_from: str, metas: Sequence, server_cfg,
@@ -105,13 +132,15 @@ def _check_store(read_from: str, metas: Sequence, server_cfg,
         raise _not_ported("a gs:// metafile")
     if server_cfg:
         raise _not_ported("the HTTP metadata server (server_cfg)")
-    if image_reader_type != "pil":
-        raise _not_ported(f"image_reader type {image_reader_type!r} (the "
-                          f"native decoder)")
+    check_image_reader(image_reader_type)
 
 
 class ClipDataset:
     """Image-text pairs with prompt-ensemble zero-shot support."""
+
+    # JPEGs the native decoder rejected (CMYK, a libjpeg error), decoded
+    # with PIL instead; counted per dataset, the first one logged
+    native_fallbacks = 0
 
     def __init__(
         self,
@@ -135,6 +164,8 @@ class ClipDataset:
         self.transform = transform
         self.label_texts_ensemble = label_texts_ensemble
         self.evaluator = evaluator
+        self.image_reader_type = image_reader_type
+        self.native_min_side = native_min_side
         self._fake_bytes: Optional[bytes] = None
         self._rng = random.Random(seed)
 
@@ -203,7 +234,31 @@ class ClipDataset:
         if self.read_from == "synthetic":
             return _synthetic_image(idx, meta.get("label"))
         path = osp.join(self.roots[idx], meta["filename"])
-        return pil_loader(self._read_bytes(path))
+        return self._decode(self._read_bytes(path))
+
+    def _decode(self, data: bytes) -> Image.Image:
+        if self.image_reader_type == "native":
+            # C++ libjpeg decode with DCT prescale to native_min_side (the
+            # short side; RandomResizedCrop's scale >= 0.2 keeps crops above
+            # the decode resolution). Pixel-based crops (RandomCropMinSize,
+            # STANDARD_CLIP) see a wider field of view on a prescaled decode:
+            # min_side 0 decodes at full resolution. Bytes that are not a
+            # JPEG go to PIL, as in JAX; a JPEG that native rejects goes to
+            # PIL too (JAX's result) but is counted in native_fallbacks.
+            from declip_tpu_torch.data import native
+
+            if data[:2] == _JPEG_MAGIC:
+                try:
+                    return Image.fromarray(native.decode_jpeg(
+                        data, min_side=self.native_min_side), "RGB")
+                except ValueError:
+                    self.native_fallbacks += 1
+                    if self.native_fallbacks == 1:
+                        _log.warning(
+                            "image_reader native: libjpeg rejected a JPEG "
+                            "(CMYK or corrupt); decoding it with PIL, and "
+                            "counting such images in native_fallbacks")
+        return pil_loader(data)
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
         """Returns {'image': HWC float32 (or PIL if no transform),
@@ -297,6 +352,8 @@ class ImageNetDataset(ClipDataset):
         self.transform = transform
         self.label_texts_ensemble = label_texts_ensemble
         self.evaluator = evaluator
+        self.image_reader_type = image_reader_type
+        self.native_min_side = native_min_side
         self._fake_bytes = None
         self._rng = random.Random(seed)
         self.roots = []

@@ -12,9 +12,10 @@ module-global ``random`` stream (``_ModuleRng``), as in the JAX package:
 with thread workers, which image gets which crop varies from run to run.
 Tests pass an explicit ``random.Random(seed)``.
 
-Not in the port yet (ROADMAP.md item 1.7a; each raises): the geometry-only
-uint8 variants for on-device augmentation, CLSA's multi-resolution views
-and AutoAugment (transforms_extra.py).
+``build_geometry_augmentation`` gives the geometry-only uint8 variants of
+the presets for the on-device path (data/device_aug.py does the rest on the
+card). Not in the port yet (ROADMAP.md item 1.7a.4; each raises): CLSA's
+multi-resolution views and AutoAugment (transforms_extra.py).
 """
 
 from __future__ import annotations
@@ -276,6 +277,59 @@ def _mocov2_ops(size: int, rng) -> List[Callable]:
     ]
 
 
+class GeometryCrop:
+    """Geometry-only op for the on-device pipeline: random-resized crop to
+    uint8 HWC (the photometrics happen on the card, data/device_aug.py)."""
+
+    def __init__(self, size: int = 224, scale=(0.2, 1.0),
+                 rng: Optional[random.Random] = None):
+        self.crop = RandomResizedCrop(size, scale=scale, rng=rng)
+
+    def __call__(self, img: Image.Image) -> np.ndarray:
+        return np.asarray(self.crop(img), np.uint8)
+
+
+class GeometryUint8:
+    """Compose stages -> uint8 array. A named class (not a closure) so the
+    transform pickles into ``worker_type: process`` loader workers."""
+
+    def __init__(self, *stages):
+        self.stages = stages
+
+    def __call__(self, img):
+        for s in self.stages:
+            img = s(img)
+        return np.asarray(img, np.uint8)
+
+
+def build_geometry_augmentation(
+    aug_type: str, rng: Optional[random.Random] = None
+) -> Transform:
+    """uint8 multi-view geometry for the on-device augmentation. Crop
+    scales mirror the named presets; the photometric parameters live in
+    data/device_aug.py."""
+    rng = rng or _MODULE_RNG
+    if aug_type in ("MOCOV2", "SIMCLR", "SIMSIAM"):
+        g = GeometryCrop(224, (0.2, 1.0), rng)
+        return MultiView([g, g])
+    if aug_type == "STANDARD_CLIP":
+        return GeometryUint8(RandomCropMinSize(224, rng=rng))
+    if aug_type == "SLIP":
+        base = GeometryCrop(224, (0.5, 1.0), rng)
+        strong = GeometryCrop(224, (0.2, 1.0), rng)
+        return MultiView([base, strong, strong])
+    if aug_type.startswith("ONECROP"):
+        size = int(aug_type[7:] or 224)
+        return GeometryUint8(Resize(256 if size <= 256 else size),
+                             CenterCrop(size))
+    if aug_type == "AUTOAUG" or aug_type.startswith("CLSA"):
+        raise NotImplementedError(
+            f"augmentation {aug_type!r} (AutoAugment / CLSA views, "
+            f"transforms_extra.py) is not ported yet (ROADMAP.md item "
+            f"1.7a.4)")
+    raise KeyError(f"no geometry variant for {aug_type!r}")
+
+
 def build_common_augmentation(
     aug_type: str, rng: Optional[random.Random] = None
 ) -> Transform:
@@ -324,7 +378,7 @@ def build_common_augmentation(
     if aug_type == "AUTOAUG" or aug_type.startswith("CLSA"):
         raise NotImplementedError(
             f"augmentation {aug_type!r} (AutoAugment / CLSA views, "
-            f"transforms_extra.py) is not ported yet (ROADMAP.md item 1.7a)")
+            f"transforms_extra.py) is not ported yet (ROADMAP.md item 1.7a.4)")
     raise KeyError(f"undefined augmentation type {aug_type!r}")
 
 

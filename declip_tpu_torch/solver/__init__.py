@@ -23,12 +23,14 @@ The port trains on one process and one device: ``device`` defaults to
 ``cuda`` and raises where CUDA is absent (pass ``cpu`` to run on the CPU).
 The host loader's batches are staged into pinned memory on a prefetch
 thread and copied to the card on a side stream, which the step's stream
-waits for. Not in the port yet, each raising: ``parallelism`` (mesh,
-TP/PP/EP/FSDP; ROADMAP.md item 1.10), the methods without a port model
-(SLIP, DeFILIP, MoCo, SimCLR, CLSA) and FILIP's dense zero-shot eval (item
-1.8), ``device_aug`` (item 1.7a), and the orbax backend and ``gs://`` saves
-(TPU/pod-only in the JAX package). The JAX package's compile cache and
-profiler hook have no counterpart here.
+waits for. With ``data.train.device_aug`` the loader ships uint8
+geometry crops (its transform is passed on to process workers too) and the
+step runs the photometrics on the card. Not in the port yet, each raising
+when the Solver is built: ``parallelism`` (mesh, TP/PP/EP/FSDP; ROADMAP.md
+item 1.10), the methods without a port model (SLIP, DeFILIP, MoCo, SimCLR,
+CLSA) and FILIP's dense zero-shot eval (item 1.8), and the orbax backend and
+``gs://`` saves (TPU/pod-only in the JAX package). The JAX package's
+compile cache and profiler hook have no counterpart here.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ from declip_tpu_torch.data.evaluator import (
     RetrievalEvaluator,
 )
 from declip_tpu_torch.data.sampler import compute_total_iter
+from declip_tpu_torch.data.transforms import build_geometry_augmentation
 from declip_tpu_torch.models import model_entry
 from declip_tpu_torch.models.clip_model import l2_normalize
 from declip_tpu_torch.models.layers import discard_bn_stats
@@ -228,14 +231,23 @@ class Solver:
     def build_data(self):
         dcfg = self.normalize_data_config(self.config.get("data") or {})
         train_cfg = dict(dcfg.get("train") or {})
-        if train_cfg.get("device_aug", False):
-            raise _not_ported("device_aug (on-device augmentation)", "1.7a")
         train_cfg.setdefault("transforms", {"type": "STANDARD_CLIP"})
         self.per_chip_batch = int(train_cfg.get("batch_size", 8))
         self.host_batch = self.per_chip_batch
         self.global_batch = self.per_chip_batch * self.data_ways
+        # on-device augmentation: the loader ships the preset's uint8
+        # geometry crops, and the step runs the photometrics on the card
+        self.device_aug = self.train_transform = None
+        if train_cfg.get("device_aug", False):
+            views = {"clip": 1, "filip": 2, "slip": 3}.get(self.method, 2)
+            tcfg = train_cfg["transforms"]
+            preset = (tcfg.get("type", "STANDARD_CLIP")
+                      if isinstance(tcfg, dict) else "STANDARD_CLIP")
+            self.device_aug = {"views": views, "preset": preset}
+            self.train_transform = build_geometry_augmentation(preset)
         ds = build_clip_dataset(
-            train_cfg, world_size=self.world, rank=self.rank)
+            train_cfg, world_size=self.world, rank=self.rank,
+            transform=self.train_transform)
         max_iter = self.config.get_path("lr_scheduler.kwargs.max_iter")
         self.max_iter = compute_total_iter(
             {**train_cfg, **({"max_iter": max_iter} if max_iter else {})},
@@ -243,6 +255,19 @@ class Solver:
         self.train_dataset = ds
         self.train_cfg = train_cfg
         self.test_cfgs: List[Dict] = list(dcfg.get("test") or [])
+        for tcfg in self.test_cfgs:  # refused now, not at the first eval
+            self._check_dense_eval(tcfg)
+
+    def _check_dense_eval(self, tcfg: Dict) -> None:
+        """FILIP-family evaluates with token-wise late interaction by
+        default (filip_solver.py:839-960); the port's FILIP has no dense
+        encoders."""
+        if (tcfg.get("evaluation") or {}).get("type") == "retrieval":
+            return
+        if bool(tcfg.get("dense_eval", self.method in ("filip", "defilip"))):
+            raise _not_ported(
+                "FILIP's dense zero-shot eval (encode_*_dense; set "
+                "dense_eval: false for the pooled eval)", "1.8")
 
     def _ckpt_meta(self) -> dict:
         """Topology sidecar: what the sampler stream was laid out for when
@@ -259,10 +284,12 @@ class Solver:
             self.method in ("declip", "defilip")
         split_cfg["text_mask_type"] = getattr(
             self.model, "text_mask_type", None)
+        # the transform goes to the loader as well as the dataset, so that
+        # process workers, which rebuild the dataset, crop as it does
         return build_clip_dataloader(
             split_cfg, world_size=self.world, rank=self.rank,
             last_iter=last_iter, total_iter=self.max_iter,
-            dataset=self.train_dataset,
+            dataset=self.train_dataset, transform=self.train_transform,
         )
 
     # ------------------------------------------------------------ optimizer
@@ -391,7 +418,8 @@ class Solver:
         self._train_step = make_train_step(
             self.model, self.tx, self.config, self.schedule,
             method=self.method, ema_cfg=self.ema_cfg,
-            total_steps=self.max_iter)
+            total_steps=self.max_iter, device_aug=self.device_aug,
+            seed=int(self.config.get_path("seed", 0)))
 
     # ----------------------------------------------------------- preemption
     @contextlib.contextmanager
@@ -745,12 +773,7 @@ class Solver:
     def evaluate(self, tcfg: Dict, *, use_ema: bool = False) -> Metric:
         if (tcfg.get("evaluation") or {}).get("type") == "retrieval":
             return self.evaluate_retrieval(tcfg, use_ema=use_ema)
-        # FILIP-family evaluates with token-wise late interaction by default
-        # (filip_solver.py:839-960); the port's FILIP has no dense encoders
-        if bool(tcfg.get("dense_eval", self.method in ("filip", "defilip"))):
-            raise _not_ported(
-                "FILIP's dense zero-shot eval (encode_*_dense; set "
-                "dense_eval: false for the pooled eval)", "1.8")
+        self._check_dense_eval(tcfg)
         dataset, batch_size = self._eval_loader(tcfg)
         label_texts, ensemble = dataset.get_label_texts()
         n_class = ensemble.shape[0]

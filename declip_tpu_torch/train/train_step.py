@@ -28,6 +28,13 @@ update. BatchNorm leaves its new statistics pending through the forward
 (models/layers.py), and the step commits them only after a finite one. The
 same read gives the norm clip its norm. The step puts the model in training
 mode, as the JAX step applies it with ``train=True``.
+
+``device_aug`` (train_step.py:255-263 of the JAX package): the batch's
+images arrive as the loader's uint8 geometry crops, [B, H, W, 3*views], and
+the step runs MOCOV2's photometric half on the device before the forward
+(data/device_aug.py), its draws keyed by (seed, step, view). ``check_grad``
+adds each top-level module's gradient norm to the metrics under the JAX
+package's tags, ``grad_norm/<module>`` (train_step.py:357-361 there).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from declip_tpu_torch.data.device_aug import augment_views
 from declip_tpu_torch.models.clip_model import CLIP, l2_normalize
 from declip_tpu_torch.models.declip_model import DECLIP
 from declip_tpu_torch.models.filip_model import FILIP
@@ -49,6 +57,10 @@ from declip_tpu_torch.train.ema import EmaConfig, ema_step
 from declip_tpu_torch.train.state import TrainState
 
 _PASS_THROUGH = (None, "norm", "value", "logit_scale_grad", "constant")
+
+# the port's top-level parameter names that the JAX package's tree names
+# otherwise (convert.py's one top-level rename)
+_JAX_TOP = {"encode_text": "text"}
 
 
 _LOSSES = {"clip": method_losses.clip_losses,
@@ -166,14 +178,52 @@ def make_loss_fn(cfg: Dict, method: str = "clip",
     return loss_fn
 
 
+def grad_norms_by_module(grads: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """``check_grad``'s metrics: ``grad_norm/<module>`` for each top-level
+    entry of the parameter tree, under the JAX package's names (device
+    scalars)."""
+    groups: Dict[str, list] = {}
+    for name, g in grads.items():
+        top = name.split(".", 1)[0]
+        groups.setdefault(_JAX_TOP.get(top, top), []).append(g)
+    return {f"grad_norm/{top}": global_norm(gs) for top, gs in groups.items()}
+
+
+def make_augment(model, device_aug: Dict, seed: int = 0) -> Callable:
+    """``augment(images_u8, step)``: the on-device photometrics of
+    ``device_aug`` (``{"views", "preset"}``), in the image tower's dtype.
+    Raises on images that are not uint8: only the loader's geometry crops
+    (``build_geometry_augmentation``) may reach it."""
+    views = int(device_aug.get("views", 2))
+    preset = str(device_aug.get("preset", "MOCOV2"))
+    dtype = getattr(model, "dtype", None) or model.visual.dtype
+
+    def augment(images: torch.Tensor, step: int) -> torch.Tensor:
+        if images.dtype != torch.uint8:
+            raise TypeError(
+                f"device_aug takes the loader's uint8 geometry crops, got "
+                f"{images.dtype} images {tuple(images.shape)}: the loader "
+                f"did not run build_geometry_augmentation (with worker_type "
+                f"process, pass it to build_clip_dataloader as transform=)")
+        return augment_views(images, views=views, preset=preset, seed=seed,
+                             step=step, dtype=dtype)
+
+    return augment
+
+
 def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
                     method: Optional[str] = None,
                     ema_cfg: Optional[EmaConfig] = None,
-                    total_steps: int = 1) -> Callable:
+                    total_steps: int = 1,
+                    device_aug: Optional[Dict] = None,
+                    seed: int = 0) -> Callable:
     """The step for ``model``'s method, with the update rule ``tx`` from
     ``optim_entry`` and the lr ``schedule`` (for the ``lr`` metric).
     ``total_steps``: the run's length, for DeCLIP's ``linear`` loss
-    weights."""
+    weights. ``device_aug`` (``{"views", "preset"}``): the images are uint8
+    crops, augmented on the device with draws keyed by ``seed`` and the
+    step (``make_augment``)."""
     method = method or method_of(model)
     grad_clip = dict(cfg.get("grad_clip") or {})
     if int((cfg.get("grad_cache") or {}).get("chunks", 0) or 0) > 1:
@@ -181,8 +231,13 @@ def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
             "grad_cache is not ported yet (ROADMAP.md item 1.10)")
     from_out = make_losses_from_out(cfg, method, total_steps=total_steps)
     use_bank = bool(getattr(model, "return_nn_bank", False))
+    check_grad = bool(cfg.get("check_grad", False))
+    augment = (make_augment(model, device_aug, seed)
+               if device_aug is not None else None)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        if augment is not None:
+            batch = dict(batch, images=augment(batch["images"], state.step))
         model = state.model
         if not model.training:
             model.train()
@@ -220,6 +275,8 @@ def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
         metrics["lr"] = schedule(state.step)
         metrics["grad_norm"] = grad_norm
         metrics["update_skipped"] = 0.0 if finite else 1.0
+        if check_grad:
+            metrics.update(grad_norms_by_module(grads))
         if state.logit_clip_count is not None:
             metrics["logit_clip_count"] = state.logit_clip_count
         state.step += 1

@@ -96,6 +96,9 @@ def test_data_path_imports_no_torch():
         "import declip_tpu_torch.data.dataloader, declip_tpu_torch.data.dataset\n"
         "import declip_tpu_torch.data.evaluator, declip_tpu_torch.data.sampler\n"
         "import declip_tpu_torch.data.transforms, declip_tpu_torch.tokenizer\n"
+        "import declip_tpu_torch.data.wds, declip_tpu_torch.data.native\n"
+        "import declip_tpu_torch.data.imagenet\n"
+        "import declip_tpu_torch.tools.make_wds\n"
         "print('LOADED', sorted(m for m in sys.modules\n"
         "                       if m.split('.')[0] in ('torch', 'jax')))\n"
     )

@@ -381,3 +381,36 @@ def test_solver_kernel_calls_counts_the_solvers_prompt_chunks(smoke):
     assert smoke.solver_kernel_calls(fake, 6) == {
         "K1": 24 * 6 + 2 * len(calls) * 12, "K2": 24 * 6,
         "K3": 0, "K4": 0, "K5": 0}
+
+
+def test_loader_configs_of_the_fast_input_path(smoke, tmp_path):
+    """Phase 8's three loaders from the solver's train split (as --set
+    leaves it, shards and process workers): each ships device_aug's crops
+    and decodes with PIL; (a) and (b) read the JSONL metafile with threads
+    and processes, (c) the shards with processes, and each builds."""
+    from declip_tpu_torch.data.dataloader import build_clip_dataset
+    from declip_tpu_torch.data.transforms import build_geometry_augmentation
+    from declip_tpu_torch.data.wds import WdsClipDataset
+    from declip_tpu_torch.tools import make_wds
+
+    train, _ = smoke.write_corpus(str(tmp_path / "c"), 6, 3, 2, seed=0)
+    make_wds.pack(train, str(tmp_path / "c"), str(tmp_path / "s-%05d.tar"),
+                  3)
+    shards = str(tmp_path / "s-{00000..00001}.tar")
+    solver_cfg = {"root_dir": [str(tmp_path / "c")], "meta_file": [train],
+                  "fseek": True, "read_from": "fs", "batch_size": 2,
+                  "transforms": {"type": "MOCOV2"}, "device_aug": True,
+                  "type": "clip_wds", "tar_files": shards,
+                  "worker_type": "process", "image_reader": {"type": "pil"}}
+    cfgs = smoke.loader_configs(solver_cfg, shards)
+    assert [cfgs[k]["worker_type"] for k in "abc"] == \
+        ["thread", "process", "process"]
+    geometry = build_geometry_augmentation("MOCOV2")
+    for name, cfg in cfgs.items():
+        assert cfg["device_aug"] and cfg["image_reader"] == {"type": "pil"}
+        ds = build_clip_dataset(cfg, transform=geometry)
+        assert isinstance(ds, WdsClipDataset) == (name == "c")
+        assert len(ds) == 6
+        item = ds[0]["image"]
+        assert item.dtype == "uint8" and item.shape == (224, 224, 6)
+    assert "type" not in cfgs["a"] and "root_dir" not in cfgs["c"]

@@ -548,3 +548,43 @@ def test_resnet_fp32_on_the_card_matches_the_cpu(card):
                                atol=1e-5 * dx_c.abs().max().item())
     for a, b in zip(st_g, st_c):
         assert (a - b).norm() <= 1e-5 * b.norm()
+
+
+def test_augment_views_on_the_card_matches_the_cpu(card):
+    """The on-device photometrics (data/device_aug.py; plain PyTorch, no
+    hand-written kernel) on the card against the CPU on the same drawn
+    parameters: two MOCOV2 views from the card's generators, the draws
+    replayed from the same (seed, step, view) keys and applied on the CPU; fp32
+    within 1e-5 (TF32 off for the hue's 3x3 product), and the bf16 output
+    within one bf16 ulp of the fp32 result cast (the card's own: near
+    zero, the CPU's and the card's fp32 results may take opposite signs
+    within their 1e-5)."""
+    from declip_tpu_torch.data import device_aug
+
+    g = torch.Generator().manual_seed(2)
+    crops = torch.randint(0, 256, (16, 64, 64, 6), generator=g,
+                          dtype=torch.uint8)
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = device_aug.augment_views(crops.to(card), views=2, seed=4,
+                                       step=9)
+        half = device_aug.augment_views(crops.to(card), views=2, seed=4,
+                                        step=9, dtype=torch.bfloat16)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    want = torch.cat([
+        device_aug.photometric_apply(
+            crops[..., 3 * v:3 * v + 3],
+            {k: t.cpu() for k, t in device_aug.photometric_params(
+                device_aug.view_generator(4, 9, v, card),
+                crops.shape[0]).items()})
+        for v in range(2)], dim=-1)
+    assert got.dtype == torch.float32 and got.shape == crops.shape
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+    cast = got.to(torch.bfloat16).float().cpu()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        cast.abs().clamp_min(2.0 ** -100))) - 7)
+    assert half.dtype == torch.bfloat16
+    assert bool(((half.float().cpu() - cast).abs() <= ulp).all())

@@ -87,7 +87,8 @@ def pair_run(tmp_path_factory):
     pretrain = root / "init.pth.tar"
     torch.save({"model": model.state_dict()}, pretrain)
     sets = {**CLIP_SETS, "saver.pretrain.path": str(pretrain),
-            "data.test": [dict(cfg.data.test[0], meta_file="32")]}
+            "data.test": [dict(cfg.data.test[0], meta_file="32")],
+            "check_grad": True}
 
     jax_solver = JaxSolver(_cfg("declip_tpu", root / "jax", TINY_CLIP, sets),
                            devices=jax.devices()[:1])
@@ -111,6 +112,33 @@ def test_losses_match_jax(pair_run):
         np.testing.assert_allclose(
             [v for _, v in _scalars(pair_run["port"], tag)],
             [v for _, v in _scalars(pair_run["jax"], tag)], rtol=1e-5)
+
+
+def test_check_grad_matches_jax(pair_run):
+    """``check_grad``: the per-top-module gradient norms under the JAX
+    package's tags (``grad_norm/text``, not the port's ``encode_text``),
+    step by step: step 1, from the same weights, within rtol 1e-5; later
+    steps within the trajectory's 1e-4 (test_losses_match_jax), since the
+    weights have moved apart by then."""
+    def norms(run):
+        lines = (run / "events" / "scalars.jsonl").read_text().splitlines()
+        out = {}
+        for r in map(json.loads, lines):
+            if r["tag"].startswith("grad_norm/"):
+                out.setdefault(r["tag"], []).append((r["step"], r["value"]))
+        return out
+
+    want, got = norms(pair_run["jax"]), norms(pair_run["port"])
+    assert set(got) == set(want) == {"grad_norm/visual", "grad_norm/text",
+                                     "grad_norm/logit_scale"}
+    for tag in want:
+        assert [s for s, _ in got[tag]] == [s for s, _ in want[tag]] == \
+            [1, 2, 3, 4]
+        np.testing.assert_allclose(got[tag][0][1], want[tag][0][1],
+                                   rtol=1e-5, err_msg=tag)
+        np.testing.assert_allclose([v for _, v in got[tag]],
+                                   [v for _, v in want[tag]], rtol=1e-4,
+                                   err_msg=tag)
 
 
 def test_zero_shot_scores_match_jax(pair_run):
@@ -445,22 +473,74 @@ def test_main_refuses_absent_cuda(tmp_path, monkeypatch):
     assert not (tmp_path / "checkpoints").exists()
 
 
-@pytest.mark.parametrize("sets,item", [
-    ({"parallelism": {"tp": 2}}, "1.10"),
-    ({"model.type": "slip_vitb32"}, "1.8"),
-    ({"model.type": "defilip_vitb32"}, "1.8"),
-    ({"data.train.device_aug": True}, "1.7a"),
-    ({"data.train.type": "clip_wds"}, "1.7a"),
-    ({"data.train.read_from": "gcs"}, "1.7a"),
-    ({"data.train.image_reader": {"type": "native"}}, "1.7a"),
+@pytest.mark.parametrize("sets,match", [
+    ({"parallelism": {"tp": 2}}, "item 1.10"),
+    ({"model.type": "slip_vitb32"}, "item 1.8"),
+    ({"model.type": "defilip_vitb32"}, "item 1.8"),
+    # device_aug, wds shards and the native reader are ported; what stays
+    # out beside them: CLSA's views, shards on object stores, and the
+    # reference's kestrel hardware decoder
+    ({"data.train.device_aug": True,
+      "data.train.transforms": {"type": "CLSA"}}, "item 1.7a.4"),
+    ({"data.train.type": "clip_wds",
+      "data.train.tar_files": "gs://bucket/s-{0000..0003}.tar"},
+     "item 1.7a.5"),
+    ({"data.train.read_from": "gcs"}, "item 1.7a"),
+    ({"data.train.image_reader": {"type": "kestrel"}}, "kestrel"),
 ], ids=["parallelism", "slip", "defilip", "device_aug", "wds", "gcs",
         "native"])
-def test_unported_parts_raise(tmp_path, sets, item):
+def test_unported_parts_raise(tmp_path, sets, match):
     from declip_tpu_torch.solver import Solver
 
     cfg = _cfg("declip_tpu_torch", tmp_path, TINY_CLIP, sets)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(NotImplementedError, match=match):
         Solver(cfg, device="cpu")
+
+
+def test_filip_dense_eval_is_refused_when_built(tmp_path):
+    """A FILIP config whose test entry evaluates dense (its default) raises
+    while the Solver is being built, not at the first evaluate."""
+    from declip_tpu_torch.solver import Solver
+
+    src = os.path.join(REPO, "experiments", "unit", "tiny_filip",
+                       "config.yaml")
+    cfg = _cfg("declip_tpu_torch", tmp_path, src, {})
+    with pytest.raises(NotImplementedError, match="item 1.8"):
+        Solver(cfg, device="cpu")
+    assert not os.listdir(tmp_path / "checkpoints")
+    test = [dict(cfg.data.test[0], dense_eval=False)]
+    Solver(_cfg("declip_tpu_torch", tmp_path / "pooled", src,
+                {"data.test": test}), device="cpu")
+
+
+@pytest.mark.parametrize("worker_type", ["thread", "process"])
+def test_device_aug_ships_uint8_crops(tmp_path, worker_type):
+    """``device_aug`` with either worker type: the step gets the loader's
+    uint8 geometry crops (with process workers too, which rebuild the
+    dataset: the reference's solver handed them fp32 MOCOV2 views), the
+    losses are finite, and the step raises on fp32 images."""
+    from declip_tpu_torch.solver import Solver
+
+    solver = Solver(_cfg("declip_tpu_torch", tmp_path, TINY_DECLIP, {
+        **_declip_sets(), "lr_scheduler.kwargs.max_iter": 2,
+        "saver.save_freq": 0, "data.train.device_aug": True,
+        "data.train.worker_type": worker_type,
+        "data.train.num_workers": 1}), device="cpu")
+    assert solver.device_aug == {"views": 2, "preset": "MOCOV2"}
+    step, seen = solver._train_step, []
+
+    def recording(state, batch):
+        seen.append((batch["images"].dtype, tuple(batch["images"].shape)))
+        return step(state, batch)
+
+    solver._train_step = recording
+    solver.train()
+    assert seen == [(torch.uint8, (4, 224, 224, 6))] * 2
+    losses = [v for _, v in _scalars(tmp_path, "loss")]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    batch = {"images": torch.zeros(4, 224, 224, 6)}
+    with pytest.raises(TypeError, match="uint8 geometry crops"):
+        step(solver.state, batch)
 
 
 def test_filip_dense_eval_raises(tmp_path):
