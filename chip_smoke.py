@@ -53,6 +53,9 @@ Phases (any failed check raises, and the script exits non-zero):
    a NaN key token or query row (NaN where the plain versions give it); the
    kernel, plain and bound times of each, and the plain backward from the
    similarities;
+2d. K3 alone at the dense zero-shot eval's ImageNet shape (B=128, N1=49,
+   C=1000, N2=77, D=256, bf16) against its plain version, with its device
+   time, its bound and the time of its product alone in ``torch.matmul``;
 5. the FILIP training slice: FILIP ViT-B/32 at full width in bf16 from
    seeded weights with the YFCC15M FILIP recipe (inlined below: MLM-masked
    text, top-k 16 token selection, dense loss only), trained by
@@ -110,8 +113,34 @@ Phases (any failed check raises, and the script exits non-zero):
    (a) thread workers on the JSONL metafile, (b) process workers, (c)
    process workers on the shards, beside phase 7's host-MOCOV2 loader, and
    one batch of (a) on one thread. Every input decodes with PIL: the
-   card's host has no libjpeg headers to build the native decoder with.
-   The corpus is deleted at the end.
+   card's host has no libjpeg headers to build the native decoder with;
+9. the DeFILIP and SLIP training slices: ``defilip_vitb32`` and
+   ``slip_vitb32`` at full width in bf16 from seeded weights with the
+   YFCC15M recipes (inlined below: DeFILIP with MLM, EDA captions, two
+   views, SimSiam, the 2^16 x 512 bank and the filip term on top-k 16;
+   SLIP with three views and loss_weight 1/1), trained by
+   ``make_train_step`` at batch 128 on one repeated seeded batch; losses
+   finite and falling, no skipped update, the logit scale in [3, 6],
+   DeFILIP's bank pointer 2B a step further, SLIP's ``predictor_sim``
+   BatchNorm statistics moved and finite; the exact launches a step
+   (DeFILIP 48 K1, 48 K2, 2 each of K3-K5; SLIP 48 K1, 48 K2) and no plain
+   version; step time, pairs/s, device busy and idle, the late
+   interaction's share, peak memory; DeFILIP again under ``dense_aug``
+   (8 each of K3-K5 a step); then one fp32 step of each through the
+   kernels against the plain path (the loss within phase 5's 1e-4; each
+   gradient as STEP_GRAD_ATTN64_FACTOR says), and again with a planted
+   fault that the check must fail;
+10. the other methods through the solver, on phase 7's corpus: ``main``
+   trains the yfcc15m_vit_defilip recipe as its file has it for 4 steps
+   and evaluates zero-shot dense through K3 (160 images, prompt80), and
+   yfcc15m_r50_slip for 2 steps (SLIP's three views from the loader) with
+   its pooled eval; only the data paths, max_iter, print_freq, save_freq
+   and val_freq are set. Losses finite, no skipped update, a checkpoint,
+   160 result lines with top-1 and top-5 in [0, 100], the exact launches
+   (K3 once an eval batch); one eval batch's K3 logits against the chunked
+   plain late interaction on the same features; whether the profiler
+   still sees device events before and after it. The corpus is deleted at
+   the end.
 
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
@@ -120,6 +149,7 @@ JSON object. Full results also go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -390,6 +420,118 @@ FAST_SHARDS = 4
 # fp32, the luma sums, the 3x3 hue product and the blur's taps summed in
 # other orders, a few ulps of values in [-2.2, 2.7]
 AUG_ATOL = 1e-5
+
+# phase 9: experiments/defilip_experiments/yfcc15m/yfcc15m_vit_defilip and
+# experiments/slip_experiments/yfcc15m/yfcc15m_vit_slip, cut and completed as
+# TRAIN_CONFIG is (top_k 16 and dense_embed_dim 256 are DEFILIP's
+# defaults, sim_dim 256 and return_sim the file's; the reference's
+# image_text_two_view data setting is the default of the loss)
+DEFILIP_CONFIG = """
+model:
+    type: defilip_vitb32
+    kwargs:
+        image_encode: {embed_dim: 512}
+        text_encode: {embed_dim: 512, vocab_size: 49409}
+        clip: {use_allgather: True, text_mask_type: MLM,
+               return_nn_bank: True, return_filip: True, select_topk: True,
+               feature_dim: 512, EDA: True}
+clip_simsiam_loss_weight: {clip_loss: 0.4, nn_text: 0.2, simsiam_loss: 0.2,
+                           masking_language: 0.2, filip: 0.2}
+precision: {dtype: bfloat16}
+grad_clip: {type: logit_scale_param_value, value: 3, max_value: 6}
+optimizer:
+    type: AdamW
+    kwargs: {lr: 0.0001, weight_decay: 0.1, betas: [0.9, 0.98],
+             eps: 0.00000001}
+    pconfig:
+        bn_w: {weight_decay: 0}
+        bn_b: {weight_decay: 0}
+        ln_w: {weight_decay: 0}
+        ln_b: {weight_decay: 0}
+        linear_b: {weight_decay: 0}
+        conv_b: {weight_decay: 0}
+        logit_scale: {weight_decay: 0}
+lr_scheduler:
+    type: Cosine
+    kwargs: {base_lr: 0.0001, warmup_lr: 0.001, min_lr: 0.0,
+             warmup_steps: 2500, max_iter: 128001}
+"""
+SLIP_CONFIG = """
+model:
+    type: slip_vitb32
+    kwargs:
+        image_encode: {embed_dim: 512}
+        text_encode: {embed_dim: 512, vocab_size: 49409}
+        clip: {use_allgather: True, return_sim: True, feature_dim: 768,
+               sim_dim: 256}
+loss_weight: {clip_loss: 1, simclr_loss: 1}
+precision: {dtype: bfloat16}
+grad_clip: {type: logit_scale_param_value, value: 3, max_value: 6}
+optimizer:
+    type: AdamW
+    kwargs: {lr: 0.0001, weight_decay: 0.5, betas: [0.9, 0.98],
+             eps: 0.00000001}
+    pconfig:
+        bn_w: {weight_decay: 0}
+        bn_b: {weight_decay: 0}
+        ln_w: {weight_decay: 0}
+        ln_b: {weight_decay: 0}
+        linear_b: {weight_decay: 0}
+        conv_b: {weight_decay: 0}
+        logit_scale: {weight_decay: 0}
+lr_scheduler:
+    type: Cosine
+    kwargs: {base_lr: 0.0001, warmup_lr: 0.001, min_lr: 0.0,
+             warmup_steps: 2500, max_iter: 128001}
+"""
+# the DeFILIP recipe's bank: nn_size 2^16 over feature_dim 512
+DEFILIP_BANK_DIM = 512
+METHOD_TRAIN_STEPS = 6
+# the launches of one step: DeFILIP's two text passes and two image views,
+# 12 layers each, and its filip term (image queries against the selected
+# text keys, text queries against the selected image keys); under
+# dense_aug the four pairings' eight late interactions. SLIP's one text
+# pass and three image views.
+DEFILIP_PER_STEP = {"K1": 48, "K2": 48, "K3": 2, "K4": 2, "K5": 2}
+DEFILIP_AUG_PER_STEP = {"K1": 48, "K2": 48, "K3": 8, "K4": 8, "K5": 8}
+SLIP_PER_STEP = {"K1": 48, "K2": 48, "K3": 0, "K4": 0, "K5": 0}
+# phase 9's fp32 steps: a parameter's gradient through the kernels may
+# differ from the plain path's by STEP_GRAD_REL_NORM of its norm, or by this
+# many times the plain path's own move when its attention alone runs in
+# fp64, whichever is more, and never by more than STEP_GRAD_ATTN64_CAP of
+# it. DeFILIP's and SLIP's gradients are ill-conditioned (BatchNorm over
+# the batch in the heads, SimCLR at temperature 0.1, the late interaction's
+# near ties), and attention through K1 and K2 sits further from fp64 than
+# the plain fp32 path's at these score sizes, so the kernels may move a
+# gradient by a few times what the plain path's own attention rounding
+# does; 4 leaves room for that. The check is run once more on a planted
+# fault, K1/K2's inputs rounded to bf16 (their gradients too), which it
+# must fail.
+STEP_GRAD_ATTN64_FACTOR = 4
+STEP_GRAD_ATTN64_CAP = 1e-3
+PLANTED = "planted fault, K1/K2 on bf16-rounded inputs"
+# biases right before a BatchNorm in the heads, and the projector's output
+# bias (the predictor's first BatchNorm removes a constant shift of its
+# input): a gradient of 0 in exact arithmetic (see NOISE_GRADS)
+METHOD_NOISE_GRADS = {
+    "defilip": ("projector.linear1.bias", "projector.linear2.bias",
+                "projector.linear3.bias", "predictor.linear1.bias",
+                "projector.bn3.bias"),
+    "slip": ("predictor_sim.linear1.bias", "predictor_sim.linear2.bias")}
+# phase 10: the recipes through the solver, on phase 7's corpus
+DEFILIP_RECIPE = os.path.join(
+    "experiments", "defilip_experiments", "yfcc15m", "yfcc15m_vit_defilip",
+    "config.yaml")
+SLIP_R50_RECIPE = os.path.join(
+    "experiments", "slip_experiments", "yfcc15m", "yfcc15m_r50_slip",
+    "config.yaml")
+DEFILIP_SOLVER_STEPS, SLIP_SOLVER_STEPS = 4, 2
+# K3 at the dense zero-shot eval's ImageNet shape: B=128 image queries of
+# 49 tokens against 1000 classes of 77 tokens, D=256, in the recipes' bf16
+LI_EVAL_CASE = (TRAIN_BATCH, 49, 1000, 77, 256)
+# K3 against the chunked plain late interaction on one eval batch's
+# features (bf16 products exact in fp32; the sums in other orders)
+EVAL_LI_TOLERANCE = (1e-5, 1e-5)
 
 
 def check(cond, msg):
@@ -1096,6 +1238,75 @@ def _check_embeddings(out, n, normalized=False):
         norms = np.linalg.norm(emb, axis=-1)
         check(np.allclose(norms, 1.0, atol=1e-5), f"norms {norms}")
     return emb
+
+
+def phase_k3_eval_shape():
+    """Phase 2d: K3 alone at the dense zero-shot eval's ImageNet shape
+    (LI_EVAL_CASE) in the recipes' bf16, against its plain version on grid
+    inputs and on unit vectors; its device time (the profiler; CUDA events
+    where the profiler sees no device events), its bound, its plain
+    version's time and that of its product alone in ``torch.matmul``."""
+    import torch
+
+    from declip_tpu_torch.ops.filip_late_interaction import (
+        late_interaction_fwd,
+        late_interaction_raw_plain,
+    )
+
+    b, n1, gb, n2, d = LI_EVAL_CASE
+    d1, d2, _ = _li_inputs(LI_EVAL_CASE, torch.bfloat16, 700, grid=True)
+    raw, winners = late_interaction_fwd(d1, d2)
+    ok, err_grid, _ = _within(raw, late_interaction_raw_plain(d1, d2),
+                              *LI_TOLERANCE["bfloat16"][0])
+    check(ok, f"K3 at the eval shape, grid inputs: max abs err "
+              f"{err_grid:.3g}")
+    del raw, winners
+    d1, d2, _ = _li_inputs(LI_EVAL_CASE, torch.bfloat16, 701, grid=False)
+    ok, err, _ = _within(late_interaction_fwd(d1, d2)[0],
+                         late_interaction_raw_plain(d1, d2),
+                         *LI_TOLERANCE["bfloat16"][0])
+    check(ok, f"K3 at the eval shape, unit vectors: max abs err {err:.3g}")
+    a, bt = d1.reshape(b * n1, d), d2.reshape(gb * n2, d).t()
+    timer = "profiler"
+    ms, kernels = device_ms(lambda: late_interaction_fwd(d1, d2), iters=10)
+    plain_ms, _ = device_ms(lambda: late_interaction_raw_plain(d1, d2),
+                            iters=3)
+    matmul_ms, _ = device_ms(lambda: torch.matmul(a, bt), iters=10)
+    if None in (ms, plain_ms, matmul_ms):
+        # the profiler saw no device time: CUDA events around the calls
+        print("K3 at the eval shape: the profiler saw no device events; "
+              "timing with CUDA events", flush=True)
+        timer = "CUDA events"
+        ms = cuda_ms(lambda: late_interaction_fwd(d1, d2), iters=10)
+        plain_ms = cuda_ms(lambda: late_interaction_raw_plain(d1, d2),
+                           iters=3, warmup=1)
+        matmul_ms = cuda_ms(lambda: torch.matmul(a, bt), iters=10)
+    bound, bound_by = late_interaction_bound(b, n1, gb, n2, d, "bfloat16",
+                                             "fwd")
+    out = {"shape": list(LI_EVAL_CASE), "dtype": "bfloat16", "ms": ms,
+           "by_kernel": kernels, "plain_ms": plain_ms,
+           "matmul_ms": matmul_ms, "bound_ms": bound, "bound_by": bound_by,
+           "max_abs_err": max(err, err_grid),
+           "mask_mb": b * n1 * gb * ((n2 + 31) // 32) * 4 / 1e6,
+           "timer": timer}
+    print(f"K3 at the eval shape {LI_EVAL_CASE} bf16 ({timer}): {ms:.4f} ms "
+          f"({', '.join(f'{k[:40]} {v:.4f}' for k, v in kernels.items())}), "
+          f"bound {bound:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, its "
+          f"product alone in torch.matmul {matmul_ms:.4f} ms; max abs err "
+          f"{max(err, err_grid):.3g}; winner mask "
+          f"{out['mask_mb']:.1f} MB", flush=True)
+    del d1, d2, a, bt
+    torch.cuda.empty_cache()
+    return out
+
+
+def profiler_sees_device():
+    """Whether ``torch.profiler`` sees the card's kernels at this point of
+    the run: a probe of ten calls of one elementwise kernel over 64 MB."""
+    import torch
+
+    x = torch.ones(1 << 24, device="cuda")
+    return bool(device_events(lambda: x.mul(2), iters=10))
 
 
 def phase_slice():
@@ -2462,16 +2673,18 @@ def solver_corpus(tmp):
             "seconds": time.perf_counter() - t0}
 
 
-def solver_experiment(tmp, name, corpus):
-    """An experiment directory ``tmp/name`` holding the recipe's config,
+def solver_experiment(tmp, name, corpus, recipe=DECLIP_RECIPE,
+                      save_freq=SOLVER_SAVE_FREQ, save_many=True):
+    """An experiment directory ``tmp/name`` holding ``recipe``'s config,
     and the --set arguments phase 7 gives it (the corpus's paths, print,
-    save and val frequencies). -> (config path, sets)."""
+    save and val frequencies, and ``save_many`` unless it is None).
+    -> (config path, sets)."""
     from declip_tpu_torch.config import parse_config
 
     exp = os.path.join(tmp, name)
     os.makedirs(exp)
     cfg_path = os.path.join(exp, "config.yaml")
-    shutil.copy(os.path.join(ROOT, DECLIP_RECIPE), cfg_path)
+    shutil.copy(os.path.join(ROOT, recipe), cfg_path)
     recipe = parse_config(cfg_path)
     tests = []
     for entry in recipe.data.test:
@@ -2482,8 +2695,10 @@ def solver_experiment(tmp, name, corpus):
     sets = [f"data.train.root_dir={json.dumps([corpus['root']])}",
             f"data.train.meta_file={json.dumps([corpus['train_meta']])}",
             f"data.test={json.dumps(tests)}",
-            "saver.print_freq=1", f"saver.save_freq={SOLVER_SAVE_FREQ}",
-            "saver.save_many=true", "saver.val_freq=0"]
+            "saver.print_freq=1", f"saver.save_freq={save_freq}",
+            "saver.val_freq=0"]
+    if save_many:
+        sets.append("saver.save_many=true")
     return cfg_path, sets
 
 
@@ -2893,6 +3108,755 @@ def phase_fast_input(solver_result, tmp, corpus):
     torch.cuda.empty_cache()
     return out
 
+def _method_batch(rng, views):
+    """B=128 seeded images [B, 224, 224, 3 * views], each view noise around
+    a colour of its own image; the captions, a second draw standing in for
+    their EDA versions, and the MLM masking of the captions (phase 6's)."""
+    import numpy as np
+    import torch
+
+    batch = _declip_batch(rng)
+    if views != 2:
+        images = (rng.standard_normal((TRAIN_BATCH, 224, 224, 3 * views),
+                                      np.float32)
+                  + rng.standard_normal((TRAIN_BATCH, 1, 1, 3 * views),
+                                        np.float32))
+        batch["images"] = torch.from_numpy(images).cuda()
+    return batch
+
+
+def _method_build(cfg, dtype):
+    import torch
+
+    from declip_tpu_torch.models import model_entry
+
+    kwargs = dict(cfg.model.kwargs)
+    kwargs["dtype"] = dtype
+    model = model_entry({"type": cfg.model.type, "kwargs": kwargs})
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    return model.cuda()
+
+
+def _seeded_method_bank(model):
+    import torch
+
+    from declip_tpu_torch.models.memory_bank import init_bank
+
+    if not getattr(model, "return_nn_bank", False):
+        return None
+    return init_bank(torch.Generator().manual_seed(SEED + 1),
+                     int(model.nn_size), int(model.feature_dim),
+                     device="cuda")
+
+
+def _selected_tokens(model, out):
+    """The token ids of DeFILIP's two top-k selections, as
+    ``topk_token_select`` takes them from ``out``: (image tokens [B, k],
+    text tokens [B, k])."""
+    import torch
+
+    cross = torch.einsum("bnd,bmd->bnm", out["dense_image_1"].float(),
+                         out["dense_text"].float())
+    return (torch.topk(cross.sum(2), model.top_k, dim=1).indices,
+            torch.topk(cross.sum(1), model.top_k, dim=1).indices)
+
+
+def _winner_tokens(winners, keys, n_tokens):
+    """K3's packed winners [B*N1, GB, words] over each key item's selected
+    tokens ``keys`` [GB, N2] as a mask over the item's own tokens [B*N1,
+    GB, n_tokens], so that another path, which may hold the same tokens in
+    another order, can take the same winners."""
+    import torch
+
+    r, gb, _ = winners.shape
+    n2 = keys.shape[1]
+    bits = torch.arange(32, dtype=torch.int32, device=winners.device)
+    win = ((winners[..., None] >> bits) & 1).reshape(r, gb, -1)[..., :n2]
+    mask = torch.zeros(r, gb, n_tokens, dtype=win.dtype, device=win.device)
+    return mask.scatter_(2, keys[None].expand(r, -1, -1), win).bool()
+
+
+class _RecordLateInteraction:
+    """Stands in for ``method_losses.dispatch_late_interaction`` for the
+    length of a ``with`` block: each call runs ``late`` and keeps its
+    inputs. With ``pinned`` (a token mask a call, from ``_winner_tokens``)
+    and ``keys`` (the key tokens a call, in this path's order) set, each
+    call takes the max winners the mask names instead of its own: a near
+    tie that rounds the other way on another path would move a winner's
+    whole gradient share, so two paths are compared on the same winners."""
+
+    def __init__(self, late, pinned=None):
+        self.late, self.pinned, self.keys, self.inputs = late, pinned, None, []
+
+    def __enter__(self):
+        from declip_tpu_torch.train import method_losses
+
+        self.module = method_losses
+        self.saved = method_losses.dispatch_late_interaction
+        method_losses.dispatch_late_interaction = lambda cfg=None: self
+        return self
+
+    def __call__(self, d1, d2, scale):
+        import torch
+
+        from declip_tpu_torch.ops.filip_late_interaction import (
+            _similarities,
+        )
+
+        i = len(self.inputs)
+        self.inputs.append((d1.detach(), d2.detach()))
+        if self.pinned is None:
+            return self.late(d1, d2, scale)
+        b, n1, _ = d1.shape
+        gb, n2, _ = d2.shape
+        keys = self.keys[i]
+        win = torch.gather(self.pinned[i], 2,
+                           keys[None].expand(b * n1, -1, -1)).float()
+        win = win.reshape(b, n1, gb, n2).permute(0, 2, 1, 3)
+        raw = (_similarities(d1, d2) * win).sum(-1) / win.sum(-1)
+        return scale.float() * raw.mean(-1)
+
+    def __exit__(self, *exc):
+        self.module.dispatch_late_interaction = self.saved
+
+
+class _Bf16RoundedAttention:
+    """K1/K2 with their inputs rounded to bf16 and back (and, through the
+    casts' backward, their input gradients too), for the length of a
+    ``with`` block: a planted fault for phase 9's fp32 step check."""
+
+    def __enter__(self):
+        import torch
+
+        from declip_tpu_torch.ops import attention
+
+        real = attention.flash_attention
+
+        def rounded(q, k, v, **kwargs):
+            q, k, v = (t.to(torch.bfloat16).to(t.dtype) for t in (q, k, v))
+            return real(q, k, v, **kwargs)
+
+        self.module, self.saved = attention, real
+        attention.flash_attention = rounded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention = self.saved
+
+
+class _Fp64Attention:
+    """The plain attention path with its scores, softmax and P.V in
+    float64 (the output back in the input's dtype), for the length of a
+    ``with`` block: the yardstick of how far the attention's own fp32
+    rounding moves a gradient (STEP_GRAD_ATTN64_FACTOR)."""
+
+    def __enter__(self):
+        from declip_tpu_torch.ops import attention
+
+        def fp64(q, k, v, causal=False, scale=None):
+            import torch
+
+            if scale is None:
+                scale = q.shape[-1] ** -0.5
+            s = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+            if causal:
+                keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                                  device=s.device).tril()
+                s = s.masked_fill(~keep, float("-inf"))
+            return torch.matmul(torch.softmax(s, dim=-1),
+                                v.double()).to(q.dtype)
+
+        self.module, self.saved = attention, attention.attention_plain
+        attention.attention_plain = fp64
+        return self
+
+    def __exit__(self, *exc):
+        self.module.attention_plain = self.saved
+
+
+def _method_fp32_step(config, method, batch, per_step):
+    """One fp32 loss and gradient of ``method`` from the seeded weights
+    (and bank) through the kernels, through K1/K2 with the chunked late
+    interaction (DeFILIP), and through the plain path (plain attention, the
+    chunked late interaction), with the kernels' calls checked on each: ->
+    the readings; and through the plain path with its attention in fp64,
+    the yardstick of how far the attention's own rounding moves each
+    gradient. Both plain paths take the kernels' late-interaction max
+    winners, token by token (``_RecordLateInteraction``), and how many of
+    their own would differ is reported. Checks the loss within
+    STEP_LOSS_RTOL; each parameter's ||g_k - g_p|| within the larger of
+    STEP_GRAD_REL_NORM ||g_p|| and STEP_GRAD_ATTN64_FACTOR times its
+    fp64-attention move, and never above STEP_GRAD_ATTN64_CAP ||g_p||,
+    which a planted fault (``_Bf16RoundedAttention``) must fail; the
+    biases before a BatchNorm at the noise level of their weights'
+    gradients; zero gradients zero on both; and K3-K5
+    against the chunked late interaction behind the same K1 and K2 within
+    STEP_LI_GRAD_REL_NORM. Reads first, checks after, so that a failure
+    reports every reading, the argmax choices of each path among them (the
+    bank's neighbours, the top-k token selections)."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models.layers import (
+        MultiHeadAttention,
+        discard_bn_stats,
+    )
+    from declip_tpu_torch.models.memory_bank import nearest_indices
+    from declip_tpu_torch.ops.filip_late_interaction import (
+        late_interaction_fwd,
+        late_interaction_logits_kernel,
+        late_interaction_winners_plain,
+    )
+    from declip_tpu_torch.ops.filip_ops import late_interaction_logits
+    from declip_tpu_torch.train import make_losses_from_out, new_train_state
+
+    cfg = parse_config(config)
+    model = _method_build(cfg, "float32")
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    plain_cfg = parse_config(config)
+    plain_cfg["filip_dense"] = {"impl": "xla"}
+    li = per_step["K3"] > 0
+    attn_only = {**per_step, "K3": 0, "K4": 0, "K5": 0}
+    runs = [("kernels", "auto", cfg, per_step)]
+    if li:
+        runs.append(("attention kernels", "auto", plain_cfg, attn_only))
+    runs.append(("plain", "xla", plain_cfg, dict.fromkeys(per_step, 0)))
+    runs.append(("plain, fp64 attention", "xla", plain_cfg,
+                 dict.fromkeys(per_step, 0)))
+    runs.append((PLANTED, "auto", cfg, per_step))
+    grads, totals, choices, calls, li_inputs, li_keys = {}, {}, {}, {}, {}, {}
+    pinned = None
+    for path, attn_impl, run_cfg, want in runs:
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.attn_impl = attn_impl
+        discard_bn_stats(model)
+        state = new_train_state(model=model, opt_state=None,
+                                bank_text=_seeded_method_bank(model))
+        recorder = _RecordLateInteraction(
+            late_interaction_logits_kernel if path in ("kernels", PLANTED)
+            else late_interaction_logits,
+            pinned if li and path.startswith("plain") else None)
+        attention = (_Fp64Attention() if path == "plain, fp64 attention"
+                     else _Bf16RoundedAttention() if path == PLANTED
+                     else contextlib.nullcontext())
+        before = read_launches()
+        with _CallCounter() as plain, recorder, attention:
+            out = model(batch)
+            if li:
+                # the key tokens of the two late interactions: the text
+                # selection for the image queries, then the image
+                # selection for the text queries (defilip_losses' order)
+                recorder.keys = _selected_tokens(model, out)[::-1]
+            total, _ = make_losses_from_out(run_cfg, method)(model, state,
+                                                             out)
+            grads[path] = [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(params, torch.autograd.grad(
+                               total, params, allow_unused=True))]
+        totals[path] = float(total.detach())
+        calls[path] = ({k: n - before[k] for k, n in read_launches().items()},
+                       want, plain.calls)
+        li_inputs[path], li_keys[path] = recorder.inputs, recorder.keys
+        if li and path == "kernels":
+            # K3's own winners there (launches outside the count), by token
+            pinned = [_winner_tokens(late_interaction_fwd(d1, d2)[1], keys,
+                                     n_tokens)
+                      for (d1, d2), keys, n_tokens in zip(
+                          recorder.inputs, recorder.keys,
+                          (out["dense_text"].shape[1],
+                           out["dense_image_1"].shape[1]))]
+        with torch.no_grad():
+            chosen = {}
+            if state.bank_text is not None:
+                for key in ("text_embed", "text_embed_aug"):
+                    chosen[f"bank {key}"] = nearest_indices(
+                        state.bank_text, out[key])
+            if "dense_image_1" in out:
+                img, txt = out["dense_image_1"], out["dense_text"]
+                cross = torch.einsum("bnd,bmd->bnm", img.float(),
+                                     txt.float())
+                for key, mass in (("top-k image", cross.sum(2)),
+                                  ("top-k text", cross.sum(1))):
+                    chosen[key] = torch.topk(mass, model.top_k,
+                                             dim=1).indices.sort(1).values
+            choices[path] = chosen
+        del total, state, out
+    discard_bn_stats(model)
+    flips = {key: int((choices["kernels"][key]
+                       != choices["plain"][key]).any(-1).sum())
+             for key in choices["plain"]}
+    gq = dict(zip(names, grads["plain, fp64 attention"]))
+    # (query row, key item) pairs whose own max winner (by token) on a
+    # plain path's features differs from the kernels': the near ties that
+    # the pinning takes out of the comparison
+    with torch.no_grad():
+        li_flips = {path: sum(
+            int((_winner_tokens(late_interaction_winners_plain(d1, d2),
+                                keys, pin.shape[2]) != pin).any(-1).sum())
+            for (d1, d2), keys, pin in zip(li_inputs[path],
+                                           li_keys[path], pinned))
+            for path in ("plain", "plain, fp64 attention") if li}
+    loss_err = abs(totals["kernels"] - totals["plain"]) / abs(totals["plain"])
+    gk, gp = dict(zip(names, grads["kernels"])), dict(zip(names,
+                                                         grads["plain"]))
+    rel, floor, noise, zero = {}, {}, {}, []
+    for name in names:
+        a, b = gk[name], gp[name]
+        if name in METHOD_NOISE_GRADS[method]:
+            weight = name[: -len("bias")] + "weight"
+            for path, g in (("kernels", gk), ("plain", gp)):
+                noise[f"{path} {name}"] = (
+                    torch.linalg.vector_norm(g[name]).item()
+                    / torch.linalg.vector_norm(g[weight]).item())
+            continue
+        if not b.any().item():
+            zero.append(name)
+            rel[name] = 0.0 if not a.any().item() else float("inf")
+            continue
+        rel[name] = _rel_norm(a, b)[0]
+        floor[name] = _rel_norm(gq[name], b)[0]
+    limit = {n: min(STEP_GRAD_ATTN64_CAP, max(
+        STEP_GRAD_REL_NORM, STEP_GRAD_ATTN64_FACTOR * floor[n]))
+        for n in floor}
+    worst = sorted(((r / limit[n], n, r, floor[n])
+                    for n, r in rel.items() if n in limit), reverse=True)[:5]
+    by_attn64 = sum(lim > STEP_GRAD_REL_NORM for lim in limit.values())
+    gf = dict(zip(names, grads[PLANTED]))
+    planted_shares = sorted(
+        ((_rel_norm(gf[n], gp[n])[0] / limit[n], n) for n in limit),
+        reverse=True)
+    planted_over = sum(q > 1.0 for q, _ in planted_shares)
+    planted_loss_err = (abs(totals[PLANTED] - totals["plain"])
+                        / abs(totals["plain"]))
+    li_err = None
+    if li:
+        li_err = max(_rel_norm(a, b)[0] for a, b in zip(
+            grads["kernels"], grads["attention kernels"]) if b.any().item())
+    print(f"train {method} fp32 step, kernels vs plain path: loss "
+          f"{totals['kernels']:.6f} vs {totals['plain']:.6f} (rel err "
+          f"{loss_err:.2e}); relative gradient norm errs: max "
+          f"{max(rel.values()):.3g}, median "
+          f"{float(np.median(list(rel.values()))):.3g}; the plain path's "
+          f"own move with its attention in fp64: max "
+          f"{max(floor.values()):.3g}, median "
+          f"{float(np.median(list(floor.values()))):.3g}; limit each "
+          f"min({STEP_GRAD_ATTN64_CAP}, max({STEP_GRAD_REL_NORM}, "
+          f"{STEP_GRAD_ATTN64_FACTOR} x that move)), {by_attn64} of "
+          f"{len(limit)} above {STEP_GRAD_REL_NORM}; "
+          f"nearest their limits (share, name, err, fp64-attention move): "
+          f"{[(f'{q:.2f}', n, f'{r:.3g}', f'{f:.3g}') for q, n, r, f in worst]}; "
+          f"{len(zero)} exactly "
+          f"zero on the plain path; the biases before a BatchNorm at most "
+          f"{max(noise.values()):.3g} of their weights' gradient norm; "
+          f"rows whose argmax choice differs between the paths {flips}; "
+          f"(query row, key item) pairs whose own max winner differs from "
+          f"the kernels' (pinned to the kernels') {li_flips}"
+          + (f"; K3-K5 against the chunked late interaction, both behind "
+             f"K1 and K2: max relative norm err {li_err:.3g} (limit "
+             f"{STEP_LI_GRAD_REL_NORM})" if li else "")
+          + f"; {PLANTED}: loss rel err {planted_loss_err:.2e}, "
+          f"{planted_over} of {len(limit)} parameters over their limits "
+          f"(the largest shares "
+          f"{[(f'{q:.3g}', n) for q, n in planted_shares[:3]]})",
+          flush=True)
+    for path, (used, want, n_plain) in calls.items():
+        check(used == want, f"fp32 {method} step through the {path}: "
+                            f"kernel calls {used}, want {want}")
+        check(n_plain == 0 if path == "kernels" else
+              n_plain > 0 if path == "plain" else True,
+              f"fp32 {method} step through the {path}: {n_plain} plain "
+              f"calls")
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"fp32 {method} loss kernels {totals['kernels']} vs plain "
+          f"{totals['plain']}")
+    for key, r in noise.items():
+        check(r <= STEP_NOISE_REL_NORM,
+              f"fp32 {method} grad {key}: not at the noise level of its "
+              f"weight's")
+    for share, name, r, f in worst:
+        check(share <= 1.0,
+              f"fp32 {method} grad {name}: ||kernels - plain|| / ||plain|| "
+              f"= {r:.3g}, limit min({STEP_GRAD_ATTN64_CAP}, "
+              f"max({STEP_GRAD_REL_NORM}, {STEP_GRAD_ATTN64_FACTOR} x "
+              f"{f:.3g}))")
+    check(planted_over > 0 or planted_loss_err > STEP_LOSS_RTOL,
+          f"the fp32 {method} step check passes a planted fault, "
+          f"{PLANTED}: largest shares {planted_shares[:3]}")
+    if li:
+        check(li_err <= STEP_LI_GRAD_REL_NORM,
+              f"fp32 {method} step, K3-K5 vs the chunked late interaction "
+              f"behind K1 and K2: {li_err:.3g}, limit "
+              f"{STEP_LI_GRAD_REL_NORM}")
+    del model, grads, params, gk, gp, gf
+    torch.cuda.empty_cache()
+    return {"fp32_loss": totals, "fp32_loss_rel_err": loss_err,
+            "fp32_max_grad_rel_norm_err": max(rel.values()),
+            "fp32_median_grad_rel_norm_err": float(np.median(
+                list(rel.values()))),
+            "fp32_attn64_move_max": max(floor.values()),
+            "fp32_attn64_move_median": float(np.median(
+                list(floor.values()))),
+            "fp32_params_over_1e-4": by_attn64,
+            "fp32_nearest_limit": worst,
+            "fp32_noise_grads": noise, "fp32_zero_grad_params": zero,
+            "fp32_argmax_flips": flips,
+            "fp32_li_winner_flips": li_flips,
+            "fp32_li_only_max_grad_rel_norm_err": li_err,
+            "fp32_planted_loss_rel_err": planted_loss_err,
+            "fp32_planted_params_over_limit": planted_over,
+            "fp32_planted_largest_shares": planted_shares[:5]}
+
+
+def _method_train(method, cfg, views, per_step):
+    """``method``'s recipe at full width in bf16: warm-up steps, then
+    METHOD_TRAIN_STEPS counted and timed as the main path; checks the
+    losses, the updates, the logit scale and the launches. -> (result,
+    model, step, state, batch)."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.optim import (
+        optim_entry,
+        path_prefix_mask,
+        scheduler_entry,
+    )
+    from declip_tpu_torch.train import (
+        make_train_step,
+        method_of,
+        new_train_state,
+    )
+
+    t0 = time.perf_counter()
+    model = _method_build(cfg, cfg.precision.dtype)
+    vis, txt = model.visual, model.encode_text
+    check((vis.width, len(vis.transformer.resblocks), vis.patch_size,
+           vis.input_resolution, txt.ln_final.normalized_shape[0],
+           len(txt.transformer.resblocks), txt.vocab_size, vis.dtype,
+           txt.dtype, method_of(model))
+          == (768, 12, 32, 224, 512, 12, VOCAB, torch.bfloat16,
+              torch.bfloat16, method),
+          f"model is not {cfg.model.type} at full width in bf16")
+    named = dict(model.named_parameters())
+    max_iter = int(cfg.lr_scheduler.kwargs.max_iter)
+    sched = scheduler_entry(cfg.lr_scheduler, max_iter=max_iter)
+    tx = optim_entry(cfg.optimizer, model, sched,
+                     pconfig=cfg.optimizer.pconfig,
+                     grad_clip=dict(cfg.grad_clip),
+                     frozen_mask=path_prefix_mask(
+                         named, vis.frozen_param_paths()))
+    state = new_train_state(model=model, opt_state=tx.init(named),
+                            bank_text=_seeded_method_bank(model))
+    step = make_train_step(model, tx, cfg, sched, total_steps=max_iter)
+    batch = _method_batch(np.random.default_rng(SEED), views)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in named.values())
+    print(f"train {method}: {cfg.model.type} bf16, {n_params / 1e6:.1f} M "
+          f"fp32 params, batch {TRAIN_BATCH}, set up in {setup_s:.1f} s",
+          flush=True)
+    history = []
+
+    def run(n):
+        steps = []
+        for _ in range(n):
+            _, metrics = step(state, batch)
+            steps.append((metrics, model.logit_scale.detach().clone()))
+        for metrics, scale in steps:
+            m = {k: float(v) for k, v in metrics.items()}
+            m["logit_scale_param"] = float(scale)
+            history.append(m)
+            check(m["update_skipped"] == 0.0, f"a step was skipped: {m}")
+            check(all(np.isfinite(v) for k, v in m.items()
+                      if k.endswith("loss")), f"a loss is not finite: {m}")
+            check(3.0 <= m["logit_scale_param"] <= 6.0,
+                  f"logit_scale param outside [3, 6]: {m}")
+
+    run(TRAIN_WARMUP_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ptr0 = state.bank_text.ptr if state.bank_text is not None else None
+    reset_launches()  # main path starts
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with _CallCounter() as plain:
+        t0 = time.perf_counter()
+        start.record()
+        run(METHOD_TRAIN_STEPS)
+        end.record()
+        end.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = read_launches()  # main path ends
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    step_ms = start.elapsed_time(end) / METHOD_TRAIN_STEPS
+    losses = [m["loss"] for m in history]
+    check(losses[-1] < losses[0], f"{method} loss did not fall: {losses}")
+    check(launches == {k: n * METHOD_TRAIN_STEPS
+                       for k, n in per_step.items()},
+          f"{method}: {launches} kernel calls in {METHOD_TRAIN_STEPS} steps "
+          f"(want {per_step} per step)")
+    check(plain.calls + plain.cross == 0,
+          f"{method}: {plain.calls + plain.cross} plain-version calls")
+    result = {"launches": launches, "per_step": per_step,
+              "steps": METHOD_TRAIN_STEPS,
+              "warmup_steps": TRAIN_WARMUP_STEPS, "losses": losses,
+              "history": history, "step_ms": step_ms,
+              "host_step_ms": wall_s * 1e3 / METHOD_TRAIN_STEPS,
+              "pairs_per_s": TRAIN_BATCH * 1e3 / step_ms,
+              "peak_device_mib": peak_mib, "setup_s": setup_s}
+    if ptr0 is not None:
+        want_ptr = (ptr0 + 2 * TRAIN_BATCH * METHOD_TRAIN_STEPS) % \
+            state.bank_text.bank.shape[0]
+        check(state.bank_text.ptr == want_ptr,
+              f"{method} bank pointer {state.bank_text.ptr}, want "
+              f"{want_ptr}")
+        result["bank_ptr"] = [ptr0, state.bank_text.ptr]
+    print(f"train {method}: losses {[round(x, 4) for x in losses]}; last "
+          f"step's terms {({k: round(v, 4) for k, v in history[-1].items() if k.endswith('loss')})}",
+          flush=True)
+    print(f"train {method}: {METHOD_TRAIN_STEPS} steps, {step_ms:.2f} "
+          f"ms/step (CUDA events; host "
+          f"{wall_s * 1e3 / METHOD_TRAIN_STEPS:.2f}), "
+          f"{TRAIN_BATCH * 1e3 / step_ms:.1f} pairs/s, kernel calls "
+          f"{launches}, peak device memory {peak_mib:.0f} MiB", flush=True)
+    return result, model, step, state, batch
+
+
+def _profile_method(method, result, step, state, batch):
+    breakdown = profile_steps(lambda: step(state, batch), 3,
+                              result["step_ms"])
+    print(f"train {method}: device busy {breakdown['busy_ms']:.2f} ms/step, "
+          f"idle share {breakdown['idle_share']:.1%}, K3+K4+K5 "
+          f"{breakdown['li_ms']:.3f} ms ({breakdown['li_share']:.1%}), K1 "
+          f"{breakdown['k1_ms']:.2f} ms, K2 {breakdown['k2_ms']:.2f} ms",
+          flush=True)
+    print(f"  by kind: {breakdown['by_kind_ms']}")
+    for n, v in breakdown["top_kernels_ms"]:
+        print(f"  {v:8.3f} ms  {n[:110]}")
+    result.update(breakdown)
+
+
+def phase_train_methods():
+    """Phase 9: the DeFILIP and SLIP ViT-B/32 training slices (see the
+    module docstring)."""
+    import torch
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models.layers import BatchNorm
+
+    out = {}
+    cfg = parse_config(DEFILIP_CONFIG)
+    res, model, step, state, batch = _method_train(
+        "defilip", cfg, 2, DEFILIP_PER_STEP)
+    check((model.top_k, model.select_topk, model.return_filip,
+           model.image_mapping.out_features,
+           tuple(state.bank_text.bank.shape))
+          == (16, True, True, 256, (2 ** 16, DEFILIP_BANK_DIM)),
+          "the DeFILIP recipe's dense head or bank")
+    _profile_method("defilip", res, step, state, batch)
+    # the same model under dense_aug: the four pairings, each with its own
+    # top-k selections
+    model.dense_aug = True
+    reset_launches()  # a main path starts
+    for _ in range(2):
+        _, m = step(state, batch)
+        check(float(m["update_skipped"]) == 0.0
+              and torch.isfinite(m["filip_loss"]).item(),
+              f"dense_aug step: {m}")
+    aug = read_launches()  # ... and ends
+    check(aug == {k: 2 * n for k, n in DEFILIP_AUG_PER_STEP.items()},
+          f"DeFILIP with dense_aug: {aug} kernel calls in 2 steps (want "
+          f"{DEFILIP_AUG_PER_STEP} a step)")
+    res["dense_aug_launches"] = aug
+    print(f"train defilip with dense_aug: kernel calls {aug} in 2 steps",
+          flush=True)
+    del model, step, state
+    torch.cuda.empty_cache()
+    res.update(_method_fp32_step(DEFILIP_CONFIG, "defilip", batch,
+                                 DEFILIP_PER_STEP))
+    out["defilip"] = res
+    del batch
+    torch.cuda.empty_cache()
+
+    cfg = parse_config(SLIP_CONFIG)
+    res, model, step, state, batch = _method_train(
+        "slip", cfg, 3, SLIP_PER_STEP)
+    check((model.predictor_sim.linear1.in_features,
+           model.predictor_sim.linear3.out_features,
+           hasattr(model.predictor_sim, "bn3")) == (768, 256, False),
+          "SLIP's predictor_sim is not the recipe's")
+    bns = [m for m in model.predictor_sim.modules()
+           if isinstance(m, BatchNorm)]
+    stats0 = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    step(state, batch)
+    for m, (mean0, var0) in zip(bns, stats0):
+        check(bool(torch.isfinite(m.running_mean).all()
+                   and torch.isfinite(m.running_var).all())
+              and not torch.equal(m.running_mean, mean0)
+              and not torch.equal(m.running_var, var0),
+              "predictor_sim's BatchNorm statistics did not move, or are "
+              "not finite")
+    _profile_method("slip", res, step, state, batch)
+    del model, step, state, bns, stats0
+    torch.cuda.empty_cache()
+    res.update(_method_fp32_step(SLIP_CONFIG, "slip", batch,
+                                 SLIP_PER_STEP))
+    out["slip"] = res
+    del batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def solver_method_calls(solver, steps, per_step, dense, eval_batches):
+    """The launches a solver run of ``method`` makes: ``per_step`` a step,
+    and for the zero-shot eval at its end K1 once a text layer for each
+    class-embedding chunk (min(512 // prompts, classes) classes a chunk
+    when dense, 2048 // prompts pooled) and once an image layer for each
+    eval batch (a ViT's), and K3 once an eval batch when dense."""
+    model = solver.model
+    layers = len(model.encode_text.transformer.resblocks)
+    per_chunk = min((512 if dense else 2048) // SOLVER_PROMPTS,
+                    SOLVER_CLASSES)
+    chunks = -(-SOLVER_CLASSES // per_chunk)
+    vis = getattr(model.visual, "transformer", None)
+    image_layers = len(vis.resblocks) if vis is not None else 0
+    want = {k: n * steps for k, n in per_step.items()}
+    want["K1"] += chunks * layers + eval_batches * image_layers
+    if dense:
+        want["K3"] += eval_batches
+    return want
+
+
+def phase_solver_methods(tmp, corpus):
+    """Phase 10: DeFILIP and SLIP-ResNet-50 through
+    ``declip_tpu_torch.solver.main`` on phase 7's corpus, DeFILIP's
+    zero-shot eval dense through K3."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch import solver as solver_mod
+    from declip_tpu_torch.models.clip_model import l2_normalize
+    from declip_tpu_torch.ops.filip_late_interaction import (
+        late_interaction_logits_kernel,
+    )
+    from declip_tpu_torch.ops.filip_ops import late_interaction_logits
+
+    out = {}
+    n_val = SOLVER_CLASSES * SOLVER_PER_CLASS
+    for name, recipe, steps in (("defilip", DEFILIP_RECIPE,
+                                 DEFILIP_SOLVER_STEPS),
+                                ("slip_r50", SLIP_R50_RECIPE,
+                                 SLIP_SOLVER_STEPS)):
+        cfg_path, sets = solver_experiment(tmp, f"exp_{name}", corpus,
+                                           recipe, save_freq=2,
+                                           save_many=None)
+        exp = os.path.dirname(cfg_path)
+        seen = []
+        make_step = solver_mod.make_train_step
+
+        def recording_make_train_step(*args, **kwargs):
+            step = make_step(*args, **kwargs)
+
+            def recorded(state, batch):
+                seen.append((batch["images"].dtype,
+                             tuple(batch["images"].shape)))
+                return step(state, batch)
+            return recorded
+
+        solver_mod.make_train_step = recording_make_train_step
+        try:
+            with _CallCounter() as plain:
+                reset_launches()  # a main path starts
+                t = time.perf_counter()
+                solver = solver_mod.main(
+                    ["--config", cfg_path, "--device", "cuda", "--set",
+                     *sets, f"lr_scheduler.kwargs.max_iter={steps}"])
+                wall_s = time.perf_counter() - t
+                launches = read_launches()  # ... and ends
+        finally:
+            solver_mod.make_train_step = make_step
+        st = solver.state
+        tcfg = solver.test_cfgs[0]
+        dense = solver.dense_eval(tcfg)
+        method = "defilip" if name == "defilip" else "slip"
+        views = 2 if method == "defilip" else 3
+        check((solver.method, dense, solver.global_batch, st.step)
+              == (method, method == "defilip", TRAIN_BATCH, steps),
+              f"phase 10 {name}: method {solver.method}, dense {dense}, "
+              f"batch {solver.global_batch}, step {st.step}")
+        check(seen == [(torch.float32, (TRAIN_BATCH, 224, 224, 3 * views))]
+              * steps, f"phase 10 {name}: the step's images {seen}")
+        scalars = scalars_by_tag(os.path.join(exp, "events",
+                                              "scalars.jsonl"))
+        terms = [t for t in scalars if t.endswith("loss")]
+        check(("filip_loss" if method == "defilip" else "simclr_loss")
+              in terms, f"phase 10 {name}: loss terms {terms}")
+        for tag in terms:
+            values = [v for _, v in scalars[tag]]
+            check(len(values) == steps and np.isfinite(values).all(),
+                  f"phase 10 {name}: {tag} {values}")
+        check([v for _, v in scalars["update_skipped"]] == [0.0] * steps,
+              f"phase 10 {name}: skipped updates")
+        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        check(f"ckpt_{steps}.pth.tar" in ckpts, f"checkpoints {ckpts}")
+        with open(os.path.join(exp, "results", "results.txt.rank0")) as f:
+            n_results = sum(1 for _ in f)
+        top = {k: scalars[f"eval0/{k}"][-1][1] for k in ("top1", "top5")}
+        check(n_results == n_val and all(0 <= v <= 100
+                                         for v in top.values()),
+              f"phase 10 {name}: {n_results} results (want {n_val}), {top}")
+        eval_batches = -(-n_val // int(tcfg["batch_size"]))
+        per_step = DEFILIP_PER_STEP if method == "defilip" else {
+            "K1": 12, "K2": 12, "K3": 0, "K4": 0, "K5": 0}
+        want = solver_method_calls(solver, steps, per_step, dense,
+                                   eval_batches)
+        check(launches == want,
+              f"phase 10 {name}: kernel calls {launches}, want {want}")
+        check(plain.calls == 0, f"phase 10 {name}: {plain.calls} plain "
+                                f"calls")
+        res = {"launches": launches, "steps": steps, "wall_s": wall_s,
+               "losses": [v for _, v in scalars["loss"]],
+               "terms": {t: scalars[t][-1][1] for t in terms},
+               "top1": top["top1"], "top5": top["top5"], "dense": dense,
+               "eval_batches": eval_batches, "eval_s": solver.eval_seconds,
+               "pooled_query_calls": plain.cross}
+        if dense:
+            # one eval batch's logits through K3 against the chunked plain
+            # late interaction on the same features
+            dataset, bs = solver._eval_loader(tcfg)
+            label_texts, ensemble = dataset.get_label_texts()
+            imgs = solver._padded(np.stack(
+                [dataset[i]["image"] for i in range(bs)]), bs)
+            with solver._eval_mode() as model:
+                feats = l2_normalize(model.encode_image_dense(imgs))
+                cls = solver.dense_class_embeddings(
+                    model, label_texts, ensemble.shape[0])
+                one = torch.ones((), device="cuda")
+                k = late_interaction_logits_kernel(feats, cls, one)
+                p = late_interaction_logits(feats, cls, one)
+            ok, err, _ = _within(k, p, *EVAL_LI_TOLERANCE)
+            check(ok and feats.dtype == cls.dtype == torch.bfloat16,
+                  f"phase 10: an eval batch's K3 logits against the "
+                  f"chunked plain late interaction: max abs err {err:.3g} "
+                  f"(rtol, atol {EVAL_LI_TOLERANCE}); features "
+                  f"{feats.dtype} x {cls.dtype}")
+            res["eval_li_max_abs_err"] = err
+            res["eval_li_shape"] = [*feats.shape, *cls.shape]
+        out[name] = res
+        print(f"solver {name}: {steps} steps of {recipe} in {wall_s:.1f} s; "
+              f"losses {[round(x, 4) for x in res['losses']]}; zero-shot "
+              f"({'dense, K3' if dense else 'pooled'}) top1 {top['top1']:.2f}"
+              f" top5 {top['top5']:.2f} over {n_results}; kernel calls "
+              f"{launches}; eval {solver.eval_seconds[-1]:.2f} s"
+              + (f"; one eval batch, K3 vs the chunked plain late "
+                 f"interaction: max abs err {res['eval_li_max_abs_err']:.3g}"
+                 if dense else ""), flush=True)
+        del solver, st
+        torch.cuda.empty_cache()
+
+    return out
+
+
 def _path_sums(rows, cases, dtype_name, prefix=""):
     """Each time summed over the path's shapes in one dtype; the path is
     bound by what bounds its largest bound."""
@@ -2907,13 +3871,15 @@ def _path_sums(rows, cases, dtype_name, prefix=""):
     return out
 
 
-def _li_entries(li_rows, filip_result):
-    """K3, K4 and K5: launches from the FILIP training run; times summed over
-    the training path's two calls (image and text queries, B=128, bf16, the
-    continuous unit vectors), errors the largest over every shape checked in
-    that dtype. plain_ms is each kernel's own plain version (K3's makes the
-    raw logits and the winner mask; K4's and K5's contract the mask).
-    "k3_k4_k5" is the three together, against the sum of their bounds."""
+def _li_entries(li_rows, li_paths, k3_eval):
+    """K3, K4 and K5: launches from the paths that run them (``li_paths``:
+    {path: launches by kernel}); times summed over the FILIP training
+    path's two calls (image and text queries, B=128, bf16, the continuous
+    unit vectors), errors the largest over every shape checked in that
+    dtype. plain_ms is each kernel's own plain version (K3's makes the raw
+    logits and the winner mask; K4's and K5's contract the mask).
+    "k3_k4_k5" is the three together, against the sum of their bounds. K3
+    also carries its times at the dense eval's shape under "eval"."""
     main = [r for r in li_rows if r["dtype"] == "bfloat16" and not r["ties"]
             and tuple(r["shape"]) in LI_MAIN_CASES]
     check(len(main) == len(LI_MAIN_CASES), "main-path shapes missing")
@@ -2928,7 +3894,9 @@ def _li_entries(li_rows, filip_result):
             "route": "cuda",
             "source": "declip_tpu_torch/csrc/filip_li.cu",
             "replaces": f"declip_tpu/ops/filip_pallas.py:{line}",
-            "launches": filip_result["launches"][kname],
+            "launches": sum(p[kname] for p in li_paths.values()),
+            "launches_by_path": {path: p[kname]
+                                 for path, p in li_paths.items()},
             "max_abs_err": max(r[kname]["max_abs_err"] for r in li_rows
                                if r["dtype"] == "bfloat16"),
             **sums,
@@ -2938,6 +3906,12 @@ def _li_entries(li_rows, filip_result):
             "times_for": "FILIP training path: B=GB=128, N1=49 + N1=77, "
                          "N2=16, D=256, bf16",
         })
+    entries[0]["eval"] = {
+        **{k: k3_eval[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "max_abs_err", "matmul_ms", "timer")},
+        "library_ms": None,
+        "times_for": "dense zero-shot eval: B=128, N1=49 against C=1000, "
+                     "N2=77, D=256, bf16; matmul_ms is its product alone"}
     total = {key: sum(e[key] for e in entries)
              for key in ("ms", "bound_ms")}
     for e in entries:
@@ -2945,43 +3919,49 @@ def _li_entries(li_rows, filip_result):
     return entries
 
 
-def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
-                 filip_result, declip_result, solver_result, fast_result):
-    """One entry per kernel. K1 is on every path: its launches are the
-    serving run's plus the two training runs', each counted from 0 around
-    its path; its times are the serving path's (the sum over its two shapes,
-    image L=50 and text L=77 causal, at B=8 in fp32, device time per call),
-    with the training path's beside them under "train" (B=128, bf16, with
-    the log-sum-exp; its error is that of its output O). K2 runs on the
-    training paths: its times are the sum over the same two shapes at
-    B=128 in bf16 (the DeCLIP step's text passes run both at L=77 causal).
-    K3-K5 run on the FILIP training path (``_li_entries``). The solver's
-    run (phase 7: the DeCLIP recipe through ``solver.main``, eval included)
-    adds to K1's and K2's launches, its resume apart, and so does phase 8's
-    (the same recipe on the fast input path)."""
+def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
+                 train_result, filip_result, declip_result, solver_result,
+                 fast_result, methods_result, solver_methods_result):
+    """One entry per kernel. K1 is on every path: its launches are the sum
+    over the paths, each counted from 0 around it; its times are the
+    serving path's (the sum over its two shapes, image L=50 and text L=77
+    causal, at B=8 in fp32, device time per call), with the training
+    path's beside them under "train" (B=128, bf16, with the log-sum-exp;
+    its error is that of its output O). K2 runs on the training paths: its
+    times are the sum over the same two shapes at B=128 in bf16 (the
+    DeCLIP step's text passes run both at L=77 causal). K3-K5 run on the
+    FILIP, DeFILIP (with and without dense_aug) and DeFILIP solver paths
+    (``_li_entries``). The solver's runs (phase 7: the DeCLIP recipe
+    through ``solver.main``, eval included; its resume; phase 8's fast
+    input path; phase 10's DeFILIP and SLIP-R50) add to the launches."""
     serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
     k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
     k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
-    filip = filip_result["launches"]
-    declip = declip_result["launches"]
-    solver = solver_result["launches"]
-    resume = solver_result["resume_launches"]
-    fast = fast_result["launches"]
+    paths = {"train_filip": filip_result["launches"],
+             "train_declip": declip_result["launches"],
+             "solver": solver_result["launches"],
+             "solver_resume": solver_result["resume_launches"],
+             "solver_fast_input": fast_result["launches"],
+             "train_defilip": methods_result["defilip"]["launches"],
+             "train_defilip_dense_aug":
+                 methods_result["defilip"]["dense_aug_launches"],
+             "train_slip": methods_result["slip"]["launches"],
+             "solver_defilip": solver_methods_result["defilip"]["launches"],
+             "solver_slip_r50": solver_methods_result["slip_r50"]["launches"]}
+    k1_paths = {"serve": slice_result["launches"],
+                "train": train_result["launches"],
+                **{p: n["K1"] for p, n in paths.items()}}
+    k2_paths = {"train": train_result["bwd_launches"],
+                **{p: n["K2"] for p, n in paths.items()}}
+    li_paths = {p: n for p, n in paths.items()
+                if any(n[k] for k in ("K3", "K4", "K5"))}
     return {"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "declip_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "declip_tpu/ops/flash_attention.py:41",
-        "launches": (slice_result["launches"] + train_result["launches"]
-                     + filip["K1"] + declip["K1"] + solver["K1"]
-                     + resume["K1"] + fast["K1"]),
-        "launches_by_path": {"serve": slice_result["launches"],
-                             "train": train_result["launches"],
-                             "train_filip": filip["K1"],
-                             "train_declip": declip["K1"],
-                             "solver": solver["K1"],
-                             "solver_resume": resume["K1"],
-                             "solver_fast_input": fast["K1"]},
+        "launches": sum(k1_paths.values()),
+        "launches_by_path": k1_paths,
         "max_abs_err": serve["max_abs_err"],
         "ms": serve["ms"],
         "plain_ms": serve["plain_ms"],
@@ -2997,15 +3977,8 @@ def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
         "route": "cuda",
         "source": "declip_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": "declip_tpu/ops/flash_attention.py:72",
-        "launches": (train_result["bwd_launches"] + filip["K2"]
-                     + declip["K2"] + solver["K2"] + resume["K2"]
-                     + fast["K2"]),
-        "launches_by_path": {"train": train_result["bwd_launches"],
-                             "train_filip": filip["K2"],
-                             "train_declip": declip["K2"],
-                             "solver": solver["K2"],
-                             "solver_resume": resume["K2"],
-                             "solver_fast_input": fast["K2"]},
+        "launches": sum(k2_paths.values()),
+        "launches_by_path": k2_paths,
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -3013,7 +3986,7 @@ def kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
         "times_for": "training path: B=128, L=50 + L=77 causal, bf16",
-    }, *_li_entries(li_rows, filip_result)]}
+    }, *_li_entries(li_rows, li_paths, k3_eval)]}
 
 
 def main():
@@ -3036,6 +4009,7 @@ def main():
     rows = phase_kernel_vs_plain()
     bwd_rows = phase_backward()
     li_rows = phase_late_interaction()
+    k3_eval = phase_k3_eval_shape()
     slice_result = phase_slice()
     train_result = phase_train()
     filip_result = phase_train_filip()
@@ -3045,20 +4019,31 @@ def main():
         corpus = solver_corpus(tmp)
         solver_result = phase_solver(declip_result, tmp, corpus)
         fast_result = phase_fast_input(solver_result, tmp, corpus)
+        methods_result = phase_train_methods()
+        # whether the profiler still sees the card around phase 10 (in
+        # earlier full runs it saw no device events at its end)
+        probe = {"before_phase_10": profiler_sees_device()}
+        solver_methods_result = phase_solver_methods(tmp, corpus)
+        probe["after_phase_10"] = profiler_sees_device()
+        print(f"the profiler sees device events: {probe}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    line = kernels_line(rows, bwd_rows, li_rows, slice_result, train_result,
-                        filip_result, declip_result, solver_result,
-                        fast_result)
+    line = kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
+                        train_result, filip_result, declip_result,
+                        solver_result, fast_result, methods_result,
+                        solver_methods_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "hmma": hmma,
                    "attention": rows,
                    "attention_bwd": bwd_rows, "late_interaction": li_rows,
+                   "k3_eval": k3_eval, "profiler_probe": probe,
                    "slice": slice_result, "train": train_result,
                    "train_filip": filip_result,
                    "train_declip": declip_result, "solver": solver_result,
                    "solver_fast_input": fast_result,
+                   "train_methods": methods_result,
+                   "solver_methods": solver_methods_result,
                    "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")

@@ -8,8 +8,9 @@
   names, conv kernels HWIO -> OIHW; the BatchNorm statistics as
   ``running_mean``/``running_var``, from flax's BatchNorm and from the
   grouped-statistics layout alike, both under ``BatchNorm_0``; and the
-  method heads, FILIP's shape-``()`` ``logit_scale_dense`` included, which
-  need no renaming).
+  method heads, which need no renaming: FILIP's and DeFILIP's mappings and
+  shape-``()`` ``logit_scale_dense``, the SimSiam heads, SLIP's
+  ``predictor_sim``).
 - :func:`bank_from_jax` makes the port's ``BankState`` from a JAX
   ``BankState``'s arrays, so that both packages start from one bank.
 - :func:`load_pth` reads the ``{"model": state, "last_iter": n}`` file that

@@ -1,6 +1,7 @@
 """Reference losses in plain torch (port of declip_tpu/losses.py: the
-masked-language-model, SimSiam and ConVIRT NT-Xent losses; label smoothing
-and the SimCLR NT-Xent come with ROADMAP.md item 1.8)."""
+masked-language-model, SimSiam, SimCLR NT-Xent (local and gathered) and
+ConVIRT NT-Xent losses; label smoothing comes with the SSL builders,
+ROADMAP.md item 1.8.4)."""
 
 from __future__ import annotations
 
@@ -59,3 +60,48 @@ def nt_xent_convirt(zis: torch.Tensor, zjs: torch.Tensor,
     loss_a = cross_entropy((zis @ zjs.t()).float() / temperature, labels)
     loss_b = cross_entropy((zjs @ zis.t()).float() / temperature, labels)
     return alpha * loss_a + (1 - alpha) * loss_b
+
+
+def _nt_xent_ce(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """CE with the positive in column 0 against all negatives (``neg``
+    -inf where masked out), averaged over rows."""
+    denom = torch.logaddexp(pos, torch.logsumexp(neg, dim=-1))
+    return (denom - pos).mean()
+
+
+def nt_xent(z_i: torch.Tensor, z_j: torch.Tensor,
+            temperature: float = 0.5) -> torch.Tensor:
+    """SimCLR NT-Xent over the local batch (nt_xent.py:6-44; JAX
+    losses.py:70-91): +1e-12 norms, the similarities in the features' dtype
+    and then fp32, each row's positive the other view of its image."""
+    b = z_i.shape[0]
+    p = _unit(torch.cat([z_i, z_j]), 1e-12)
+    sim = (p @ p.t()).float() / temperature  # [2B, 2B]
+    rows = torch.arange(2 * b, device=p.device)
+    pos_idx = torch.cat([rows[b:], rows[:b]])
+    pos = sim[rows, pos_idx]
+    neg_mask = torch.ones_like(sim, dtype=torch.bool)
+    neg_mask[rows, rows] = False
+    neg_mask[rows, pos_idx] = False
+    return _nt_xent_ce(pos, sim.masked_fill(~neg_mask, float("-inf")))
+
+
+def nt_xent_gather(z_i: torch.Tensor, z_ib: torch.Tensor, z_j: torch.Tensor,
+                   z_jb: torch.Tensor, labels: torch.Tensor,
+                   temperature: float = 0.1) -> torch.Tensor:
+    """SimCLR against gathered embeddings (NT_Xent_gather, nt_xent.py:47-97;
+    JAX losses.py:94-127). z_i, z_j: local views [B, D]; z_ib, z_jb:
+    gathered views [GB, D]; labels: this shard's global row offsets
+    (``infonce_labels``). Row i of view 1 has gathered view 2's column as
+    its positive and vice versa; a row's own two columns are no
+    negatives."""
+    b, gb = z_i.shape[0], z_ib.shape[0]
+    p0 = _unit(torch.cat([z_i, z_j]), 1e-12)  # [2B, D]
+    p1 = _unit(torch.cat([z_ib, z_jb]), 1e-12)  # [2GB, D]
+    sim = (p0 @ p1.t()).float() / temperature  # [2B, 2GB]
+    rows = torch.arange(2 * b, device=sim.device)
+    pos = sim[rows, torch.cat([labels + gb, labels])]
+    col = torch.arange(2 * gb, device=sim.device)[None, :]
+    lab2 = torch.cat([labels, labels])[:, None]
+    own = (col == lab2) | (col == lab2 + gb)
+    return _nt_xent_ce(pos, sim.masked_fill(own, float("-inf")))

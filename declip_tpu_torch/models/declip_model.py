@@ -72,12 +72,9 @@ class DECLIP(nn.Module):
                  logit_scale_init: Optional[float] = None, dtype=None,
                  device=None, **unported):
         super().__init__()
-        if "return_filip" in unported:
-            raise NotImplementedError(
-                "return_filip (DeFILIP's dense term) is not ported yet "
-                "(ROADMAP.md item 1.8)")
-        if unported:
-            raise TypeError(f"DECLIP got unexpected kwargs {sorted(unported)}")
+        if unported:  # return_filip among them: DeFILIP's, as in JAX
+            raise TypeError(f"{type(self).__name__} got unexpected kwargs "
+                            f"{sorted(unported)}")
         if logit_bias_init is not None:
             raise NotImplementedError(
                 "a DeCLIP logit_bias (logit_bias_init) trains with the "
@@ -150,36 +147,32 @@ class DECLIP(nn.Module):
             embed, words = self.encode_text(first), None
         return embed, self.encode_text(second), words
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        images = batch["images"]  # [B, H, W, 6]: two stacked views, NHWC
-        img1, img2 = images[..., :3], images[..., 3:]
-        mlm = self.text_mask_type is not None
-        out: Dict[str, Any] = {}
-        if mlm:
-            # the main text pass runs on the MASKED tokens (declip.py:214-216)
-            text_embed, text_embed_aug, words = self._text_pair(
-                batch["mlm_tokens"], batch["tokens_aug"], True)
-            labels = batch["mlm_labels"]
-            if self.mlm_max_positions and \
-                    self.mlm_max_positions < words.shape[1]:
-                words, labels = compact_mlm(words, labels,
-                                            self.mlm_max_positions)
-            out["mlm_logits"] = dense(words, self.text_label_predictor.weight,
-                                      self.text_label_predictor.bias,
-                                      self.dtype)
-            out["mlm_labels"] = labels
-        else:
-            text_embed, text_embed_aug, _ = self._text_pair(
-                batch["tokens"], batch["tokens_aug"], False)
+    def _mlm_logits(self, out: Dict[str, Any], words: torch.Tensor,
+                    labels: torch.Tensor) -> None:
+        """The MLM head over the masked main pass's token features."""
+        if self.mlm_max_positions and self.mlm_max_positions < words.shape[1]:
+            words, labels = compact_mlm(words, labels, self.mlm_max_positions)
+        out["mlm_logits"] = dense(words, self.text_label_predictor.weight,
+                                  self.text_label_predictor.bias, self.dtype)
+        out["mlm_labels"] = labels
 
+    def _image_pair(self, img1: torch.Tensor, img2: torch.Tensor,
+                    return_dense: bool = False):
+        """The image tower on both views: (out 1, out 2), each the tower's
+        output (a tuple with ``return_dense``)."""
         if self.fuse_views and isinstance(self.visual, VisualTransformer):
             b = img1.shape[0]
-            both = self.encode_image(torch.cat([img1, img2]))
-            image_embed_1, image_embed_2 = both[:b], both[b:]
-        else:
-            image_embed_1 = self.encode_image(img1)
-            image_embed_2 = self.encode_image(img2)
+            both = self.visual(torch.cat([img1, img2]),
+                               return_dense=return_dense)
+            if return_dense:
+                return (both[0][:b], both[1][:b]), (both[0][b:], both[1][b:])
+            return both[:b], both[b:]
+        return (self.visual(img1, return_dense=return_dense),
+                self.visual(img2, return_dense=return_dense))
 
+    def _ssl_heads(self, out: Dict[str, Any], image_embed_1, image_embed_2,
+                   text_embed, text_embed_aug) -> None:
+        """The SimSiam heads and the normalized embeddings."""
         z1 = self.projector(image_embed_1)
         z2 = self.projector(image_embed_2)
         out["simsiam"] = (self.predictor(z1), z1, self.predictor(z2), z2)
@@ -202,6 +195,23 @@ class DECLIP(nn.Module):
             # training forward (declip.py:311-314)
             z_text = self.projector_nn_text(text_embed)
             out["nn_simsiam_p_text"] = self.predictor_nn_text(z_text)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        images = batch["images"]  # [B, H, W, 6]: two stacked views, NHWC
+        img1, img2 = images[..., :3], images[..., 3:]
+        mlm = self.text_mask_type is not None
+        out: Dict[str, Any] = {}
+        if mlm:
+            # the main text pass runs on the MASKED tokens (declip.py:214-216)
+            text_embed, text_embed_aug, words = self._text_pair(
+                batch["mlm_tokens"], batch["tokens_aug"], True)
+            self._mlm_logits(out, words, batch["mlm_labels"])
+        else:
+            text_embed, text_embed_aug, _ = self._text_pair(
+                batch["tokens"], batch["tokens_aug"], False)
+        image_embed_1, image_embed_2 = self._image_pair(img1, img2)
+        self._ssl_heads(out, image_embed_1, image_embed_2, text_embed,
+                        text_embed_aug)
         return out
 
     def project_nn_text(self, feats: torch.Tensor) -> torch.Tensor:
@@ -236,13 +246,3 @@ def declip_vitb32(device=None, **kwargs) -> DECLIP:
 @MODELS.register
 def declip_vitl14(device=None, **kwargs) -> DECLIP:
     return _declip(_l14_defaults(kwargs), visual_transformer_L14, device)
-
-
-def _defilip_not_ported(device=None, **kwargs):
-    raise NotImplementedError(
-        "DeFILIP (defilip_vitb32, defilip_vitl14) is not ported yet "
-        "(ROADMAP.md item 1.8)")
-
-
-for _name in ("defilip_vitb32", "defilip_vitl14"):
-    MODELS.register(_defilip_not_ported, name=_name)

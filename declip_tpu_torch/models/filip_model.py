@@ -65,6 +65,28 @@ def topk_token_select(feat_1: torch.Tensor, feat_2: torch.Tensor, k: int):
     return take(feat_1, id_1), take(feat_2, id_2)
 
 
+def encode_image_dense(model: nn.Module, image: torch.Tensor) -> torch.Tensor:
+    """``model.visual``'s dense tokens through its ``image_mapping`` (FILIP
+    and DeFILIP alike), from the tower in eval mode (a ResNet's running
+    BatchNorm statistics), as JAX's ``train=False``; the tower goes back to
+    the mode it was in."""
+    tower = model.visual
+    was_training = tower.training
+    tower.eval()
+    try:
+        _, tokens = tower(image, return_dense=True)
+    finally:
+        tower.train(was_training)
+    return dense(tokens, model.image_mapping.weight, model.image_mapping.bias,
+                 model.dtype)
+
+
+def encode_text_dense(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+    _, words = model.encode_text(tokens, return_dense=True)
+    return dense(words, model.text_mapping.weight, model.text_mapping.bias,
+                 model.dtype)
+
+
 class FILIP(nn.Module):
     """``dense_mapping_image`` / ``dense_mapping_language`` are the JAX
     package's fields, unused there too (its Dense infers the input width);
@@ -133,6 +155,17 @@ class FILIP(nn.Module):
 
     def encode_image(self, image: torch.Tensor) -> torch.Tensor:
         return self.visual(image)
+
+    def encode_image_dense(self, image: torch.Tensor) -> torch.Tensor:
+        """The image tower's dense tokens through ``image_mapping``, not
+        normalized, for the zero-shot late interaction (filip.py:63-66),
+        from the tower in eval mode."""
+        return encode_image_dense(self, image)
+
+    def encode_text_dense(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The text tower's token features through ``text_mapping``, not
+        normalized (filip.py:57-61)."""
+        return encode_text_dense(self, tokens)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         images = batch["images"]

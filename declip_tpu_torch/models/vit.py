@@ -109,10 +109,12 @@ class VisualTransformer(nn.Module):
         self.ln_post.reset_parameters()
         nn.init.normal_(self.proj, std=scale, generator=generator)
 
-    def forward(self, x: torch.Tensor, return_dense: bool = False):
+    def forward(self, x: torch.Tensor, return_dense: bool = False,
+                return_feature: bool = False):
         """x: [B, H, W, 3] (NHWC) -> [B, embed_dim]; with ``return_dense``
-        also the patch tokens [B, gh*gw, width], taken before ``ln_post``
-        (vit.py:125-137), as a tuple."""
+        also the patch tokens [B, gh*gw, width], taken before ``ln_post``,
+        with ``return_feature`` the class token after ``ln_post`` and before
+        ``proj`` [B, width] (vit.py:125-137), as a tuple in that order."""
         b, h, w = x.shape[0], x.shape[1], x.shape[2]
         p = self.patch_size
         if h % p or w % p:
@@ -133,7 +135,12 @@ class VisualTransformer(nn.Module):
         x = self.transformer(x)
         feature = self.ln_post(x[:, 0, :])
         out = feature @ self.proj.to(feature.dtype)
-        return (out, x[:, 1:, :]) if return_dense else out
+        ret = [out]
+        if return_dense:
+            ret.append(x[:, 1:, :])
+        if return_feature:
+            ret.append(feature)
+        return ret[0] if len(ret) == 1 else tuple(ret)
 
     def frozen_param_paths(self) -> Tuple[str, ...]:
         """Parameter subtrees the optimizer must not update (freeze_conv1)."""

@@ -61,7 +61,14 @@ class OptState:
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over all elements (optax.global_norm),
-    an fp32 0-dim tensor."""
+    an fp32 0-dim tensor. On the CPU each tensor's squares go through
+    ``torch.sum``, whose blocked summation keeps fp32 accurate: the CPU's
+    norm kernels (``_foreach_norm``, ``vector_norm``) read 7e-4 low over a
+    4096 x 4096 gradient (SLIP's ``predictor_sim``), which moved the
+    reported norm 3e-4 off JAX's."""
+    if tensors and tensors[0].device.type == "cpu":
+        return torch.stack([torch.sum(torch.square(t.float()))
+                            for t in tensors]).sum().sqrt()
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
 

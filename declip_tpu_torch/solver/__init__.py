@@ -25,12 +25,16 @@ The host loader's batches are staged into pinned memory on a prefetch
 thread and copied to the card on a side stream, which the step's stream
 waits for. With ``data.train.device_aug`` the loader ships uint8
 geometry crops (its transform is passed on to process workers too) and the
-step runs the photometrics on the card. Not in the port yet, each raising
-when the Solver is built: ``parallelism`` (mesh, TP/PP/EP/FSDP; ROADMAP.md
-item 1.10), the methods without a port model (SLIP, DeFILIP, MoCo, SimCLR,
-CLSA) and FILIP's dense zero-shot eval (item 1.8), and the orbax backend and
-``gs://`` saves (TPU/pod-only in the JAX package). The JAX package's
-compile cache and profiler hook have no counterpart here.
+step runs the photometrics on the card. The FILIP family (FILIP, DeFILIP)
+evaluates zero-shot by token-wise late interaction unless a test entry sets
+``dense_eval: false`` (filip_solver.py:839-960): each image's dense tokens
+against each class's prompt-averaged dense tokens, through K3 on the card.
+Not in the port yet, each raising when the Solver is built:
+``parallelism`` (mesh, TP/PP/EP/FSDP; ROADMAP.md item 1.10), the methods
+without a port model (the SSL builders' MoCo, SimCLR and CLSA; item 1.8.4),
+and the orbax backend and ``gs://`` saves (TPU/pod-only in the JAX
+package). The JAX package's compile cache and profiler hook have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -77,6 +81,9 @@ from declip_tpu_torch.models import model_entry
 from declip_tpu_torch.models.clip_model import l2_normalize
 from declip_tpu_torch.models.layers import discard_bn_stats
 from declip_tpu_torch.models.memory_bank import init_bank
+from declip_tpu_torch.ops.filip_late_interaction import (
+    late_interaction_logits_kernel,
+)
 from declip_tpu_torch.optim import (
     fast_forward_schedule,
     optim_entry,
@@ -104,12 +111,14 @@ _HOST_ONLY = ("labels",)
 def batched_class_embeddings(encode_text, ids: np.ndarray, n_class: int,
                              prompts_num: int, classes_per_call: int,
                              device) -> torch.Tensor:
-    """[n_class, D] normalized class embeddings from ``encode_text`` over
-    [n_class * prompts_num, L] prompt ids, in chunks of
-    ``classes_per_call`` classes; the tail chunk is padded with copies of
-    the last class so every call has one shape. Per class, as the reference
-    (clip_solver.py:688-700): L2-normalize each prompt embedding, mean over
-    the class's prompts, L2-normalize the mean."""
+    """[n_class, ...] normalized class embeddings from ``encode_text`` over
+    [n_class * prompts_num, L] prompt ids ([n_class, D] pooled, [n_class,
+    L, D] dense), in chunks of ``classes_per_call`` classes; the tail chunk
+    is padded with copies of the last class so every call has one shape.
+    Per class, as the reference (clip_solver.py:688-700,
+    filip_solver.py:845-860): L2-normalize each prompt embedding (each
+    token, when dense), mean over the class's prompts, L2-normalize the
+    mean."""
     out = []
     for beg in range(0, n_class, classes_per_call):
         cls = min(classes_per_call, n_class - beg)
@@ -191,8 +200,9 @@ class Solver:
         mtype = mcfg["type"]
         if mtype not in MODELS:
             raise _not_ported(
-                f"model type {mtype!r} (the port has CLIP, FILIP and DeCLIP; "
-                f"SLIP, MoCo, SimCLR and CLSA are missing)", "1.8")
+                f"model type {mtype!r} (the port has CLIP, SLIP, FILIP, "
+                f"DeCLIP and DeFILIP; the SSL builders' MoCo, SimCLR and CLSA "
+                f"are missing)", "1.8.4")
         kwargs = dict(mcfg.get("kwargs") or {})
         prec = self.config.get_path("precision.dtype", "bfloat16")
         kwargs["dtype"] = prec
@@ -255,19 +265,6 @@ class Solver:
         self.train_dataset = ds
         self.train_cfg = train_cfg
         self.test_cfgs: List[Dict] = list(dcfg.get("test") or [])
-        for tcfg in self.test_cfgs:  # refused now, not at the first eval
-            self._check_dense_eval(tcfg)
-
-    def _check_dense_eval(self, tcfg: Dict) -> None:
-        """FILIP-family evaluates with token-wise late interaction by
-        default (filip_solver.py:839-960); the port's FILIP has no dense
-        encoders."""
-        if (tcfg.get("evaluation") or {}).get("type") == "retrieval":
-            return
-        if bool(tcfg.get("dense_eval", self.method in ("filip", "defilip"))):
-            raise _not_ported(
-                "FILIP's dense zero-shot eval (encode_*_dense; set "
-                "dense_eval: false for the pooled eval)", "1.8")
 
     def _ckpt_meta(self) -> dict:
         """Topology sidecar: what the sampler stream was laid out for when
@@ -755,6 +752,30 @@ class Solver:
         return batched_class_embeddings(
             model.encode_text, ids, n_class, prompts_num, cpc, self.device)
 
+    def dense_class_embeddings(self, model, label_texts: List[str],
+                               n_class: int) -> torch.Tensor:
+        """Token-wise class embeddings [n_class, 77, D] for the FILIP
+        family's dense eval (filip_solver.py:839-960): as
+        ``class_embeddings`` over ``encode_text_dense``, 512 // prompts
+        classes to a chunk."""
+        prompts_num = len(label_texts) // n_class
+        ids = np.asarray(get_tokenizer().tokenize(label_texts))
+        cpc = min(max(1, 512 // prompts_num), n_class)
+        return batched_class_embeddings(
+            model.encode_text_dense, ids, n_class, prompts_num, cpc,
+            self.device)
+
+    def dense_eval(self, tcfg: Dict) -> bool:
+        """Whether ``tcfg`` evaluates by late interaction: ``dense_eval``,
+        true by default for FILIP and DeFILIP, and a model with dense heads
+        (solver/__init__.py:933-944 of the JAX package)."""
+        has_dense_head = bool(getattr(self.model, "return_dense", False)
+                              or getattr(self.model, "return_filip", False))
+        return (bool(tcfg.get("dense_eval",
+                              self.method in ("filip", "defilip")))
+                and hasattr(self.model, "encode_image_dense")
+                and has_dense_head)
+
     def _idx_batches(self, n: int, batch_size: int):
         # hosts split the val set by interleaved batches; results merge
         # via the per-rank dumps (base_dataset.py:122-139)
@@ -773,7 +794,7 @@ class Solver:
     def evaluate(self, tcfg: Dict, *, use_ema: bool = False) -> Metric:
         if (tcfg.get("evaluation") or {}).get("type") == "retrieval":
             return self.evaluate_retrieval(tcfg, use_ema=use_ema)
-        self._check_dense_eval(tcfg)
+        dense = self.dense_eval(tcfg)
         dataset, batch_size = self._eval_loader(tcfg)
         label_texts, ensemble = dataset.get_label_texts()
         n_class = ensemble.shape[0]
@@ -791,7 +812,8 @@ class Solver:
         with self._eval_mode(use_ema) as model, \
                 open(res_path, "w") as writer, \
                 ThreadPoolExecutor(workers) as pool:
-            class_emb = self.class_embeddings(model, label_texts, n_class)
+            class_emb = (self.dense_class_embeddings if dense else
+                         self.class_embeddings)(model, label_texts, n_class)
             inflight: deque = deque()
             queued = 0
             while queued < len(idx_batches) and len(inflight) < workers + 2:
@@ -805,10 +827,16 @@ class Solver:
                 valid = len(items)
                 imgs = self._padded(
                     np.stack([it["image"] for it in items]), batch_size)
-                emb = model.encode_image(imgs)
-                emb = emb / torch.linalg.vector_norm(emb, dim=-1,
-                                                     keepdim=True)
-                logits = emb.float() @ class_emb.float().t()
+                if dense:
+                    # K3 on the card (no fallback), its plain version here
+                    logits = late_interaction_logits_kernel(
+                        l2_normalize(model.encode_image_dense(imgs)),
+                        class_emb, torch.ones((), device=self.device))
+                else:
+                    emb = model.encode_image(imgs)
+                    emb = emb / torch.linalg.vector_norm(emb, dim=-1,
+                                                         keepdim=True)
+                    logits = emb.float() @ class_emb.float().t()
                 scores = torch.softmax(logits, dim=-1) @ ens
                 scores = scores[:valid].cpu().numpy()
                 preds = scores.argmax(-1)

@@ -1,5 +1,6 @@
 """Per-method training loss assembly (port of
-declip_tpu/train/method_losses.py; CLIP, FILIP and DeCLIP so far).
+declip_tpu/train/method_losses.py: CLIP, SLIP, FILIP, DeCLIP and DeFILIP;
+the SSL builders' MoCo, SimCLR and CLSA losses are not ported yet).
 
 Each function takes the model's feature dict and returns
 ``(total_loss, metrics)``. Losses are per-row means, as in the JAX package
@@ -12,7 +13,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from declip_tpu_torch.losses import mlm_loss, nt_xent_convirt, simsiam_loss
+from declip_tpu_torch.losses import (
+    mlm_loss,
+    nt_xent_convirt,
+    nt_xent_gather,
+    simsiam_loss,
+)
 from declip_tpu_torch.ops.contrastive import (
     clip_infonce,
     gather_features,
@@ -45,6 +51,24 @@ def clip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
     metrics = {"loss": loss, "clip_loss": loss, "top1": top1, "top5": top5,
                "logit_scale": out["logit_scale"]}
     return loss, metrics
+
+
+def slip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
+                pair_loss=None) -> Tuple[torch.Tensor, Metrics]:
+    """slip_solver.py:478-512: CLIP plus the gathered SimCLR NT-Xent
+    (temperature 0.1) of the two strong views, weighted by the config's
+    ``loss_weight`` (``clip_loss``, ``simclr_loss``; 1 each by default)."""
+    w = cfg.get("loss_weight") or {}
+    clip_l, metrics = clip_losses(out, cfg, axis_name, pair_loss)
+    sim1, sim2 = out["image_sim_1"], out["image_sim_2"]
+    labels = infonce_labels(sim1.shape[0], axis_name, device=sim1.device)
+    simclr = nt_xent_gather(sim1, gather_features(sim1, axis_name), sim2,
+                            gather_features(sim2, axis_name), labels,
+                            temperature=0.1)
+    total = (clip_l * w.get("clip_loss", 1.0)
+             + simclr * w.get("simclr_loss", 1.0))
+    metrics.update({"loss": total, "simclr_loss": simclr})
+    return total, metrics
 
 
 def filip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
@@ -190,4 +214,52 @@ def declip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
         "text_mlm_loss": mlm, "clip_nn_text_loss": clip_nn_text,
         "text_simsiam_loss": text_simsiam, "top1": top1, "top5": top5,
         "logit_scale": out["logit_scale"]})
+    return total, metrics
+
+
+def defilip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
+                   *, nn_text=None, nn_text_aug=None, nn_simsiam=None,
+                   step: int = 0, total_steps: int = 1, pair_loss=None
+                   ) -> Tuple[torch.Tensor, Metrics]:
+    """defilip_solver.py:462-543: the DeCLIP assembly (``declip_losses``,
+    bank inputs included) plus the ``filip`` term, the symmetric InfoNCE of
+    the late interaction of each side's full tokens against the other
+    side's gathered top-k selection. Under ``dense_aug`` it is the mean of
+    the four (image view, caption) pairings, each with its own selections.
+    The term joins the total only under weight type None
+    (defilip_solver.py:541-543); ``filip_loss`` is reported under every
+    type."""
+    w = dict(cfg.get("clip_simsiam_loss_weight") or {})
+    total, metrics = declip_losses(
+        out, cfg, axis_name, nn_text=nn_text, nn_text_aug=nn_text_aug,
+        nn_simsiam=nn_simsiam, step=step, total_steps=total_steps,
+        pair_loss=pair_loss)
+    filip_loss = torch.zeros((), device=total.device)
+    if "dense_image_1" in out:
+        late_interaction = dispatch_late_interaction(cfg)
+        ds = out["logit_scale_dense"]
+        labels = infonce_labels(out["image_embed_1"].shape[0], axis_name,
+                                device=total.device)
+
+        def term(q_img, q_txt, sel_img, sel_txt):
+            return clip_infonce(
+                late_interaction(q_img, gather_features(sel_txt, axis_name),
+                                 ds),
+                late_interaction(q_txt, gather_features(sel_img, axis_name),
+                                 ds), labels)
+
+        d_i1, d_t = out["dense_image_1"], out["dense_text"]
+        filip_loss = term(d_i1, d_t, out["dense_image_1_sel"],
+                          out["dense_text_sel"])
+        if "dense_image_2" in out:  # dense_aug (defilip.py:336-339)
+            d_i2, d_ta = out["dense_image_2"], out["dense_text_aug"]
+            aug = sum(term(q_img, q_txt, *out[key])
+                      for q_img, q_txt, key in (
+                          (d_i2, d_t, "dense_sel_i2_t"),
+                          (d_i1, d_ta, "dense_sel_i1_ta"),
+                          (d_i2, d_ta, "dense_sel_i2_ta")))
+            filip_loss = (filip_loss + aug) / 4
+    if w.get("type") is None:
+        total = total + filip_loss * w.get("filip", 0.0)
+    metrics.update({"loss": total, "filip_loss": filip_loss})
     return total, metrics

@@ -1,5 +1,5 @@
 """The training step (port of declip_tpu/train/train_step.py; methods clip,
-filip and declip).
+slip, filip, declip and defilip).
 
 ``make_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``, the reference's train-loop body (prototype/solver/
@@ -11,7 +11,8 @@ guard and the EMA. The step updates ``state`` in place and returns it.
 update, as in the JAX package: the gradient of its loss with respect to the
 model's parameters is what ``jax.value_and_grad`` gives there.
 
-DeCLIP (train_step.py:149-199, 304-308 of the JAX package): the step queries
+DeCLIP and DeFILIP (train_step.py:149-199, 304-308 of the JAX package): the
+step queries
 the NN text bank with both captions' features before the loss, normalizes
 the neighbours, and projects them for nn-SimSiam (``project_nn_text``);
 after an accepted step it enqueues the augmented captions' features, then
@@ -47,9 +48,11 @@ import torch
 from declip_tpu_torch.data.device_aug import augment_views
 from declip_tpu_torch.models.clip_model import CLIP, l2_normalize
 from declip_tpu_torch.models.declip_model import DECLIP
+from declip_tpu_torch.models.defilip_model import DEFILIP
 from declip_tpu_torch.models.filip_model import FILIP
 from declip_tpu_torch.models.layers import commit_bn_stats, discard_bn_stats
 from declip_tpu_torch.models.memory_bank import enqueue, query_topk
+from declip_tpu_torch.models.slip_model import SLIP
 from declip_tpu_torch.ops.contrastive import make_pair_loss
 from declip_tpu_torch.optim import AdamRule, global_norm
 from declip_tpu_torch.train import method_losses
@@ -64,20 +67,24 @@ _JAX_TOP = {"encode_text": "text"}
 
 
 _LOSSES = {"clip": method_losses.clip_losses,
+           "slip": method_losses.slip_losses,
            "filip": method_losses.filip_losses,
-           "declip": method_losses.declip_losses}
+           "declip": method_losses.declip_losses,
+           "defilip": method_losses.defilip_losses}
+# the methods whose loss takes the NN bank's inputs and the step count
+_BANK_METHODS = ("declip", "defilip")
 
 
 def method_of(model) -> str:
-    if isinstance(model, DECLIP):
-        return "declip"
-    if isinstance(model, FILIP):
-        return "filip"
-    if isinstance(model, CLIP):
-        return "clip"
+    # DEFILIP subclasses DECLIP: the most specific class first
+    for cls, method in ((DEFILIP, "defilip"), (DECLIP, "declip"),
+                        (FILIP, "filip"), (SLIP, "slip"), (CLIP, "clip")):
+        if isinstance(model, cls):
+            return method
     raise NotImplementedError(
-        f"{type(model).__name__}: only CLIP, FILIP and DeCLIP train in the "
-        f"port so far (ROADMAP.md item 1.8)")
+        f"{type(model).__name__}: only CLIP, SLIP, FILIP, DeCLIP and DeFILIP "
+        f"train in the port so far; the SSL builders (MoCo, SimCLR, CLSA) "
+        f"are ROADMAP.md item 1.8.4")
 
 
 @torch.no_grad()
@@ -122,7 +129,7 @@ def logit_scale_guard(s_old: torch.Tensor, logit_scale: torch.Tensor,
 
 
 def _bank_kwargs(model, state: TrainState, out) -> Dict:
-    """DeCLIP's bank inputs to the loss: the neighbours of both captions'
+    """DeCLIP's and DeFILIP's bank inputs to the loss: the neighbours of both captions'
     features in the bank as it stood before this step, normalized, and
     with return_simsiam_nn_text the projector over them."""
     if not getattr(model, "return_nn_bank", False):
@@ -146,17 +153,17 @@ def make_losses_from_out(cfg: Dict, method: str = "clip",
                          axis_name: Optional[str] = None,
                          total_steps: int = 1) -> Callable:
     """``losses(model, state, out) -> (loss, metrics)``: the loss of
-    ``method`` over the model's feature dict ``out`` (with DeCLIP's bank
-    query, which reads ``state``)."""
+    ``method`` over the model's feature dict ``out`` (with DeCLIP's and
+    DeFILIP's bank query, which reads ``state``)."""
     if method not in _LOSSES:
         raise NotImplementedError(
-            f"method {method!r}: only clip, filip and declip train in the "
-            f"port so far (ROADMAP.md item 1.8)")
+            f"method {method!r}: only {', '.join(_LOSSES)} train in the "
+            f"port so far (the SSL builders are ROADMAP.md item 1.8.4)")
     losses = _LOSSES[method]
     pair_loss = make_pair_loss(cfg, axis_name=axis_name)
 
     def from_out(model, state: Optional[TrainState], out):
-        if method != "declip":
+        if method not in _BANK_METHODS:
             return losses(out, cfg, axis_name, pair_loss)
         return losses(out, cfg, axis_name, pair_loss=pair_loss,
                       step=state.step if state is not None else 0,

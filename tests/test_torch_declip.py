@@ -14,7 +14,8 @@ the gradients; a 4-step fp32 trajectory of ``make_train_step`` against
 JAX's (losses, params, BatchNorm running statistics, the bank and its
 pointer across a wrap, the EMA); the bank's ``enqueue`` and ``query_topk``;
 a planted-NaN step; the optimizer groups of the BatchNorm parameters; the
-variants the port does not train yet.
+variants the port does not train yet (DeFILIP's ``return_filip``, which
+DECLIP refuses as JAX's does: tests/test_torch_defilip.py).
 
 Tolerances: rtol 1e-4 (atol 1e-4 on metrics near zero and on parameters),
 as tests/test_torch_filip.py. Parameters whose gradient is 0 in exact
@@ -565,11 +566,7 @@ def _unported(kind):
            "kwargs": {k: (dict(v) if isinstance(v, dict) else v)
                       for k, v in MODELS["res50"][0]["kwargs"].items()}}
     kw = cfg["kwargs"]
-    if kind == "defilip":
-        cfg["type"] = "defilip_vitb32"
-    elif kind == "return_filip":
-        kw["clip"]["return_filip"] = True
-    elif kind == "logit_bias":
+    if kind == "logit_bias":
         kw["clip"]["logit_bias_init"] = -10.0
     elif kind == "hf_text":
         kw["text_encode"]["text_encode_type"] = "Bert"
@@ -579,7 +576,7 @@ def _unported(kind):
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("defilip", "1.8"), ("return_filip", "1.8"), ("logit_bias", "1.10"),
+    ("logit_bias", "1.10"),
     ("hf_text", "1.9"), ("moe", "1.10"), ("grad_cache", "1.10"),
     ("chunked", "1.10"), ("ring", "1.10"), ("sigmoid", "1.10")])
 def test_unported_variants_raise(kind, item):

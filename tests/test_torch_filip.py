@@ -283,3 +283,94 @@ def test_trajectory_matches_jax(jax_init, weights):
                     got[name], start[name] * np.prod(
                         [1 - h["lr"] * 0.5 for h in jhist]), rtol=1e-5,
                     err_msg=name)
+
+
+RES50_CFG = {"type": "filip_res50", "kwargs": {
+    "image_encode": {"embed_dim": 64, "layers": (1, 1, 1, 1), "width": 8,
+                     "heads": 4, "input_resolution": 64},
+    "text_encode": MODEL_CFG["kwargs"]["text_encode"],
+    "clip": MODEL_CFG["kwargs"]["clip"], "dtype": "float32"}}
+DENSE_CASES = {"vitb32": (MODEL_CFG, RES), "res50": (RES50_CFG, 64)}
+
+
+def _seeded_port(cfg):
+    """The port's seeded init, with random BatchNorm running statistics."""
+    from declip_tpu_torch.models.layers import BatchNorm
+
+    port = model_entry(cfg)
+    gen = torch.Generator().manual_seed(0)
+    port.init_weights(gen)
+    for m in port.modules():
+        if isinstance(m, BatchNorm):
+            m.running_mean.copy_(torch.randn(m.running_mean.shape,
+                                              generator=gen) * 0.1)
+            m.running_var.copy_(torch.rand(m.running_var.shape,
+                                           generator=gen) + 0.5)
+    return port
+
+
+@pytest.mark.parametrize("name", list(DENSE_CASES))
+def test_dense_encoders_and_class_embeddings_match_jax(name):
+    """``encode_image_dense`` (the tower in eval mode: a ResNet's running
+    BatchNorm statistics, while the model stays in training mode) and
+    ``encode_text_dense`` against JAX's, rtol 1e-4; the dense class
+    embeddings of 5 classes x 3 prompts in chunks of 2 classes (the tail
+    chunk padded) through the solver's ``batched_class_embeddings`` against
+    the JAX solver's ``make_class_embed_fn``; and under bf16 the dtypes
+    that reach the late interaction (JAX's, from ``jax.eval_shape``: both
+    sides bf16, which K3 takes on its tensor-core route, so the port casts
+    nothing)."""
+    import jax.numpy as jnp
+
+    from declip_tpu.convert_pth import torch_state_to_variables
+    from declip_tpu.solver import (
+        batched_class_embeddings as jax_class_embeddings,
+    )
+    from declip_tpu.solver import make_class_embed_fn
+    from declip_tpu_torch.solver import batched_class_embeddings
+
+    cfg, res = DENSE_CASES[name]
+    port = _seeded_port(cfg).train()
+    variables = torch_state_to_variables(port.state_dict())
+    jmodel = jax_model_entry(cfg)
+    rng = np.random.default_rng(3)
+    images = rng.normal(size=(B, res, res, 3)).astype(np.float32)
+    ids = np.zeros((15, 77), np.int32)  # 5 classes x 3 prompts
+    for r in range(15):
+        length = int(rng.integers(5, 20))
+        ids[r, 0], ids[r, length - 1] = SOT, EOT
+        ids[r, 1:length - 1] = rng.integers(1, MASK, size=length - 2)
+    want_img = jax.jit(lambda v, x: jmodel.apply(
+        v, x, method="encode_image_dense", train=False))(variables, images)
+    want_cls = jax_class_embeddings(make_class_embed_fn(
+        lambda p, c: jmodel.apply({"params": p}, c,
+                                  method="encode_text_dense"),
+        3, 2), variables["params"], ids, 5, 3, 2)
+    with torch.no_grad():
+        got_img = port.encode_image_dense(torch.from_numpy(images))
+        got_cls = batched_class_embeddings(
+            port.encode_text_dense, ids.astype(np.int64), 5, 3, 2, "cpu")
+    assert port.training and port.visual.training
+    assert got_img.shape == (B, 16 if name == "vitb32" else 4, 256)
+    assert got_cls.shape == (5, 77, 256)
+    np.testing.assert_allclose(got_img.numpy(), np.asarray(want_img),
+                               rtol=RTOL, atol=1e-5)
+    np.testing.assert_allclose(got_cls.numpy(), np.asarray(want_cls),
+                               rtol=RTOL, atol=1e-6)
+
+    bf16 = {**cfg, "kwargs": {**cfg["kwargs"], "dtype": "bfloat16"}}
+    jb = jax_model_entry(bf16)
+    img_t = jax.eval_shape(lambda v, x: jb.apply(
+        v, x, method="encode_image_dense", train=False), variables, images)
+    txt_t = jax.eval_shape(lambda p, c: jb.apply(
+        {"params": p}, c, method="encode_text_dense"),
+        variables["params"], ids)
+    assert img_t.dtype == txt_t.dtype == jnp.bfloat16
+    pb = model_entry(bf16).eval()
+    pb.load_state_dict(port.state_dict())
+    with torch.no_grad():
+        assert pb.encode_image_dense(
+            torch.from_numpy(images[:2])).dtype == torch.bfloat16
+        assert batched_class_embeddings(
+            pb.encode_text_dense, ids[:6].astype(np.int64), 2, 3, 2,
+            "cpu").dtype == torch.bfloat16

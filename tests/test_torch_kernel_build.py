@@ -383,6 +383,50 @@ def test_solver_kernel_calls_counts_the_solvers_prompt_chunks(smoke):
         "K3": 0, "K4": 0, "K5": 0}
 
 
+def test_solver_method_calls_match_the_solvers_chunking(smoke):
+    """Phase 10's expected launches follow the solver's own chunking: the
+    dense class embeddings in chunks of 512 // prompts classes (so K1 once
+    a text layer a chunk), a ViT's eval batches 12 K1 each, K3 once an eval
+    batch when dense; a ResNet tower adds no K1, and the pooled eval no
+    K3."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from declip_tpu_torch.solver import Solver
+
+    calls = []
+
+    def encode_text_dense(ids):
+        calls.append(ids.shape[0])
+        return torch.ones(ids.shape[0], 77, 4)
+
+    names = [f"class {i}" for i in range(smoke.SOLVER_CLASSES)]
+    texts = [f"a photo of a {n} {p}." for n in names
+             for p in range(smoke.SOLVER_PROMPTS)]
+    emb = Solver.dense_class_embeddings(
+        SimpleNamespace(device="cpu"),
+        SimpleNamespace(encode_text_dense=encode_text_dense), texts,
+        smoke.SOLVER_CLASSES)
+    assert emb.shape == (smoke.SOLVER_CLASSES, 77, 4)
+    assert np.isclose(float(emb[0, 0].norm()), 1.0)
+    blocks = SimpleNamespace(resblocks=[None] * 12)
+    vit = SimpleNamespace(model=SimpleNamespace(
+        encode_text=SimpleNamespace(transformer=blocks),
+        visual=SimpleNamespace(transformer=blocks)))
+    per_step = smoke.DEFILIP_PER_STEP
+    assert smoke.solver_method_calls(vit, 4, per_step, True, 2) == {
+        "K1": 48 * 4 + len(calls) * 12 + 2 * 12, "K2": 48 * 4,
+        "K3": 2 * 4 + 2, "K4": 2 * 4, "K5": 2 * 4}
+    assert len(calls) == 2
+    resnet = SimpleNamespace(model=SimpleNamespace(
+        encode_text=SimpleNamespace(transformer=blocks),
+        visual=SimpleNamespace()))
+    text_only = {"K1": 12, "K2": 12, "K3": 0, "K4": 0, "K5": 0}
+    assert smoke.solver_method_calls(resnet, 2, text_only, False, 2) == {
+        "K1": 12 * 2 + 12, "K2": 12 * 2, "K3": 0, "K4": 0, "K5": 0}
+
+
 def test_loader_configs_of_the_fast_input_path(smoke, tmp_path):
     """Phase 8's three loaders from the solver's train split (as --set
     leaves it, shards and process workers): each ships device_aug's crops

@@ -8,7 +8,9 @@ at scores up to 30, and the fp32 limit against plain TF32, which it must
 fail. The late-interaction
 kernels K3, K4 and K5: odd N1, N2 and GB across their 64-row and 128-token
 tiles, both dtypes, exact ties, NaN features, and the inputs they refuse;
-K3's winner mask bit for bit against its plain version; in bf16 (K3 on
+K3's winner mask bit for bit against its plain version; K3 at the dense
+zero-shot eval's shape (B=128, N1=49 against 1000 classes of N2=77) and at
+B=7 against 1001; in bf16 (K3 on
 the tensor cores) N2 = 16, whose maxima are taken in registers, other
 widths of whole n8 tiles (N2 = 8, 32, 64) through the shared-memory
 epilogue, D a multiple of 8 and not of 16, identical key tokens tying on
@@ -450,6 +452,43 @@ def test_late_interaction_winners_match_plain(card, case, dtype):
         counts = fli._winner_weights(want, torch.ones_like(raw),
                                      shape[3]).ne(0).sum(-1)
         assert (counts >= 2).any() and (counts >= 3).any()
+
+
+@pytest.mark.parametrize("b,gb", [(128, 1000), (7, 1001)],
+                         ids=["imagenet", "awkward"])
+def test_late_interaction_forward_at_the_dense_eval_shape(card, b, gb):
+    """K3 at the FILIP family's zero-shot eval shape: B image queries of
+    N1=49 tokens against GB class keys of N2=77 tokens (three mask words an
+    item, GB no multiple of the key tile), D=256, in bf16 (the recipes'
+    precision, which gives both sides bf16): the raw logits against the
+    plain version and the winners bit for bit on grid inputs; then on unit
+    vectors, the class keys a slice of a chunked concatenation as the
+    solver builds them, through ``late_interaction_logits_kernel`` under
+    ``no_grad`` as the eval calls it, one launch, against the plain
+    version."""
+    d1 = _grid(card, (b, 49, 256), b + gb, torch.bfloat16)
+    d2 = _grid(card, (gb, 77, 256), b + gb + 1, torch.bfloat16)
+    (fwd_rtol, fwd_atol), _ = _tolerance(smoke.LI_TOLERANCE, torch.bfloat16)
+    raw, winners = fli.late_interaction_fwd(d1, d2)
+    torch.testing.assert_close(raw, fli.late_interaction_raw_plain(d1, d2),
+                               rtol=fwd_rtol, atol=fwd_atol)
+    assert torch.equal(winners, fli.late_interaction_winners_plain(d1, d2))
+    del winners
+    g = torch.Generator(device=card).manual_seed(b * gb)
+    q = torch.nn.functional.normalize(torch.randn(
+        b, 49, 256, generator=g, device=card), dim=-1).bfloat16()
+    chunks = [torch.nn.functional.normalize(torch.randn(
+        512, 77, 256, generator=g, device=card), dim=-1).bfloat16()
+        for _ in range(2)]
+    keys = torch.cat(chunks)[:gb]
+    before = fli.late_interaction_fwd.launches
+    with torch.no_grad():
+        logits = fli.late_interaction_logits_kernel(
+            q, keys, torch.ones((), device=card))
+    assert fli.late_interaction_fwd.launches == before + 1
+    torch.testing.assert_close(logits,
+                               fli.late_interaction_raw_plain(q, keys),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_late_interaction_forward_unit_vectors(card):

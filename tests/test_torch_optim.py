@@ -24,6 +24,7 @@ from declip_tpu.optim.param_groups import path_prefix_mask as jax_prefix_mask
 from declip_tpu_torch.convert import state_from_jax_variables
 from declip_tpu_torch.models import model_entry
 from declip_tpu_torch.optim import (
+    global_norm,
     group_labels,
     optim_entry,
     path_prefix_mask,
@@ -202,3 +203,22 @@ def test_unported_optimizers_raise(jax_params, kind):
     with pytest.raises(NotImplementedError, match="1.4"):
         optim_entry({"type": kind, "kwargs": {"lr": 0.1}},
                     _port_model(jax_params), lambda step: 0.1)
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (512, 49409)],
+                         ids=["slip-predictor-sim", "mlm-head"])
+def test_global_norm_matches_optax_on_large_tensors(shape):
+    """``global_norm`` over a gradient as large as the reference configs'
+    largest (SLIP's 4096 x 4096 ``predictor_sim`` layer, the MLM head's
+    512 x 49409) and a small one, against optax's global norm and the
+    float64 norm: rtol 1e-6. PyTorch's CPU norm kernels read 7e-4 low
+    over the first."""
+    rng = np.random.default_rng(0)
+    grads = [rng.normal(size=shape).astype(np.float32) * 0.02,
+             rng.normal(size=(64,)).astype(np.float32)]
+    exact = np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2))
+                        for g in grads))
+    got = float(global_norm([torch.from_numpy(g) for g in grads]))
+    want = float(optax.global_norm([jnp.asarray(g) for g in grads]))
+    np.testing.assert_allclose(want, exact, rtol=1e-6)
+    np.testing.assert_allclose(got, exact, rtol=1e-6)

@@ -7,12 +7,21 @@ per-step losses within rtol 1e-4, per-image zero-shot scores within atol
 1e-4 and equal top-1/top-5; the port's checkpoint loads through the JAX
 package's ``load_pretrain`` with no unmatched key.
 
+Against the JAX package's Solver too, the FILIP family's dense zero-shot
+eval: tiny_filip from one ``.pth.tar``, its default (dense) eval over 20
+synthetic images in batches of 16 (the tail batch padded): per-image
+scores within atol 1e-4, equal top-1/top-5, and the dense class
+embeddings against JAX's ``_dense_class_embeddings`` within rtol 1e-4.
+
 Port-only: resume equivalence bit for bit (8 steps straight against 4, a
 SIGTERM, and 4 auto-resumed), rollback on a planted NaN (three saves back,
 warmup_lr x 0.997, ``rollback_reset_opt`` through ``fast_forward_schedule``),
 tiny_declip end to end through ``main`` (MOCOV2, EDA, MLM, the bank) with
-the bank restored on resume, an async save that holds a copy, and the
-refusals: a JAX-only or model-only checkpoint directory, a checkpoint of
+the bank restored on resume, tiny_defilip (dense eval) and tiny_slip
+(SLIP's three views) end to end through ``main``, every reference config of
+the FILIP family and SLIP built at full width on the meta device and into a
+Solver on the CPU with its towers cut to one narrow layer, an async save
+that holds a copy, and the refusals: a JAX-only or model-only checkpoint directory, a checkpoint of
 another topology, an absent CUDA, and the parts not ported yet.
 """
 
@@ -30,6 +39,9 @@ TINY_CLIP = os.path.join(REPO, "experiments", "unit", "tiny_clip",
                          "config.yaml")
 TINY_DECLIP = os.path.join(REPO, "experiments", "unit", "tiny_declip",
                            "config.yaml")
+TINY_FILIP, TINY_DEFILIP, TINY_SLIP = (
+    os.path.join(REPO, "experiments", "unit", name, "config.yaml")
+    for name in ("tiny_filip", "tiny_defilip", "tiny_slip"))
 STEPS = 4
 # a 16-image zero-shot set (synthetic, 10 classes, ONECROP, prompt8)
 TEST16 = [{"type": "clip", "read_from": "synthetic", "meta_file": "16",
@@ -475,8 +487,7 @@ def test_main_refuses_absent_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("sets,match", [
     ({"parallelism": {"tp": 2}}, "item 1.10"),
-    ({"model.type": "slip_vitb32"}, "item 1.8"),
-    ({"model.type": "defilip_vitb32"}, "item 1.8"),
+    ({"model.type": "moco_res50"}, "item 1.8.4"),
     # device_aug, wds shards and the native reader are ported; what stays
     # out beside them: CLSA's views, shards on object stores, and the
     # reference's kestrel hardware decoder
@@ -487,30 +498,13 @@ def test_main_refuses_absent_cuda(tmp_path, monkeypatch):
      "item 1.7a.5"),
     ({"data.train.read_from": "gcs"}, "item 1.7a"),
     ({"data.train.image_reader": {"type": "kestrel"}}, "kestrel"),
-], ids=["parallelism", "slip", "defilip", "device_aug", "wds", "gcs",
-        "native"])
+], ids=["parallelism", "ssl", "device_aug", "wds", "gcs", "native"])
 def test_unported_parts_raise(tmp_path, sets, match):
     from declip_tpu_torch.solver import Solver
 
     cfg = _cfg("declip_tpu_torch", tmp_path, TINY_CLIP, sets)
     with pytest.raises(NotImplementedError, match=match):
         Solver(cfg, device="cpu")
-
-
-def test_filip_dense_eval_is_refused_when_built(tmp_path):
-    """A FILIP config whose test entry evaluates dense (its default) raises
-    while the Solver is being built, not at the first evaluate."""
-    from declip_tpu_torch.solver import Solver
-
-    src = os.path.join(REPO, "experiments", "unit", "tiny_filip",
-                       "config.yaml")
-    cfg = _cfg("declip_tpu_torch", tmp_path, src, {})
-    with pytest.raises(NotImplementedError, match="item 1.8"):
-        Solver(cfg, device="cpu")
-    assert not os.listdir(tmp_path / "checkpoints")
-    test = [dict(cfg.data.test[0], dense_eval=False)]
-    Solver(_cfg("declip_tpu_torch", tmp_path / "pooled", src,
-                {"data.test": test}), device="cpu")
 
 
 @pytest.mark.parametrize("worker_type", ["thread", "process"])
@@ -543,15 +537,170 @@ def test_device_aug_ships_uint8_crops(tmp_path, worker_type):
         step(solver.state, batch)
 
 
-def test_filip_dense_eval_raises(tmp_path):
+# 20 synthetic images in batches of 16 (the tail batch padded), 10 classes
+DENSE_TEST = {"type": "clip", "read_from": "synthetic", "meta_file": "20",
+              "batch_size": 16, "transforms": {"type": "ONECROP"},
+              "label_texts_ensemble": "prompt8"}
+
+
+@pytest.fixture(scope="module")
+def dense_pair(tmp_path_factory):
+    """tiny_filip's default (dense) zero-shot eval by both solvers from one
+    seeded ``.pth.tar``, untrained; the JAX solver on one CPU device."""
+    import jax
+
+    from declip_tpu.solver import Solver as JaxSolver
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models import model_entry
     from declip_tpu_torch.solver import Solver
 
-    src = os.path.join(REPO, "experiments", "unit", "tiny_filip",
-                       "config.yaml")
-    solver = Solver(_cfg("declip_tpu_torch", tmp_path, src,
-                         {"data.test": []}), device="cpu")
-    tcfg = {"read_from": "synthetic", "meta_file": "8",
-            "transforms": {"type": "ONECROP"}}
-    with pytest.raises(NotImplementedError, match="item 1.8"):
-        solver.evaluate(tcfg)
-    solver.evaluate({**tcfg, "dense_eval": False, "batch_size": 8})
+    root = tmp_path_factory.mktemp("dense")
+    cfg = parse_config(TINY_FILIP)
+    model = model_entry({"type": cfg.model.type,
+                         "kwargs": {**cfg.model.kwargs, "dtype": "float32"}})
+    model.init_weights(torch.Generator().manual_seed(5))
+    pretrain = root / "init.pth.tar"
+    torch.save({"model": model.state_dict()}, pretrain)
+    sets = {"saver.pretrain.path": str(pretrain), "data.test": [DENSE_TEST]}
+    out = {"jax_solver": JaxSolver(
+               _cfg("declip_tpu", root / "jax", TINY_FILIP, sets),
+               devices=jax.devices()[:1]),
+           "port_solver": Solver(_cfg("declip_tpu_torch", root / "port",
+                                      TINY_FILIP, sets), device="cpu")}
+    for key in ("jax", "port"):
+        metrics = out[f"{key}_solver"].evaluate(DENSE_TEST)
+        out[key] = (metrics, _results(root / key))
+    return out
+
+
+def test_dense_zero_shot_scores_match_jax(dense_pair):
+    """FILIP evaluates dense by default in both packages (the port through
+    K3's plain version here), with the same scores; ``dense_eval: false``
+    takes the pooled path instead."""
+    port = dense_pair["port_solver"]
+    assert port.method == "filip" and port.dense_eval(DENSE_TEST)
+    assert not port.dense_eval({**DENSE_TEST, "dense_eval": False})
+    (want_m, want), (got_m, got) = dense_pair["jax"], dense_pair["port"]
+    assert len(got) == len(want) == 20
+    for g, w in zip(got, want):
+        assert (g["image_id"], g["label"]) == (w["image_id"], w["label"])
+        np.testing.assert_allclose(g["score"], w["score"], atol=1e-4)
+    assert (got_m["top1"], got_m["top5"]) == (want_m["top1"], want_m["top5"])
+
+
+def test_dense_class_embeddings_match_jax(dense_pair):
+    port, jax_solver = dense_pair["port_solver"], dense_pair["jax_solver"]
+    dataset, _ = port._eval_loader(DENSE_TEST)
+    label_texts, ensemble = dataset.get_label_texts()
+    n_class = ensemble.shape[0]
+    want = jax_solver._dense_class_embeddings(
+        jax_solver.state.params, label_texts, n_class)
+    with port._eval_mode() as model:
+        got = port.dense_class_embeddings(model, label_texts, n_class)
+    assert got.shape == (n_class, 77, 256) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("src,method,views", [
+    (TINY_DEFILIP, "defilip", 2), (TINY_SLIP, "slip", 3)],
+    ids=["tiny_defilip", "tiny_slip"])
+def test_tiny_methods_end_to_end_through_main(tmp_path, src, method, views):
+    """``main`` trains tiny_defilip (MOCOV2, EDA, MLM, the bank, the filip
+    term) and tiny_slip (SLIP's base and two strong views) for 2 steps as
+    configured, saves, and evaluates zero-shot: DeFILIP dense, SLIP
+    pooled."""
+    from declip_tpu_torch.solver import main
+
+    shutil.copy(src, tmp_path / "config.yaml")
+    solver = main(["--config", str(tmp_path / "config.yaml"), "--device",
+                   "cpu", "--set", "lr_scheduler.kwargs.max_iter=2",
+                   "saver.save_freq=2", "saver.print_freq=1",
+                   "data.test=" + json.dumps(TEST16)])
+    st = solver.state
+    assert solver.method == method and st.step == 2
+    assert solver.dense_eval(TEST16[0]) == (method == "defilip")
+    terms = {"defilip": ("clip_loss", "simsiam_loss", "text_mlm_loss",
+                         "clip_nn_text_loss", "filip_loss"),
+             "slip": ("clip_loss", "simclr_loss")}[method]
+    for tag in ("loss",) + terms:
+        values = [v for _, v in _scalars(tmp_path, tag)]
+        assert len(values) == 2 and np.isfinite(values).all(), tag
+    assert [v for _, v in _scalars(tmp_path, "update_skipped")] == [0.0] * 2
+    if method == "defilip":
+        assert st.bank_text.ptr == 2 * 4 * 2
+    batch = next(iter(solver._train_loader(-1)))
+    assert batch["images"].shape[-1] == 3 * views
+    assert "ckpt_2.pth.tar" in os.listdir(tmp_path / "checkpoints")
+    results = _results(tmp_path)
+    assert len(results) == 16 and all(len(r["score"]) == 10
+                                      for r in results)
+
+
+REFERENCE = {  # experiment: (method, dense eval, image tower)
+    "defilip_experiments/yfcc15m/yfcc15m_vit_defilip": ("defilip", True,
+                                                        "vit"),
+    "slip_experiments/yfcc15m/yfcc15m_vit_slip": ("slip", False, "vit"),
+    "slip_experiments/yfcc15m/yfcc15m_r50_slip": ("slip", False, "r50"),
+    "filip_experiments/yfcc15m/yfcc15m_vit_filip": ("filip", True, "vit"),
+    "filip_experiments/yfcc15m/yfcc15m_r50_filip": ("filip", True, "r50"),
+}
+
+
+# the towers cut to one narrow layer for the Solver's build on the CPU
+NARROW = {"vit": {"model.kwargs.image_encode.layers": 1,
+                  "model.kwargs.image_encode.width": 64,
+                  "model.kwargs.image_encode.heads": 2},
+          "r50": {"model.kwargs.image_encode.layers": [1, 1, 1, 1],
+                  "model.kwargs.image_encode.width": 8,
+                  "model.kwargs.image_encode.heads": 4}}
+
+
+@pytest.mark.parametrize("exp", list(REFERENCE))
+def test_reference_config_builds_a_solver(tmp_path, exp):
+    """The reference configs of DeFILIP, SLIP and FILIP, as their files
+    have them: the model at full width on the meta device (shapes only),
+    and a Solver on the CPU with the towers cut to one narrow layer (the
+    training data read from the synthetic set), whose test entries
+    evaluate as the JAX package decides: dense for the FILIP family,
+    pooled for SLIP."""
+    from declip_tpu_torch.config import override
+    from declip_tpu_torch.models import model_entry
+    from declip_tpu_torch.models.resnet import ModifiedResNet
+    from declip_tpu_torch.solver import Solver
+    from declip_tpu_torch.train import method_of
+
+    method, dense, tower = REFERENCE[exp]
+    src = os.path.join(REPO, "experiments", exp, "config.yaml")
+    cfg = _cfg("declip_tpu_torch", tmp_path, src, {
+        "data.train.read_from": "synthetic", "data.train.meta_file": "16"})
+    model = model_entry({"type": cfg.model.type, "kwargs": {
+        **cfg.model.kwargs, "dtype": cfg.precision.dtype}}, device="meta")
+    assert method_of(model) == method
+    assert next(model.parameters()).device.type == "meta"
+    vis, txt = model.visual, model.encode_text
+    assert (txt.ln_final.normalized_shape[0],
+            len(txt.transformer.resblocks)) == (512, 12)
+    if tower == "vit":
+        assert (vis.width, len(vis.transformer.resblocks),
+                vis.patch_size) == (768, 12, 32)
+    else:
+        assert isinstance(vis, ModifiedResNet) and \
+            (vis.layers, vis.width) == ((3, 4, 6, 3), 64)
+    if dense:
+        assert model.image_mapping.out_features == 256
+    if method == "slip":
+        assert model.predictor_sim.linear3.out_features == 256
+
+    sets = {**NARROW[tower], "model.kwargs.text_encode.transformer_layers": 1,
+            "model.kwargs.text_encode.transformer_width": 64,
+            "model.kwargs.text_encode.transformer_heads": 2}
+    for key, value in sets.items():
+        cfg = override(cfg, key, value)
+    solver = Solver(cfg, device="cpu")
+    assert solver.method == method
+    assert [solver.dense_eval(t) for t in solver.test_cfgs] == [dense]
+    if method == "slip":
+        assert solver.train_cfg["transforms"] == {"type": "SLIP"}
+    if method == "defilip":
+        assert tuple(solver.state.bank_text.bank.shape) == (2 ** 16, 512)
