@@ -142,6 +142,27 @@ Phases (any failed check raises, and the script exits non-zero):
    still sees device events before and after it. The corpus is deleted at
    the end.
 
+11. data-parallel training (declip_tpu_torch.parallel), each part's ranks
+   started by ``python -m torch.distributed.run`` on this script's rank
+   entries, with a deadline after which they are stopped: (a)
+   ``--nproc_per_node 1`` drives the solver's ``main`` on phase 7's corpus
+   with the DeCLIP-ResNet-50 recipe (bf16, B=128) under NCCL at world 1:
+   6 steps saved at the end, the zero-shot eval merged through
+   ``gather_object``, an auto-resume for one step; steps 4-6 beside
+   phase 7's, the gradient all-reduce's device time a step (CUDA events)
+   and the exact K1/K2 launches; (b) two ranks on the one card over gloo,
+   each on half of phase 6's batch, one fp32 step of
+   DeCLIP-ResNet-50 at full width with BatchNorm over the global batch and
+   with ``use_sync_bn: false`` (each rank's own rows), and of FILIP
+   ViT-B/32 (K3-K5 at 64 queries against 128 keys), against one process
+   on the whole batch from the same weights: the loss, each parameter's
+   gradient norm, the bank rows the step wrote and every BatchNorm
+   statistic within 1e-4, the ranks bit for bit alike, and each rank's
+   exact launches of K1-K5; the step times of (b) are two ranks sharing
+   one card over gloo, not a performance number; (c) the same over NCCL
+   on two cards where the machine has them, else one line saying that it
+   did not run.
+
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
 JSON object. Full results also go to chiprun_out/chip_smoke.json.
@@ -411,8 +432,8 @@ SOLVER_STEPS, SOLVER_SAVE_FREQ, SOLVER_RESUME_STEPS = 6, 3, 8
 SOLVER_TIMED = (4, 6)
 # the recipe's loader alone: batches it builds, and the ones after the
 # first SOLVER_LOADER_SKIP (its workers start together, so the first
-# num_workers batches land at once) whose arrivals give its steady rate
-SOLVER_LOADER_BATCHES, SOLVER_LOADER_SKIP = 24, 10
+# num_workers = 7 batches land at once) whose arrivals give its steady rate
+SOLVER_LOADER_BATCHES, SOLVER_LOADER_SKIP = 18, 8
 # phase 8: the same recipe and corpus on the fast input path; the corpus
 # packed into this many webdataset shards
 FAST_SHARDS = 4
@@ -532,6 +553,27 @@ LI_EVAL_CASE = (TRAIN_BATCH, 49, 1000, 77, 256)
 # K3 against the chunked plain late interaction on one eval batch's
 # features (bf16 products exact in fp32; the sums in other orders)
 EVAL_LI_TOLERANCE = (1e-5, 1e-5)
+# phase 11: data-parallel training. 11a: the DeCLIP recipe through
+# torch.distributed.run at world 1 (NCCL): SOLVER_STEPS steps as phase 7
+# runs them (so that steps SOLVER_TIMED compare), saved once at the end,
+# then resumed for one step; the ranks' deadline
+DP_RESUME_STEPS = SOLVER_STEPS + 1
+DP_LAUNCH_TIMEOUT_S = 420
+# 11b: two ranks on the one card over gloo (11c: over NCCL on two cards),
+# each with half of phase 6's and phase 5's batches, one fp32 step against
+# one process on the whole batch; the join deadline of the ranks
+DP_WORLD = 2
+DP_JOIN_TIMEOUT_S = 300
+# (rtol, atol) of the loss, of each parameter's gradient norm, of the bank
+# rows the step wrote and of each BatchNorm statistic (as ||a - b|| <= rtol
+# ||b||, a running mean against the larger of its norm and its deviation's,
+# sqrt(running_var)): phase 5's 1e-4. A parameter whose gradient is 0 in exact
+# arithmetic (a bias before a BatchNorm, attnpool's key bias; NOISE_GRADS)
+# is rounding noise on either side: one whose one-process gradient norm is
+# under STEP_NOISE_REL_NORM of the whole gradient's is held below that on
+# both sides instead.
+DP_RTOL = 1e-4
+DP_BANK_ATOL = 1e-5
 
 
 def check(cond, msg):
@@ -2856,23 +2898,48 @@ def phase_solver(declip_result, tmp, corpus):
     del resumed
     torch.cuda.empty_cache()
 
-    t = time.perf_counter()
-    cli = subprocess.run(
-        [sys.executable, "-m", "declip_tpu_torch.solver", "--config",
-         cfg_path, "--evaluate", "--device", "cuda", "--set", *sets,
-         f"lr_scheduler.kwargs.max_iter={SOLVER_RESUME_STEPS}"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    out["cli_argv"] = [
+        sys.executable, "-m", "declip_tpu_torch.solver", "--config",
+        cfg_path, "--evaluate", "--device", "cuda", "--set", *sets,
+        f"lr_scheduler.kwargs.max_iter={SOLVER_RESUME_STEPS}"]
+    return out
+
+
+def start_solver_cli(solver_result, tmp):
+    """Phase 7's last part, started: the CLI's ``--evaluate`` of the
+    resumed checkpoint, in a process of its own (``main`` runs it beside
+    phase 11b, whose times are no performance numbers) -> the pending
+    launch."""
+    log = open(os.path.join(tmp, "cli_evaluate.log"), "w")
+    proc = subprocess.Popen(
+        solver_result["cli_argv"], cwd=ROOT, stdout=log,
+        stderr=subprocess.STDOUT,
         env=dict(os.environ, PYTHONPATH=os.pathsep.join(
             [ROOT, os.environ.get("PYTHONPATH", "")])))
-    out["cli_s"] = time.perf_counter() - t
-    metric = re.search(r'"top1": ([0-9.]+)', cli.stdout)
-    check(cli.returncode == 0 and metric is not None,
-          f"the CLI --evaluate: rc {cli.returncode}, stdout "
-          f"{cli.stdout[-2000:]}, stderr {cli.stderr[-2000:]}")
-    out["cli_top1"] = float(metric.group(1))
-    print(f"solver CLI --evaluate: top1 {out['cli_top1']:.2f} in "
-          f"{out['cli_s']:.1f} s", flush=True)
-    return out
+    return proc, log, time.perf_counter()
+
+
+def finish_solver_cli(pending, solver_result):
+    """Waits for ``start_solver_cli``'s launch and checks its metric."""
+    proc, log, t = pending
+    try:
+        proc.wait(600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    solver_result["cli_s"] = time.perf_counter() - t
+    with open(log.name) as f:
+        text = f.read()
+    metric = re.search(r'"top1": ([0-9.]+)', text)
+    check(proc.returncode == 0 and metric is not None,
+          f"the CLI --evaluate: rc {proc.returncode}, output "
+          f"{text[-3000:]}")
+    solver_result["cli_top1"] = float(metric.group(1))
+    print(f"solver CLI --evaluate (phase 7, run beside phase 11b): top1 "
+          f"{solver_result['cli_top1']:.2f} in {solver_result['cli_s']:.1f} "
+          f"s", flush=True)
 
 
 
@@ -3857,6 +3924,473 @@ def phase_solver_methods(tmp, corpus):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+def free_port():
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(nproc, entry, spec, timeout_s, during=None):
+    """``python -m torch.distributed.run --nproc_per_node nproc`` on this
+    script's rank entry ``entry`` with ``spec`` (which names the ranks'
+    output directory, ``spec["out"]``); ``during()`` runs here while the
+    ranks run. Every rank writes its pid and then its result there. A
+    launch that fails or outlives ``timeout_s`` fails the phase, and its
+    ranks are stopped: torchrun passes SIGTERM on to them, and any rank
+    still running after that is killed. -> ([each rank's result], wall s,
+    during's result)."""
+    import pickle
+    import signal
+
+    out = spec["out"]
+    os.makedirs(out)
+    log = os.path.join(out, "launch.log")
+    t = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+             "--master_port", str(free_port()),
+             os.path.join(ROOT, "chip_smoke.py"), entry, json.dumps(spec)],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+            env={"OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1)
+                                            // nproc)),
+                 **os.environ, "PYTHONPATH": os.pathsep.join(
+                     [ROOT, os.environ.get("PYTHONPATH", "")])})
+    try:
+        done = during() if during is not None else None
+        proc.wait(max(1.0, timeout_s - (time.perf_counter() - t)))
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            for r in range(nproc):
+                try:
+                    with open(os.path.join(out, f"pid{r}")) as f:
+                        os.kill(int(f.read()), signal.SIGKILL)
+                except (OSError, ValueError):  # gone, or never started
+                    pass
+    wall = time.perf_counter() - t
+    with open(log) as f:
+        tail = f.read()[-4000:]
+    check(proc.returncode == 0, f"{entry}: torch.distributed.run rc "
+                                f"{proc.returncode}: {tail}")
+    results = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results, wall, done
+
+
+def _rank_begin(spec):
+    """The start of a rank entry: its pid where ``run_ranks`` reads it, no
+    TF32 (fp32 means fp32), the checkout on the path -> the rank."""
+    import torch
+
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(spec["out"], f"pid{rank}"), "w") as f:
+        f.write(str(os.getpid()))
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return rank
+
+
+def _rank_end(spec, rank, result):
+    import pickle
+
+    path = os.path.join(spec["out"], f"rank{rank}.pkl")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(result, f)
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+def dp_launcher_rank(spec):
+    """Phase 11a's rank: the solver's ``main`` to SOLVER_STEPS and again
+    to DP_RESUME_STEPS (an auto-resume), with the gradient all-reduce
+    timed by CUDA events and the eval's merges counted."""
+    import torch
+
+    rank = _rank_begin(spec)
+    from declip_tpu_torch.parallel import comms
+    from declip_tpu_torch.solver import main as solver_main
+    from declip_tpu_torch.train import train_step
+
+    events, merges = [], []
+    inner_mean, inner_gather = train_step.mean_over_ranks, comms.gather_object
+
+    def timed_mean(tensors, group):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner_mean(tensors, group)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def counted_gather(obj, group=None):
+        merges.append(1)
+        return inner_gather(obj, group)
+
+    train_step.mean_over_ranks = timed_mean
+    comms.gather_object = counted_gather
+    out = {}
+    for name, max_iter in (("first", SOLVER_STEPS),
+                           ("resume", DP_RESUME_STEPS)):
+        del merges[:]
+        reset_launches()  # a main path starts
+        t = time.perf_counter()
+        solver = solver_main(["--config", spec["cfg"], "--set",
+                              *spec["sets"],
+                              f"lr_scheduler.kwargs.max_iter={max_iter}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        steps = solver.state.step - solver.start_step
+        out[name] = {
+            "launches": read_launches(), "wall_s": wall,
+            "want": solver_kernel_calls(solver, steps),
+            "start_step": solver.start_step, "step": solver.state.step,
+            "world": solver.world, "rank": solver.rank,
+            "device": str(solver.device),
+            "backend": solver.group.backend if solver.group else None,
+            "merges": len(merges), "timings": solver.timings,
+            "batch": solver.global_batch,
+            "grad_elems": sum(p.numel() for p in solver.model.parameters())}
+    out["allreduce_ms"] = [s.elapsed_time(e) for s, e in events]
+    return _rank_end(spec, rank, out)
+
+
+def phase_dp_launcher(solver_result, tmp, corpus):
+    """Phase 11a: ``python -m torch.distributed.run --nproc_per_node 1`` on
+    this script's ``dp_launcher_rank``, which drives the solver's ``main``
+    on phase 7's corpus with the DeCLIP-R50 recipe as its file has it
+    (bf16, B=128): NCCL at world 1 through the real launcher, SOLVER_STEPS
+    steps saved at the end, the zero-shot eval merged through
+    ``gather_object``, and an auto-resume for one step."""
+    import numpy as np
+
+    cfg_path, sets = solver_experiment(tmp, "dp_exp", corpus, save_freq=0)
+    exp = os.path.dirname(cfg_path)
+    (res,), wall, _ = run_ranks(
+        1, "--phase-11a-rank", {"cfg": cfg_path, "sets": sets,
+                                "out": os.path.join(tmp, "dp_out")},
+        DP_LAUNCH_TIMEOUT_S)
+    first, resume = res["first"], res["resume"]
+    for run in (first, resume):
+        check((run["world"], run["rank"], run["backend"], run["device"])
+              == (1, 0, "nccl", "cuda:0"),
+              f"phase 11a: not NCCL at world 1 on cuda:0: {run}")
+        check(run["launches"] == run["want"],
+              f"phase 11a kernel calls {run['launches']}, want "
+              f"{run['want']}")
+        check(run["merges"] >= 1, "phase 11a: the eval merged nothing "
+                                  "through gather_object")
+    check((first["start_step"], first["step"], resume["start_step"],
+           resume["step"]) == (0, SOLVER_STEPS, SOLVER_STEPS,
+                               DP_RESUME_STEPS),
+          f"phase 11a: runs {first['start_step']}->{first['step']}, "
+          f"{resume['start_step']}->{resume['step']}")
+    scalars = scalars_by_tag(os.path.join(exp, "events", "scalars.jsonl"))
+    losses = [v for _, v in scalars["loss"]]
+    skipped = [v for _, v in scalars["update_skipped"]]
+    top = {k: scalars[f"eval0/{k}"][-1][1] for k in ("top1", "top5")}
+    check(len(losses) == DP_RESUME_STEPS and np.isfinite(losses).all()
+          and skipped == [0.0] * DP_RESUME_STEPS
+          and all(0 <= v <= 100 for v in top.values()),
+          f"phase 11a: losses {losses}, skipped {skipped}, eval {top}")
+    ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    check(ckpts == sorted([f"ckpt_{SOLVER_STEPS}.pth.tar",
+                           f"ckpt_{DP_RESUME_STEPS}.pth.tar",
+                           "ckpt_meta.json"]),
+          f"phase 11a checkpoints {ckpts}")
+    window = solver_window(first["timings"], SOLVER_TIMED[0],
+                           SOLVER_TIMED[1], first["batch"])
+    ar = sorted(res["allreduce_ms"])
+    launches = {k: first["launches"][k] + resume["launches"][k]
+                for k in first["launches"]}
+    out = {"wall_s": wall, "losses": losses, "top1": top["top1"],
+           "top5": top["top5"], "launches": launches,
+           "first_launches": first["launches"],
+           "resume_launches": resume["launches"],
+           "first_wall_s": first["wall_s"], "resume_wall_s": resume["wall_s"],
+           "allreduce_ms": res["allreduce_ms"],
+           "allreduce_ms_median": ar[len(ar) // 2],
+           "grad_elems": first["grad_elems"], **window,
+           "phase7_step_s": solver_result["step_s"],
+           "phase7_step_s_without_saves":
+               solver_result["step_s_without_saves"]}
+    print(f"phase 11a: torch.distributed.run --nproc_per_node 1, NCCL at "
+          f"world 1: {SOLVER_STEPS} steps of {DECLIP_RECIPE} (saved at "
+          f"{SOLVER_STEPS}, then resumed to {DP_RESUME_STEPS}), zero-shot "
+          f"top1 {top['top1']:.2f} top5 {top['top5']:.2f} merged through "
+          f"gather_object, in {wall:.1f} s (the two runs "
+          f"{first['wall_s']:.1f} s and {resume['wall_s']:.1f} s); steps "
+          f"{SOLVER_TIMED[0]}-{SOLVER_TIMED[1]} (no save among them): "
+          f"{window['step_s'] * 1e3:.2f} ms/step "
+          f"({window['data_s'] * 1e3:.2f} waiting for data) beside phase "
+          f"7's {solver_result['step_s_without_saves'] * 1e3:.2f} without "
+          f"its save ({solver_result['step_s'] * 1e3:.2f} with it, "
+          f"{solver_result['data_s'] * 1e3:.2f} waiting); the "
+          f"gradient all-reduce of {first['grad_elems'] / 1e6:.1f} M fp32 "
+          f"(flatten, all-reduce, unflatten) {out['allreduce_ms_median']:.3f}"
+          f" ms a step on the device (median of {len(ar)}); kernel calls "
+          f"{launches} (first run {first['launches']}, resume "
+          f"{resume['launches']})", flush=True)
+    return out
+
+
+def _dp_case(name, world):
+    """Phase 11b's case ``name`` ("declip", "declip_per_rank_bn",
+    "filip") for a world of ``world``: (config text, image_encode
+    overrides, batch builder). The per-rank BatchNorm's one-process
+    counterpart is the same batch in two BatchNorm groups."""
+    if name == "filip":
+        return FILIP_CONFIG, {}, _filip_batch
+    extra = {}
+    if name == "declip_per_rank_bn":
+        extra = ({"use_sync_bn": False} if world > 1
+                 else {"bn_stats_groups": DP_WORLD})
+    return DECLIP_CONFIG, extra, _declip_batch
+
+
+def dp_step(name, group):
+    """One fp32 step of phase 11b's case ``name`` over ``group`` (None: one
+    process on the whole batch) on this process's card: -> the loss,
+    metrics, each parameter's gradient norm (averaged over the ranks), the
+    bank rows the step wrote, the BatchNorm statistics, the launches and
+    the step's wall ms."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models import model_entry
+    from declip_tpu_torch.optim import (
+        optim_entry,
+        path_prefix_mask,
+        scheduler_entry,
+    )
+    from declip_tpu_torch.train import make_train_step, new_train_state
+
+    world = 1 if group is None else group.size
+    text, extra, make_batch = _dp_case(name, world)
+    cfg = parse_config(text)
+    kwargs = dict(cfg.model.kwargs)
+    kwargs["dtype"] = "float32"
+    kwargs["image_encode"] = {**kwargs["image_encode"], **extra}
+    mcfg = {"type": cfg.model.type, "kwargs": kwargs}
+    model = model_entry(mcfg, data_group=group)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    model = model.cuda()
+    named = dict(model.named_parameters())
+    max_iter = int(cfg.lr_scheduler.kwargs.max_iter)
+    sched = scheduler_entry(cfg.lr_scheduler, max_iter=max_iter)
+    tx = optim_entry(cfg.optimizer, model, sched,
+                     pconfig=cfg.optimizer.pconfig,
+                     grad_clip=dict(cfg.grad_clip),
+                     frozen_mask=path_prefix_mask(
+                         named, model.visual.frozen_param_paths()))
+    norms = {}
+    update = tx.update_
+
+    def capture(grads, *args, **kwargs):
+        norms.update({n: torch.linalg.vector_norm(g.float()).item()
+                      for n, g in grads.items()})
+        return update(grads, *args, **kwargs)
+
+    tx.update_ = capture
+    state = new_train_state(model=model, opt_state=tx.init(named),
+                            bank_text=_seeded_method_bank(model))
+    step = make_train_step(model, tx, cfg, sched, total_steps=max_iter,
+                           axis_name=group)
+    batch = make_batch(np.random.default_rng(SEED))
+    if group is not None:
+        b = TRAIN_BATCH // group.size
+        batch = {k: v[group.rank * b:(group.rank + 1) * b]
+                 for k, v in batch.items()}
+    ptr = None if state.bank_text is None else state.bank_text.ptr
+    torch.cuda.synchronize()
+    reset_launches()  # a main path starts
+    t = time.perf_counter()
+    _, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    launches = read_launches()  # ... and ends
+    written = 2 * TRAIN_BATCH
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grad_norms": norms, "launches": launches, "step_ms": step_ms,
+           "bn": {k: v.cpu().numpy() for k, v in model.state_dict().items()
+                  if k.endswith(("running_mean", "running_var"))},
+           "bank": None if ptr is None else
+           state.bank_text.bank[ptr:ptr + written].cpu().numpy()}
+    del model, state, step, tx
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(spec):
+    """Phase 11b's (and 11c's) rank: joins the group torchrun set up, on
+    cuda:0 for gloo (two ranks sharing the one card) or cuda:<rank> for
+    NCCL, and runs ``dp_step`` on each case."""
+    rank = _rank_begin(spec)
+    from declip_tpu_torch.parallel import data_group, init_distributed, \
+        shutdown
+
+    backend = spec["backend"]
+    device = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
+    init_distributed(device, backend=backend, timeout_s=120)
+    group = data_group()
+    out = {name: dp_step(name, group) for name in spec["cases"]}
+    shutdown()
+    return _rank_end(spec, rank, out)
+
+
+def _dp_compare(name, ranks, whole):
+    """Phase 11b's checks of one case: -> the worst share of each limit."""
+    import numpy as np
+
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        check(r["metrics"] == r0["metrics"]
+              and r["grad_norms"] == r0["grad_norms"],
+              f"phase 11 {name}: the ranks disagree on the step")
+    loss, want = r0["metrics"]["loss"], whole["metrics"]["loss"]
+    worst = {"loss": abs(loss - want) / (DP_RTOL * abs(want))}
+    check(worst["loss"] <= 1, f"phase 11 {name}: loss {loss} vs one "
+                              f"process {want}")
+    total = sum(v * v for v in whole["grad_norms"].values()) ** 0.5
+    floor = STEP_NOISE_REL_NORM * total
+    shares = {}
+    for p, n1 in whole["grad_norms"].items():
+        n2 = r0["grad_norms"][p]
+        if n1 <= floor:
+            shares[p] = n2 / floor
+        else:
+            shares[p] = abs(n2 - n1) / (DP_RTOL * n1)
+    top = sorted(shares.items(), key=lambda kv: -kv[1])[:5]
+    worst["grad_norms"] = top[0][1]
+    worst["grad_norms_top"] = top
+    check(top[0][1] <= 1, f"phase 11 {name}: gradient norms over their "
+                          f"limits (share of the limit): {top}")
+    if whole["bank"] is not None:
+        got, ref = r0["bank"], whole["bank"]
+        for r in ranks[1:]:
+            check(np.array_equal(r["bank"], got),
+                  f"phase 11 {name}: the ranks' banks differ")
+        err = np.abs(got - ref)
+        limit = DP_BANK_ATOL + DP_RTOL * np.abs(ref)
+        worst["bank"] = float((err / limit).max())
+        check(worst["bank"] <= 1, f"phase 11 {name}: bank rows differ by "
+                                  f"{err.max()}")
+    shares = {}
+    for k, ref in whole["bn"].items():
+        got = r0["bn"][k]
+        for r in ranks[1:]:
+            check(np.array_equal(r["bn"][k], got),
+                  f"phase 11 {name}: the ranks' {k} differ")
+        # a running mean in units of its feature's deviation: after a
+        # BatchNorm the next one's input mean is 0 up to rounding
+        scale = np.linalg.norm(ref)
+        if k.endswith("running_mean"):
+            var = whole["bn"][k[:-len("mean")] + "var"]
+            scale = max(scale, np.linalg.norm(np.sqrt(var)))
+        shares[k] = float(np.linalg.norm(got - ref) / (DP_RTOL * scale))
+    if shares:
+        top = sorted(shares.items(), key=lambda kv: -kv[1])[:3]
+        worst["bn"], worst["bn_top"] = top[0][1], top
+        check(top[0][1] <= 1, f"phase 11 {name}: BatchNorm statistics "
+                              f"over their limits (share of the limit): "
+                              f"{top}")
+    return worst
+
+
+def phase_dp_two_ranks(tmp, backend="gloo"):
+    """Phase 11b (gloo, two ranks sharing the one card) or 11c (NCCL, one
+    card a rank): DeCLIP-R50 at full width in fp32 with BatchNorm over the
+    global batch and, ``use_sync_bn: false``, over each rank's rows, then
+    FILIP ViT-B/32 (K3-K5 at 64 queries against 128 keys), each rank on
+    half of the batch, one step against one process on the whole batch
+    from the same weights (the MLM masks are the batch's, no draw is
+    keyed by the rank)."""
+    import torch
+
+    cases = ("declip", "declip_per_rank_bn", "filip")
+    # the one-process references run here while the ranks run
+    ranks, wall, wholes = run_ranks(
+        DP_WORLD, "--phase-11b-rank",
+        {"cases": cases, "backend": backend,
+         "out": os.path.join(tmp, f"dp_{backend}")},
+        DP_JOIN_TIMEOUT_S,
+        during=lambda: {name: dp_step(name, None) for name in cases})
+    out = {"backend": backend, "wall_s": wall}
+    failed = []
+    for name in cases:
+        whole = wholes.pop(name)
+        rows = [r[name] for r in ranks]
+        try:
+            worst = _dp_compare(name, rows, whole)
+        except AssertionError as e:  # the other cases still report
+            failed.append(str(e))
+            worst = {"failed": str(e)}
+        per_step = {"declip": 24, "declip_per_rank_bn": 24, "filip": 24}
+        li = 2 if name == "filip" else 0
+        want = {"K1": per_step[name], "K2": per_step[name], "K3": li,
+                "K4": li, "K5": li}
+        for i, r in enumerate(rows):
+            check(r["launches"] == want,
+                  f"phase 11 {name}: rank {i} kernel calls "
+                  f"{r['launches']}, want {want}")
+        out[name] = {"launches": [r["launches"] for r in rows],
+                     "step_ms": [r["step_ms"] for r in rows],
+                     "one_process_step_ms": whole["step_ms"],
+                     "loss": rows[0]["metrics"]["loss"],
+                     "one_process_loss": whole["metrics"]["loss"],
+                     "worst_share": worst}
+        print(f"phase 11 ({backend}, {DP_WORLD} ranks) {name}: loss "
+              f"{rows[0]['metrics']['loss']:.6f} vs one process "
+              f"{whole['metrics']['loss']:.6f}; the worst share of each "
+              f"limit {worst}; kernel calls by rank "
+              f"{out[name]['launches']}; step ms by rank "
+              f"{[round(x, 1) for x in out[name]['step_ms']]}"
+              + (" (two ranks sharing one card over gloo, not a "
+                 "performance number)" if backend == "gloo" else ""),
+              flush=True)
+        del whole
+        torch.cuda.empty_cache()
+    check(not failed, f"phase 11 ({backend}): {failed}")
+    return out
+
+
+def phase_data_parallel(solver_result, tmp, corpus):
+    """Phase 11: 11a, 11b (with phase 7's CLI evaluation beside it) and
+    11c."""
+    import torch
+
+    out = {"launcher": phase_dp_launcher(solver_result, tmp, corpus)}
+    cli = start_solver_cli(solver_result, tmp)
+    try:
+        out["gloo_one_card"] = phase_dp_two_ranks(tmp, "gloo")
+    finally:
+        finish_solver_cli(cli, solver_result)
+    n = torch.cuda.device_count()
+    if n >= DP_WORLD:
+        out["nccl"] = phase_dp_two_ranks(tmp, "nccl")
+    else:
+        out["nccl"] = None
+        print(f"phase 11c (NCCL at world {DP_WORLD}): not run, this "
+              f"machine has {n} card(s) and NCCL refuses two ranks on one "
+              f"device; not counted as passed", flush=True)
+    return out
+
+
 def _path_sums(rows, cases, dtype_name, prefix=""):
     """Each time summed over the path's shapes in one dtype; the path is
     bound by what bounds its largest bound."""
@@ -3989,6 +4523,17 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
     }, *_li_entries(li_rows, li_paths, k3_eval)]}
 
 
+PHASE_S = {}  # each phase's wall seconds
+
+
+def timed(name, phase, *args):
+    t = time.perf_counter()
+    out = phase(*args)
+    PHASE_S[name] = time.perf_counter() - t
+    print(f"[phase {name}: {PHASE_S[name]:.1f} s]", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -4004,28 +4549,33 @@ def main():
           f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    card, ptxas = phase_card_and_build()
+    card, ptxas = timed("build", phase_card_and_build)
     hmma = check_tensor_cores(ptxas)
-    rows = phase_kernel_vs_plain()
-    bwd_rows = phase_backward()
-    li_rows = phase_late_interaction()
-    k3_eval = phase_k3_eval_shape()
-    slice_result = phase_slice()
-    train_result = phase_train()
-    filip_result = phase_train_filip()
-    declip_result = phase_train_declip()
+    rows = timed("kernels", phase_kernel_vs_plain)
+    bwd_rows = timed("backward", phase_backward)
+    li_rows = timed("late_interaction", phase_late_interaction)
+    k3_eval = timed("k3_eval", phase_k3_eval_shape)
+    slice_result = timed("serve", phase_slice)
+    train_result = timed("train", phase_train)
+    filip_result = timed("train_filip", phase_train_filip)
+    declip_result = timed("train_declip", phase_train_declip)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_solver_")
     try:
         corpus = solver_corpus(tmp)
-        solver_result = phase_solver(declip_result, tmp, corpus)
-        fast_result = phase_fast_input(solver_result, tmp, corpus)
-        methods_result = phase_train_methods()
+        solver_result = timed("solver", phase_solver, declip_result,
+                              tmp, corpus)
+        fast_result = timed("fast_input", phase_fast_input,
+                            solver_result, tmp, corpus)
+        methods_result = timed("train_methods", phase_train_methods)
         # whether the profiler still sees the card around phase 10 (in
         # earlier full runs it saw no device events at its end)
         probe = {"before_phase_10": profiler_sees_device()}
-        solver_methods_result = phase_solver_methods(tmp, corpus)
+        solver_methods_result = timed("solver_methods",
+                                      phase_solver_methods, tmp, corpus)
         probe["after_phase_10"] = profiler_sees_device()
         print(f"the profiler sees device events: {probe}", flush=True)
+        dp_result = timed("data_parallel", phase_data_parallel,
+                          solver_result, tmp, corpus)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     line = kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
@@ -4044,7 +4594,8 @@ def main():
                    "solver_fast_input": fast_result,
                    "train_methods": methods_result,
                    "solver_methods": solver_methods_result,
-                   "kernels": line["kernels"],
+                   "data_parallel": dp_result,
+                   "kernels": line["kernels"], "phase_s": PHASE_S,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")
     print(card)  # name and power limit, as nvidia-smi gives them
@@ -4056,4 +4607,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase-11a-rank"]:
+        sys.exit(dp_launcher_rank(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--phase-11b-rank"]:
+        sys.exit(dp_rank(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -21,7 +21,9 @@ Format: the reference's ``ckpt.pth.tar`` / ``ckpt_<iter>.pth.tar``, a
 
 beside a ``ckpt_meta.json`` sidecar with the saving run's topology. Writes
 go to a temporary file and are renamed into place, so a reader never sees a
-partial file. ``gs://`` storage and the orbax backend of the JAX package
+partial file. In a data-parallel run rank 0 writes, every rank restores the
+same file, and ``broadcast_state`` gives every rank rank 0's state at the
+start. ``gs://`` storage and the orbax backend of the JAX package
 are not ported (orbax is TPU/pod-only).
 """
 
@@ -241,6 +243,25 @@ def restore_checkpoint(path: str, state):
         _into(state.bank_text.bank, bank["bank"])
         state.bank_text.ptr = int(bank["ptr"])
     state.step = int(ckpt["last_iter"])
+    return state
+
+
+@torch.no_grad()
+def broadcast_state(state, group):
+    """Rank 0's model parameters and buffers (BatchNorm statistics) and
+    NN bank on every rank of ``group``, in place: the ranks of a
+    data-parallel run start from the same state. Nothing without a
+    group."""
+    if group is None:
+        return state
+    from declip_tpu_torch.parallel import comms
+
+    for t in list(state.model.parameters()) + list(state.model.buffers()):
+        comms.broadcast_(t.data, group)
+    if state.bank_text is not None:
+        comms.broadcast_(state.bank_text.bank, group)
+        state.bank_text.ptr = comms.broadcast_object(
+            state.bank_text.ptr, 0, group)
     return state
 
 

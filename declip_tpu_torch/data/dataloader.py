@@ -14,7 +14,7 @@ host-side text work out of the model, as the JAX package does:
 Worker threads build whole batches; futures are consumed in submission order
 so the INDEX stream is deterministic and exactly resumable (the reference's
 resume contract, sampler.py:76-79). MLM masks and EDA draws are keyed by
-(seed, global batch index) so they replay exactly across resume
+(seed, global batch index, rank) so they replay exactly across resume
 (``start_batch_idx`` continues the numbering); PIL image-crop draws are the
 one non-replayed source, as in the reference and the JAX package. With the
 same seeds and the same transform draws, the batches are the JAX loader's,
@@ -60,7 +60,7 @@ def _proc_init(spec: Dict[str, Any]) -> None:
         dataset, sampler=None, batch_size=spec["batch_size"],
         eda=spec["eda"], text_mask_type=spec["text_mask_type"],
         mlm_probability=spec["mlm_probability"], seed=spec["seed"],
-        keep_raw=spec["keep_raw"], num_workers=1)
+        keep_raw=spec["keep_raw"], num_workers=1, rank=spec["rank"])
 
 
 def _proc_build(indices: Sequence[int], batch_idx: int) -> Dict[str, Any]:
@@ -87,8 +87,10 @@ class ClipDataLoader:
         keep_raw: bool = False,
         worker_type: str = "thread",
         proc_spec: Optional[Dict[str, Any]] = None,
+        rank: int = 0,
     ):
         self.dataset = dataset
+        self.rank = rank
         self.sampler = sampler
         self.batch_size = batch_size
         self.tokenizer = tokenizer or get_tokenizer()
@@ -132,13 +134,18 @@ class ClipDataLoader:
             "tokens": tok.tokenize(captions, self.context_length),
             "labels": labels,
         }
+        # the draws are keyed by the rank too, so that ranks do not share
+        # them; rank 0's are the one-process run's
         if self.eda:
-            eda = EDA(seed=self.seed * 1_000_003 + batch_idx)
+            eda = EDA(seed=self.seed * 1_000_003 + batch_idx
+                      + (self.rank << 40))
             batch["tokens_aug"] = tok.tokenize(
                 eda.augment_batch(captions), self.context_length
             )
         if self.text_mask_type is not None:
-            rng = np.random.default_rng((self.seed, 7, batch_idx))
+            rng = np.random.default_rng(
+                (self.seed, 7, batch_idx) + ((self.rank,) if self.rank
+                                             else ()))
             mlm_tokens, mlm_labels = mask_tokens(
                 batch["tokens"],
                 mask_id=tok.mask_id,
@@ -368,4 +375,5 @@ def build_clip_dataloader(split_cfg: Dict, *, world_size: int = 1,
         keep_raw=keep_raw,
         worker_type=worker_type,
         proc_spec=proc_spec,
+        rank=rank,
     )

@@ -7,7 +7,12 @@ from __future__ import annotations
 
 import torch
 
-from declip_tpu_torch.ops.contrastive import cross_entropy
+from declip_tpu_torch.ops.contrastive import (
+    cross_entropy,
+    gather_features,
+    infonce_labels,
+)
+from declip_tpu_torch.parallel import comms
 from declip_tpu_torch.tokenizer.mlm import IGNORE_INDEX
 
 
@@ -35,30 +40,42 @@ def simsiam_loss_minimize(p: torch.Tensor,
     return sim.max(dim=-1).values.mean()
 
 
-def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor,
+             axis_name=None) -> torch.Tensor:
     """Masked-token CE ignoring -100 (declip.py:326-334; JAX losses.py:55-67).
 
     logits [B, L, V], labels int [B, L]. fp32 log-softmax; the mean over the
     selected positions, and 0 when a batch selects none (the reference would
-    give NaN there)."""
+    give NaN there). Over a group (``axis_name``) the count of selected
+    positions is the global batch's, shared out over the ranks, so that the
+    mean of the ranks' losses is the global batch's mean."""
     mask = (labels != IGNORE_INDEX).float()
     safe = torch.where(labels == IGNORE_INDEX, 0, labels).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if axis_name is None:
+        return (nll * mask).sum() / torch.clamp(count, min=1.0)
+    count = comms.all_reduce_(count.detach().clone(), axis_name)
+    return (nll * mask).sum() / (torch.clamp(count, min=1.0)
+                                 / axis_name.size)
 
 
 def nt_xent_convirt(zis: torch.Tensor, zjs: torch.Tensor,
                     temperature: float = 0.1, alpha: float = 0.75,
-                    norm: bool = True) -> torch.Tensor:
+                    norm: bool = True, axis_name=None) -> torch.Tensor:
     """ConVIRT's image-text NT-Xent (nt_xent_ConVIRT.py:4-86; JAX
     losses.py:129-147): alpha CE(image -> text) + (1 - alpha) CE(text ->
-    image) over the local batch, fp32 logits."""
+    image) over the batch, fp32 logits; over a group (``axis_name``) this
+    rank's rows against the gathered batch, as the JAX solver computes it
+    on the global batch."""
     if norm:
         zis, zjs = _unit(zis, 1e-12), _unit(zjs, 1e-12)
-    labels = torch.arange(zis.shape[0], device=zis.device)
-    loss_a = cross_entropy((zis @ zjs.t()).float() / temperature, labels)
-    loss_b = cross_entropy((zjs @ zis.t()).float() / temperature, labels)
+    labels = infonce_labels(zis.shape[0], axis_name, device=zis.device)
+    g_zis = gather_features(zis, axis_name)
+    g_zjs = gather_features(zjs, axis_name)
+    loss_a = cross_entropy((zis @ g_zjs.t()).float() / temperature, labels)
+    loss_b = cross_entropy((zjs @ g_zis.t()).float() / temperature, labels)
     return alpha * loss_a + (1 - alpha) * loss_b
 
 

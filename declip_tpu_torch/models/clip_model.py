@@ -17,7 +17,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from declip_tpu_torch.models.layers import as_dtype
+from declip_tpu_torch.models.layers import BatchNorm, BnAxis, as_dtype
 from declip_tpu_torch.models.resnet import (
     modified_resnet_R50,
     modified_resnet_R101,
@@ -104,6 +104,63 @@ class CLIP(nn.Module):
         return out
 
 
+def resolve_bn_stats_groups(bn_world: int, *, use_sync_bn: bool = True,
+                            bn_group_size: int = 1) -> int:
+    """The reference's BatchNorm keys as a number of contiguous rank groups
+    (modified_resnet.py:116-142; the JAX package's function of this name):
+    ``use_sync_bn: False`` is per-rank moments (``bn_world`` groups,
+    ``bn_group_size`` ignored); ``bn_group_size: G`` with a world larger
+    than G is world/G groups of G ranks; anything else is 1, the global
+    moments (with a warning where G does not divide the world)."""
+    if use_sync_bn is False:
+        return max(1, bn_world)
+    if bn_group_size > 1 and bn_world > bn_group_size:
+        if bn_world % bn_group_size:
+            import logging
+
+            logging.getLogger("declip_tpu_torch").warning(
+                "bn_group_size=%d does not divide the data-parallel world "
+                "%d (the reference's simple_group_split would reject this "
+                "too): BatchNorm takes the global moments.", bn_group_size,
+                bn_world)
+            return 1
+        return bn_world // bn_group_size
+    return 1
+
+
+def bind_data_group(model: nn.Module, group, *, use_sync_bn: bool = True,
+                    bn_group_size: int = 1) -> nn.Module:
+    """Every BatchNorm of ``model`` across the ranks of the data group
+    ``group`` (``parallel.Group``). The image tower's take the moments of
+    their rank group, ``resolve_bn_stats_groups`` of the tower's
+    ``use_sync_bn``/``bn_group_size`` over the world as contiguous groups
+    (``comms.group_split``); the heads' (SimSiam, SLIP's predictor) take
+    the global moments, as they do on the JAX solver's global batch. The
+    running statistics take the global moments everywhere. Every rank
+    makes every subgroup, in the same order (torch's rule)."""
+    from declip_tpu_torch.parallel import comms
+    from declip_tpu_torch.parallel.dist import new_group
+
+    groups = resolve_bn_stats_groups(group.size, use_sync_bn=use_sync_bn,
+                                     bn_group_size=bn_group_size)
+    if groups == 1:
+        norm = group
+    elif groups == group.size:
+        norm = None  # per-rank moments
+    else:
+        mine = None
+        for ranks in comms.group_split(group.size, group.size // groups):
+            sub = new_group([group.ranks[r] for r in ranks])
+            if group.rank in ranks:
+                mine = sub
+        norm = mine
+    tower, heads = BnAxis(norm, group), BnAxis(group, group)
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm):
+            m.axis_name = tower if name.startswith("visual.") else heads
+    return model
+
+
 def build_towers(kwargs: dict, image_factory, device=None):
     """Shared factory plumbing (clip.py:149-165): ``image_encode``,
     ``text_encode`` and the method kwargs under ``clip``. The model-level
@@ -111,8 +168,8 @@ def build_towers(kwargs: dict, image_factory, device=None):
     compute dtype unless the tower sets its own. A ResNet tower's
     ``use_sync_bn``/``bn_group_size`` pass through as the reference's keys:
     on one process they resolve to the global batch (``bn_stats_groups``
-    1); their mapping over a data-parallel world comes with the multi-rank
-    work (ROADMAP.md item 1.10)."""
+    1); over a data-parallel world ``model_entry(..., data_group=)`` maps
+    them onto rank groups (``bind_data_group``)."""
     from declip_tpu_torch.tokenizer import get_tokenizer
 
     dtype = as_dtype(kwargs.get("dtype"))

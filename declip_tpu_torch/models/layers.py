@@ -19,6 +19,7 @@ init scheme (layers.py:258-260).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
@@ -31,6 +32,9 @@ from declip_tpu_torch.ops.attention import (
     merge_heads,
     split_heads,
 )
+from declip_tpu_torch.ops.contrastive import gather_features
+from declip_tpu_torch.parallel import comms
+from declip_tpu_torch.parallel.dist import Group
 
 # the JAX package's remat policies (layers.py:300-308): how XLA trades saved
 # activations against recompute when ``checkpoint`` is off. PyTorch saves
@@ -108,6 +112,17 @@ BN_MOMENTUM = 0.1  # flax's 0.9 as torch counts it
 BN_EPS = 1e-5
 
 
+@dataclass(frozen=True)
+class BnAxis:
+    """BatchNorm across ranks: ``norm``, the group of ranks whose joint
+    moments normalise this rank's batch (None: this rank's batch alone);
+    ``stats``, the group whose moments the running statistics take, the
+    data group, so that every rank holds the same running statistics."""
+
+    norm: Optional[Group]
+    stats: Group
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over axis 1 of [N, C] or [N, C, H, W] with flax's
     semantics, which differ from ``torch.nn.BatchNorm2d``:
@@ -126,13 +141,25 @@ class BatchNorm(nn.Module):
     ``weight``/``bias`` and the ``running_mean``/``running_var`` buffers
     carry the reference's torch names. ``stats_groups > 1`` normalises each
     of that many contiguous batch groups with its own moments and updates
-    the running statistics with the global ones (the JAX package's ``_GroupedScaleBias``)."""
+    the running statistics with the global ones (the JAX package's ``_GroupedScaleBias``).
+
+    ``axis_name`` (a :class:`BnAxis`): the same across ranks, each rank
+    holding its own rows of the global batch. The batch is normalised with
+    the moments of its rank group, each rank's fp32 mean and squared
+    deviations gathered over the group (differentiably) and combined into
+    the group's variance, not a mean of per-rank variances; the running
+    statistics take the moments of the whole data group, as
+    ``stats_groups`` takes the global ones. A rank group of one rank
+    (``use_sync_bn: false``, or a world of one) normalises with cuDNN's
+    batch norm as one process does. Eval mode needs no collective."""
 
     def __init__(self, num_features: int, zero_scale: bool = False,
-                 stats_groups: int = 1, device=None):
+                 stats_groups: int = 1, device=None,
+                 axis_name: Optional[BnAxis] = None):
         super().__init__()
         self.zero_scale = zero_scale
         self.stats_groups = stats_groups
+        self.axis_name = axis_name
         self.weight = nn.Parameter(torch.empty(num_features, device=device))
         self.bias = nn.Parameter(torch.empty(num_features, device=device))
         self.register_buffer("running_mean",
@@ -160,6 +187,23 @@ class BatchNorm(nn.Module):
                                 self.weight, self.bias, False, 0.0, BN_EPS)
         base_mean, base_var = self.pending or (self.running_mean,
                                                self.running_var)
+        axis = self.axis_name
+        if axis is not None:
+            if self.stats_groups > 1:
+                raise ValueError("BatchNorm takes stats_groups or an "
+                                 "axis_name, not both")
+            if axis.norm is not None and axis.norm.size > 1:
+                return self._synced(x, base_mean, base_var)
+            if axis.stats.size > 1:
+                # this rank's moments normalise it (cuDNN's batch norm);
+                # the running statistics take the data group's
+                y = F.batch_norm(x, None, None, self.weight, self.bias,
+                                 True, 0.0, BN_EPS)
+                with torch.no_grad():
+                    local, n = _moments(x)
+                    self.pending = _moved(base_mean, base_var, *_combine(
+                        local, n, axis.stats, differentiable=False))
+                return y
         if self.stats_groups > 1:
             return self._grouped(x, base_mean, base_var)
         mean, var = base_mean.clone(), base_var.clone()
@@ -199,11 +243,66 @@ class BatchNorm(nn.Module):
                 (1 - BN_MOMENTUM) * base_var + BN_MOMENTUM * gvar)
         return y.reshape(x.shape).to(x.dtype)
 
+    def _synced(self, x, base_mean, base_var):
+        """Each rank's fp32 mean and sum of squared deviations, gathered
+        over the group and combined as Chan et al. combine them (each
+        rank holds as many rows): accurate where the mean is large against
+        the deviation, which the mean of squares less the squared mean is
+        not."""
+        axis = self.axis_name
+        local, n = _moments(x)
+        mean, var = _combine(local, n, axis.norm, differentiable=True)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        y = (x.float() - mean.view(shape)) * torch.rsqrt(
+            var + BN_EPS).view(shape)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            if axis.norm == axis.stats:
+                stats = (mean.detach(), var.detach())
+            else:
+                stats = _combine(local.detach(), n, axis.stats,
+                                 differentiable=False)
+            self.pending = _moved(base_mean, base_var, *stats)
+        return y.to(x.dtype)
+
     def commit(self) -> None:
         if self.pending is not None:
             self.running_mean.copy_(self.pending[0])
             self.running_var.copy_(self.pending[1])
             self.pending = None
+
+
+def _moments(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """This rank's fp32 [mean, sum of squared deviations] [2, C] of x over
+    every axis but 1, and the count of its rows."""
+    xf = x.float()
+    dims = (0,) + tuple(range(2, x.ndim))
+    mean = xf.mean(dim=dims)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    m2 = ((xf - mean.view(shape)) ** 2).sum(dim=dims)
+    return torch.stack([mean, m2]), x.numel() // x.shape[1]
+
+
+def _moved(base_mean, base_var, mean, var):
+    """The running statistics moved by a batch's (mean, biased var)."""
+    return ((1 - BN_MOMENTUM) * base_mean + BN_MOMENTUM * mean,
+            (1 - BN_MOMENTUM) * base_var + BN_MOMENTUM * var)
+
+
+def _combine(local: torch.Tensor, n: int, group, differentiable: bool):
+    """The (mean, biased variance) [C] of a group's rows from each rank's
+    [mean, sum of squared deviations] [2, C] over ``n`` rows (None: this
+    rank's alone)."""
+    if group is None:
+        return local[0], local[1] / n
+    if differentiable:
+        parts = gather_features(local, group)
+    else:
+        parts = comms.all_gather(local, group)
+    means, m2s = parts.view(group.size, 2, -1).unbind(1)
+    mean = means.mean(dim=0)
+    m2 = m2s.sum(dim=0) + n * ((means - mean) ** 2).sum(dim=0)
+    return mean, m2 / (n * group.size)
 
 
 def commit_bn_stats(model: nn.Module) -> None:

@@ -74,13 +74,15 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dtype=torch.float32, bn_stats_groups: int = 1, device=None):
+                 dtype=torch.float32, bn_stats_groups: int = 1, device=None,
+                 bn_axis_name=None):
         super().__init__()
         self.stride = stride
         out_planes = planes * self.expansion
 
         def bn(c, zero_scale=False):
-            return BatchNorm(c, zero_scale, bn_stats_groups, device)
+            return BatchNorm(c, zero_scale, bn_stats_groups, device,
+                             bn_axis_name)
 
         self.conv1 = _conv(inplanes, planes, 1, dtype, device)
         self.bn1 = bn(planes)
@@ -159,10 +161,12 @@ class AttentionPool2d(nn.Module):
 
 class ModifiedResNet(nn.Module):
     """The JAX package's ``ModifiedResNet`` fields. ``use_sync_bn``,
-    ``bn_group_size`` and ``bn_sync_stats`` are the reference's keys,
-    accepted and unused: on one process BatchNorm takes the moments of the
+    ``bn_group_size`` and ``bn_sync_stats`` are the reference's keys, which
+    ``models.bind_data_group`` resolves over a data-parallel world into
+    ``bn_axis_name`` (a ``layers.BnAxis``: the rank group whose moments
+    each BatchNorm takes); on one process BatchNorm takes the moments of the
     whole batch, which is what they resolve to there (``bn_stats_groups``
-    sets the groups). ``fc_embed`` (modified_resnet_modified.py): attnpool emits
+    sets groups within one batch). ``fc_embed`` (modified_resnet_modified.py): attnpool emits
     the raw width*32 feature and ``fc`` projects it. Off the trained grid
     (input_resolution // 32), the head is the spatial mean and ``fc``
     (modified_resnet.py:205-210), which needs ``fc_embed``, unless
@@ -171,16 +175,12 @@ class ModifiedResNet(nn.Module):
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  embed_dim: int = 1024, heads: int = 32,
                  input_resolution: int = 224, width: int = 64, dtype=None,
-                 bn_axis_name: Optional[str] = None, bn_group_size: int = 1,
+                 bn_axis_name=None, bn_group_size: int = 1,
                  bn_sync_stats: bool = False, use_sync_bn: bool = True,
                  bn_stats_groups: int = 1, bn_stats_dtype=None,
                  fc_embed: bool = False, attnpool_all_res: bool = False,
                  device=None):
         super().__init__()
-        if bn_axis_name is not None:
-            raise NotImplementedError(
-                "bn_axis_name (BatchNorm statistics across processes) is not "
-                "ported yet (ROADMAP.md item 1.10)")
         if as_dtype(bn_stats_dtype) != torch.float32:
             raise NotImplementedError(
                 "bn_stats_dtype other than float32 (the JAX bench's "
@@ -196,7 +196,8 @@ class ModifiedResNet(nn.Module):
         self.dtype = dtype = as_dtype(dtype)
 
         def bn(c):
-            return BatchNorm(c, stats_groups=bn_stats_groups, device=device)
+            return BatchNorm(c, stats_groups=bn_stats_groups, device=device,
+                             axis_name=bn_axis_name)
 
         self.conv1 = Conv2d(3, width // 2, 3, stride=2, padding=1,
                             dtype=dtype, device=device)
@@ -213,7 +214,8 @@ class ModifiedResNet(nn.Module):
             for i in range(blocks):
                 stack.append(Bottleneck(inplanes, planes,
                                         stride if i == 0 else 1, dtype,
-                                        bn_stats_groups, device))
+                                        bn_stats_groups, device,
+                                        bn_axis_name))
                 inplanes = planes * Bottleneck.expansion
             setattr(self, f"layer{stage + 1}", nn.ModuleList(stack))
         pool_dim = self.dense_width if fc_embed else embed_dim

@@ -2,10 +2,16 @@
 declip_tpu/ops/contrastive.py, the ``full`` mode).
 
 The reference's gathered-feature InfoNCE (prototype/model/clip.py:25-49,
-136-144, prototype/loss_functions/loss.py:24-47). With one process the
-gather is the identity and the labels are ``arange(B)``; the differentiable
-all-gather across processes and the chunked, ring and sigmoid loss modes
-come with distribution (ROADMAP.md item 1.10).
+136-144, prototype/loss_functions/loss.py:24-47). ``axis_name`` is the data
+group (``parallel.Group``) or None for one process. Over a group each rank
+holds its own [B, D] rows: ``gather_features`` is a differentiable
+all-gather in rank order, whose backward sums the gathered gradient over
+the ranks and keeps this rank's rows (the reference's AllGather.backward,
+clip.py:42-49; JAX's psum_scatter), and the labels are ``rank * B +
+arange(B)``. Each rank's loss is then the mean over its own rows, and the
+train step's mean of the gradients over the ranks is the gradient of the
+global batch's loss. The chunked, ring and sigmoid loss modes are not
+ported (ROADMAP.md item 1.10).
 """
 
 from __future__ import annotations
@@ -15,16 +21,32 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from declip_tpu_torch.parallel import comms
+
 _NOT_PORTED = "not ported yet (ROADMAP.md item 1.10, distribution)"
 
 
+class _GatherFeatures(torch.autograd.Function):
+    """All-gather in rank order; the backward reduce-scatters: every rank's
+    loss reaches every rank's rows."""
+
+    @staticmethod
+    def forward(ctx, feat, group):
+        ctx.group = group
+        return comms.all_gather(feat, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return comms.reduce_scatter(grad, ctx.group), None
+
+
 def gather_features(feat: torch.Tensor, axis_name=None) -> torch.Tensor:
-    """The features of every process along ``axis_name``: the identity with
-    one process (``axis_name`` None)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"gather_features over {axis_name!r}: {_NOT_PORTED}")
-    return feat
+    """The [W*B, ...] features of every rank of the group ``axis_name``, in
+    rank order, differentiable; the identity with one process
+    (``axis_name`` None)."""
+    if axis_name is None:
+        return feat
+    return _GatherFeatures.apply(feat, axis_name)
 
 
 def similarity_logits(feat_a: torch.Tensor, feat_b_gathered: torch.Tensor,
@@ -40,11 +62,13 @@ def similarity_logits(feat_a: torch.Tensor, feat_b_gathered: torch.Tensor,
 
 def infonce_labels(batch_size: int, axis_name=None,
                    device=None) -> torch.Tensor:
-    """Positive indices ``arange(B)`` (loss.py:37-42, one process)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"infonce_labels over {axis_name!r}: {_NOT_PORTED}")
-    return torch.arange(batch_size, device=device)
+    """Positive indices ``rank * B + arange(B)`` (loss.py:37-42): this
+    rank's rows among the gathered columns; ``arange(B)`` with one
+    process."""
+    base = torch.arange(batch_size, device=device)
+    if axis_name is None:
+        return base
+    return axis_name.rank * batch_size + base
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

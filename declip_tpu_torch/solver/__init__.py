@@ -2,6 +2,9 @@
 
     python -m declip_tpu_torch.solver --config <experiment>/config.yaml \
         [--set dotted.key=value ...] [--evaluate] [--device cuda]
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m declip_tpu_torch.solver --config <experiment>/config.yaml
+    srun --ntasks-per-node 8 python -m declip_tpu_torch.solver --config ...
 
 One generic Solver replaces the reference's five per-method ClsSolver
 classes (prototype/solver/{clip,slip,filip,declip,defilip}_solver.py); the
@@ -19,8 +22,18 @@ in the JAX package:
   0.997, rebuild optimizer+schedule (declip_solver.py:548-619);
 - EMA evaluation swap (declip_solver.py:778-787).
 
-The port trains on one process and one device: ``device`` defaults to
-``cuda`` and raises where CUDA is absent (pass ``cpu`` to run on the CPU).
+The port trains on one process a device. Under torchrun or SLURM each
+process joins the data-parallel group (``parallel.init_distributed``) and
+drives ``cuda:LOCAL_RANK`` by default: the reference's ``batch_size`` is
+per rank, the sampler gives each rank its slab of the global stream, the
+step runs the global-batch losses over gathered features, BatchNorm across
+its rank group and the gradient mean over every rank (train/train_step.py);
+rank 0 alone logs, writes scalars and checkpoints, and the eval splits its
+images over the ranks and merges their scores in rank order. A checkpoint
+resumes on another world size where the global batch stays the same (the
+sampler re-shards the original run's stream, data/sampler.py). Without a
+launcher ``device`` defaults to ``cuda`` and raises where CUDA is absent
+(pass ``cpu`` to run on the CPU).
 The host loader's batches are staged into pinned memory on a prefetch
 thread and copied to the card on a side stream, which the step's stream
 waits for. With ``data.train.device_aug`` the loader ships uint8
@@ -30,7 +43,7 @@ evaluates zero-shot by token-wise late interaction unless a test entry sets
 ``dense_eval: false`` (filip_solver.py:839-960): each image's dense tokens
 against each class's prompt-averaged dense tokens, through K3 on the card.
 Not in the port yet, each raising when the Solver is built:
-``parallelism`` (mesh, TP/PP/EP/FSDP; ROADMAP.md item 1.10), the methods
+``parallelism`` (TP/PP/EP/FSDP/SP, multi-slice; ROADMAP.md item 1.10), the methods
 without a port model (the SSL builders' MoCo, SimCLR and CLSA; item 1.8.4),
 and the orbax backend and ``gs://`` saves (TPU/pod-only in the JAX
 package). The JAX package's compile cache and profiler hook have no
@@ -55,6 +68,7 @@ import numpy as np
 import torch
 
 from declip_tpu_torch.checkpoint import (
+    broadcast_state,
     find_last_checkpoint,
     gc_checkpoints,
     list_checkpoints,
@@ -90,6 +104,7 @@ from declip_tpu_torch.optim import (
     path_prefix_mask,
     scheduler_entry,
 )
+from declip_tpu_torch.parallel import comms, dist
 from declip_tpu_torch.tokenizer import get_tokenizer
 from declip_tpu_torch.tools._common import find_jax_checkpoint, resolve_device
 from declip_tpu_torch.train import (
@@ -138,18 +153,23 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class Solver:
-    def __init__(self, config, *, device="cuda"):
+    def __init__(self, config, *, device=None):
+        """``device``: None for ``cuda:LOCAL_RANK`` under a launcher and
+        ``cuda`` without one. A process that has joined its group already
+        (``parallel.init_distributed``) keeps it."""
         if isinstance(config, str):
             config = parse_config(config)
         self.config = config
-        self.device = resolve_device(device)
-        self.rank, self.world = 0, 1
         pcfg = dict(self.config.get("parallelism") or {})
         if any(int(pcfg.get(k, 1) or 1) > 1
                for k in ("tp", "pp", "ep", "slices")) \
                 or pcfg.get("fsdp") or pcfg.get("sp"):
             raise _not_ported(f"parallelism {pcfg}", "1.10")
-        self.data_ways = 1
+        self.device = resolve_device(dist.init_distributed(device))
+        self.rank, self.world = dist.rank(), dist.world()
+        # the data-parallel group (None: one process without a launcher)
+        self.group = dist.data_group()
+        self.data_ways = self.world
         self.setup_env()
         self.build_model()
         self.build_data()
@@ -183,8 +203,11 @@ class Solver:
         for p in (self.path.ckpt_path, self.path.event_path,
                   self.path.result_path):
             os.makedirs(p, exist_ok=True)
-        self.logger = create_logger(osp.join(base, "log.txt"))
-        self.writer = ScalarWriter(self.path.event_path, enabled=True)
+        # rank 0 alone logs and writes the scalars
+        self.logger = create_logger(osp.join(base, "log.txt"),
+                                    rank=self.rank)
+        self.writer = ScalarWriter(self.path.event_path,
+                                   enabled=self.rank == 0)
         self.meters = MeterGroup(length=int(
             self.config.get_path("saver.print_freq", 10)))
         # per print: the window's wall time, its waits for data, the
@@ -208,14 +231,15 @@ class Solver:
         kwargs["dtype"] = prec
         # weights made on the CPU from a seed, then moved: one seed gives
         # the same weights on every device
-        self.model = model_entry({"type": mtype, "kwargs": kwargs})
+        self.model = model_entry({"type": mtype, "kwargs": kwargs},
+                                 data_group=self.group)
         self.model.init_weights(torch.Generator().manual_seed(
             int(self.config.get_path("seed", 0))))
         self.model.to(self.device)
         self.method = method_of(self.model)
         self.logger.info(
             f"model={mtype} method={self.method} dtype={prec} "
-            f"device={self.device}")
+            f"device={self.device} rank={self.rank} world={self.world}")
 
     # ----------------------------------------------------------------- data
     @staticmethod
@@ -275,6 +299,12 @@ class Solver:
     def _train_loader(self, last_iter: int) -> ClipDataLoader:
         split_cfg = dict(self.train_cfg)
         split_cfg["batch_size"] = self.host_batch
+        if self._elastic_orig is not None:
+            scfg = dict(split_cfg.get("sampler") or {})
+            kw = dict(scfg.get("kwargs") or {})
+            kw["orig_world_size"], kw["orig_batch_size"] = self._elastic_orig
+            scfg["kwargs"] = kw
+            split_cfg["sampler"] = scfg
         split_cfg.setdefault("seed", int(self.config.get_path("seed", 0)))
         # DeCLIP extras flow from the model config (declip.py:203-212)
         split_cfg["eda"] = bool(getattr(self.model, "EDA", False)) and \
@@ -382,19 +412,35 @@ class Solver:
                 self.start_step = int(state.step)
                 self.logger.info(
                     f"auto-resumed from {last} at step {self.start_step}")
-        # the topology the checkpoint was written for: the sampler stream
-        # resumes only on the same world and host batch (re-sharding it for
-        # another world is ROADMAP 1.10)
+        # world-size-elastic resume (as the JAX solver's): a checkpoint
+        # written on another topology resumes on this one where the global
+        # batch stays the same; the sampler rebuilds the original run's
+        # global batches and re-shards them over this world, so every
+        # global batch is the uninterrupted run's
+        self._elastic_orig = None
         if self.start_step > 0:
             meta = load_checkpoint_meta(self.path.ckpt_path)
             ow = int(meta.get("world_size", self.world))
             ohb = int(meta.get("host_batch", self.host_batch))
             if (ow, ohb) != (self.world, self.host_batch):
-                raise ValueError(
-                    f"resuming a {ow} host(s) x batch {ohb} checkpoint on "
-                    f"{self.world} x {self.host_batch}: the port resumes "
-                    "only the topology it saved (a world-size-elastic "
-                    "resume is ROADMAP.md item 1.10); set batch_size back")
+                if ow * ohb != self.world * self.host_batch:
+                    raise ValueError(
+                        f"resuming a {ow} x batch {ohb} checkpoint on "
+                        f"{self.world} x {self.host_batch} changes the "
+                        f"global batch ({ow * ohb} -> "
+                        f"{self.world * self.host_batch}); an elastic "
+                        "resume keeps it: set batch_size")
+                stype = dict(self.train_cfg.get("sampler") or {}).get(
+                    "type", "distributed_iteration")
+                if stype != "distributed_iteration":
+                    raise ValueError(
+                        "a world-size-elastic resume takes sampler.type "
+                        f"distributed_iteration only (got {stype})")
+                self._elastic_orig = (ow, ohb)
+                self.logger.info(
+                    f"elastic resume: checkpoint topology {ow} x batch "
+                    f"{ohb} -> {self.world} x {self.host_batch}; the "
+                    "sampler re-shards the original stream")
         # pretrain weights (model only, fresh optimizer/step) when nothing
         # was resumed (clip_solver.py:140-163 + misc.py modify_state)
         pretrain_path = self.config.get_path("saver.pretrain.path")
@@ -408,7 +454,8 @@ class Solver:
                 msg += (f" ({len(unmatched)} keys kept at init, e.g. "
                         f"{unmatched[:5]})")
             self.logger.info(msg)
-        self.state = state
+        # every rank starts from rank 0's weights, statistics and bank
+        self.state = broadcast_state(state, self.group)
 
     # ----------------------------------------------------------------- step
     def build_step(self):
@@ -416,7 +463,7 @@ class Solver:
             self.model, self.tx, self.config, self.schedule,
             method=self.method, ema_cfg=self.ema_cfg,
             total_steps=self.max_iter, device_aug=self.device_aug,
-            seed=int(self.config.get_path("seed", 0)))
+            seed=int(self.config.get_path("seed", 0)), axis_name=self.group)
 
     # ----------------------------------------------------------- preemption
     @contextlib.contextmanager
@@ -460,6 +507,7 @@ class Solver:
         t_last = time.perf_counter()
         data_time = save_time = 0.0
         window = 0
+        stop = False  # the ranks' reduced preemption flag
         try:
             while step < self.max_iter:
                 t_wait = time.perf_counter()
@@ -519,7 +567,7 @@ class Solver:
 
                 if val_freq and step % val_freq == 0 and step > 0:
                     self.validate(step)
-                if save_freq and step % save_freq == 0:
+                if save_freq and step % save_freq == 0 and self.rank == 0:
                     t_save = time.perf_counter()
                     keep = int(self.config.get_path("saver.keep", 10))
                     k_dir = (self.path.ckpt_k_times_path
@@ -533,7 +581,8 @@ class Solver:
                     gc_checkpoints(self.path.ckpt_path, keep=keep)
                     save_time += time.perf_counter() - t_save
 
-                if preempt.is_set():
+                stop = self._any_rank(preempt.is_set())
+                if stop:
                     self.logger.info(
                         f"Preemption signal received at iter {step} — "
                         "writing final checkpoint and exiting (auto_resume "
@@ -542,16 +591,31 @@ class Solver:
         finally:
             it.close()
 
-        # drain in-flight async writes BEFORE the final synchronous save
-        # (they share ckpt_meta.json; last writer must be the newest)
-        wait_for_pending_saves()
-        t0 = time.perf_counter()
-        save_checkpoint(self.path.ckpt_path, self.state, save_many=True,
-                        meta=self._ckpt_meta())
-        self.save_seconds.append(time.perf_counter() - t0)
-        if not preempt.is_set():  # the grace window is for IO, not eval
+        if self.rank == 0:
+            # drain in-flight async writes BEFORE the final synchronous
+            # save (they share ckpt_meta.json; last writer must be the
+            # newest)
+            wait_for_pending_saves()
+            t0 = time.perf_counter()
+            save_checkpoint(self.path.ckpt_path, self.state, save_many=True,
+                            meta=self._ckpt_meta())
+            self.save_seconds.append(time.perf_counter() - t0)
+        # no rank reads the checkpoint back before it has landed
+        comms.barrier(self.group)
+        # the grace window is for IO, not eval; every rank decides on the
+        # reduced flag, since the eval's merge is a collective
+        if not stop:
             self.validate(step)
         self.writer.close()
+
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank (a signal may reach some
+        ranks only, and every rank must leave the loop at the same
+        step)."""
+        if self.group is None:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        return bool(comms.all_reduce_(t, self.group).item() > 0)
 
     def _h2d_ms(self) -> float:
         """Device time of the newest batch's host-to-device copy (0 on the
@@ -643,8 +707,15 @@ class Solver:
             self.logger.warning(
                 f"loss spike/NaN at step {step} (rollback disabled)")
             return False
-        wait_for_pending_saves()  # in-flight async writes must land first
-        ckpts = list_checkpoints(self.path.ckpt_path)
+        # in-flight async writes must land first, on rank 0, and no rank
+        # reads a checkpoint before then
+        if self.rank == 0:
+            wait_for_pending_saves()
+        comms.barrier(self.group)
+        # every rank restores rank 0's choice (the spike decision read the
+        # loss averaged over the ranks, so all of them are here)
+        ckpts = comms.broadcast_object(
+            list_checkpoints(self.path.ckpt_path), 0, self.group)
         if not ckpts:
             self.logger.warning("spike but no checkpoint to roll back to")
             return False
@@ -853,10 +924,20 @@ class Solver:
                     }, ensure_ascii=False) + "\n")
                 all_scores.append(scores)
                 all_labels.append(np.asarray([it["label"] for it in items]))
-        if not all_scores:
+        scores = (np.concatenate(all_scores) if all_scores
+                  else np.zeros((0, n_class), np.float32))
+        labels = (np.concatenate(all_labels) if all_labels
+                  else np.zeros((0,), np.int64))
+        if self.group is not None:
+            # every rank's share, in rank order, without a shared
+            # filesystem (the JAX solver's merge; the per-rank
+            # results.txt.rank<i> dumps stay as they are)
+            shards = comms.gather_object((scores, labels), self.group)
+            scores = np.concatenate([sc for sc, _ in shards])
+            labels = np.concatenate([lb for _, lb in shards])
+        if not len(scores):
             return Metric({"top1": 0.0, "top5": 0.0, "n": 0})
-        return ImageNetEvaluator().eval_arrays(
-            np.concatenate(all_scores), np.concatenate(all_labels))
+        return ImageNetEvaluator().eval_arrays(scores, labels)
 
     def evaluate_retrieval(self, tcfg: Dict, *, use_ema: bool = False
                            ) -> Metric:
@@ -888,6 +969,11 @@ class Solver:
                else np.zeros((0, 1), np.float32))
         txt = (np.concatenate(txt_all) if txt_all
                else np.zeros((0, 1), np.float32))
+        if self.group is not None:
+            parts = comms.gather_object((idx, img, txt), self.group)
+            idx = np.concatenate([p[0] for p in parts])
+            img = np.concatenate([p[1] for p in parts])
+            txt = np.concatenate([p[2] for p in parts])
         order = np.argsort(idx)
         return evaluator.eval_arrays(img[order], txt[order])
 
@@ -900,9 +986,10 @@ def main(argv: Optional[List[str]] = None) -> Solver:
     parser.add_argument("--evaluate", action="store_true")
     parser.add_argument("--set", nargs="*", default=[],
                         help="dotted.key=value config overrides")
-    parser.add_argument("--device", default="cuda",
-                        help="cuda (the default; raises where CUDA is "
-                             "absent) or cpu")
+    parser.add_argument("--device", default=None,
+                        help="cuda:LOCAL_RANK under torchrun or SLURM, "
+                             "else cuda (the default; raises where CUDA "
+                             "is absent), or cpu")
     args = parser.parse_args(argv)
 
     cfg = parse_config(args.config)

@@ -4,7 +4,12 @@ the SSL builders' MoCo, SimCLR and CLSA losses are not ported yet).
 
 Each function takes the model's feature dict and returns
 ``(total_loss, metrics)``. Losses are per-row means, as in the JAX package
-(no division by the world size).
+(no division by the world size). ``axis_name``: the data group
+(``parallel.Group``) or None for one process. Over a group each rank holds
+its own rows of the global batch, every global-batch term runs over the
+gathered features (ops/contrastive.py), and the MLM loss is normalised by
+the global count of masked tokens, so that the mean over the ranks of
+their losses is the JAX solver's loss on the global batch.
 """
 
 from __future__ import annotations
@@ -23,7 +28,6 @@ from declip_tpu_torch.ops.contrastive import (
     clip_infonce,
     gather_features,
     infonce_labels,
-    loss_impl_kind,
     make_pair_loss,
     similarity_logits,
     topk_accuracy,
@@ -98,7 +102,7 @@ def filip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
         labels = infonce_labels(img.shape[0], axis_name, device=img.device)
         dense_loss = clip_infonce(logits_di, logits_dt, labels)
 
-    mlm = (mlm_loss(out["mlm_logits"], out["mlm_labels"])
+    mlm = (mlm_loss(out["mlm_logits"], out["mlm_labels"], axis_name)
            if "mlm_logits" in out else torch.zeros((), device=img.device))
 
     total = clip_loss * w.get("clip_loss", 1.0)
@@ -152,7 +156,7 @@ def declip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
     zero = torch.zeros((), device=device)
 
     simsiam = simsiam_loss(*out["simsiam"])
-    mlm = (mlm_loss(out["mlm_logits"], out["mlm_labels"])
+    mlm = (mlm_loss(out["mlm_logits"], out["mlm_labels"], axis_name)
            if "mlm_logits" in out else zero)
     text_simsiam = (simsiam_loss(*out["text_simsiam"])
                     if "text_simsiam" in out else zero)
@@ -163,13 +167,11 @@ def declip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
 
     clip_nn_text = zero
     if nn_text is not None:
-        kind = loss_impl_kind(cfg)
-        if kind != "full":
-            raise NotImplementedError(
-                f"the nn_text term under loss_impl {kind!r} is not ported "
-                f"yet (ROADMAP.md item 1.10)")
         # image vs NN(text) and vs NN(text_aug) logits through symmetric
-        # InfoNCE, as the reference pairs them (declip_solver.py:474-482)
+        # InfoNCE, as the reference pairs them (declip_solver.py:474-482);
+        # the gathered neighbours' columns in rank order, the labels this
+        # rank's rows (the JAX package's chunked form of this term is the
+        # same value)
         scale = out["logit_scale"]
         i1, i2 = out["image_embed_1"], out["image_embed_2"]
         labels = infonce_labels(i1.shape[0], axis_name, device=device)
@@ -192,8 +194,10 @@ def declip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
         total = total + clip_nn_text * w.get("nn_text", 0.0)
         total = total + nn_simsiam_loss * w.get("nn_simsiam_loss", 0.0)
     elif wtype == "convirt":
-        ntx = (nt_xent_convirt(out["image_embed_1"], out["text_embed"])
-               + nt_xent_convirt(out["image_embed_2"], out["text_embed"]))
+        ntx = (nt_xent_convirt(out["image_embed_1"], out["text_embed"],
+                               axis_name=axis_name)
+               + nt_xent_convirt(out["image_embed_2"], out["text_embed"],
+                                 axis_name=axis_name))
         total = (clip_loss + ntx) / 2 * w.get("clip_loss", 1.0)
         total = total + simsiam * w.get("simsiam_loss", 0.0)
         metrics["nt_xent_loss"] = ntx

@@ -30,6 +30,24 @@ update. BatchNorm leaves its new statistics pending through the forward
 same read gives the norm clip its norm. The step puts the model in training
 mode, as the JAX step applies it with ``train=True``.
 
+Data parallelism (``axis_name``, the data group): each rank runs the step
+on its own rows of the global batch, with every global-batch loss term
+over gathered features (method_losses.py). After the backward the
+gradients are averaged over the group, flattened into a few buckets and
+all-reduced each (JAX's ``pmean``, train_step.py:289-291 there), and so
+are the metrics; the finite decision reads the averaged loss and the norm
+of the averaged gradients, so that every rank skips a step or none does.
+DeCLIP's bank enqueues the global batch's features, gathered in rank
+order, as the JAX solver's GSPMD step enqueues its global arrays
+(train_step.py:304-308 there; its shard_map mode enqueues each device's
+own rows instead, a mode the solver does not run): every rank's bank stays
+the same, and the neighbour query stays local. The step all-reduces
+explicitly rather than through ``DistributedDataParallel``: it calls the
+towers several times a backward, which DDP's reducer does not expect, and
+DDP's ``broadcast_buffers`` would overwrite BatchNorm's pending
+statistics. Device-side draws (``device_aug``) are keyed by (seed, step,
+rank).
+
 ``device_aug`` (train_step.py:255-263 of the JAX package): the batch's
 images arrive as the loader's uint8 geometry crops, [B, H, W, 3*views], and
 the step runs MOCOV2's photometric half on the device before the forward
@@ -45,7 +63,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from declip_tpu_torch.data.device_aug import augment_views
+from declip_tpu_torch.data.device_aug import augment_views, fold_in
 from declip_tpu_torch.models.clip_model import CLIP, l2_normalize
 from declip_tpu_torch.models.declip_model import DECLIP
 from declip_tpu_torch.models.defilip_model import DEFILIP
@@ -53,8 +71,9 @@ from declip_tpu_torch.models.filip_model import FILIP
 from declip_tpu_torch.models.layers import commit_bn_stats, discard_bn_stats
 from declip_tpu_torch.models.memory_bank import enqueue, query_topk
 from declip_tpu_torch.models.slip_model import SLIP
-from declip_tpu_torch.ops.contrastive import make_pair_loss
+from declip_tpu_torch.ops.contrastive import gather_features, make_pair_loss
 from declip_tpu_torch.optim import AdamRule, global_norm
+from declip_tpu_torch.parallel import comms
 from declip_tpu_torch.train import method_losses
 from declip_tpu_torch.train.ema import EmaConfig, ema_step
 from declip_tpu_torch.train.state import TrainState
@@ -197,6 +216,44 @@ def grad_norms_by_module(grads: Dict[str, torch.Tensor]
     return {f"grad_norm/{top}": global_norm(gs) for top, gs in groups.items()}
 
 
+# the gradient all-reduce's bucket: about 100 MB of fp32
+_BUCKET_ELEMS = 1 << 25
+
+
+def mean_over_ranks(tensors: Dict[str, torch.Tensor], group
+                    ) -> Dict[str, torch.Tensor]:
+    """The mean over ``group`` of each tensor, flattened into buckets of
+    about ``_BUCKET_ELEMS`` elements of one dtype, one all-reduce each."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def reduce(bucket):
+        flat = torch.cat([tensors[n].reshape(-1) for n in bucket])
+        comms.all_reduce_(flat, group, op="mean")
+        sizes = [tensors[n].numel() for n in bucket]
+        for n, part in zip(bucket, flat.split(sizes)):
+            out[n] = part.view_as(tensors[n])
+
+    bucket, size = [], 0
+    for n, t in tensors.items():
+        if bucket and (size + t.numel() > _BUCKET_ELEMS
+                       or t.dtype != tensors[bucket[0]].dtype):
+            reduce(bucket)
+            bucket, size = [], 0
+        bucket.append(n)
+        size += t.numel()
+    if bucket:
+        reduce(bucket)
+    return out
+
+
+def rank_seed(seed: int, axis_name) -> int:
+    """The seed of this rank's device-side draws: ``seed`` on rank 0 (and
+    with one process), folded with the rank elsewhere."""
+    if axis_name is None or axis_name.rank == 0:
+        return seed
+    return fold_in(seed, axis_name.rank)
+
+
 def make_augment(model, device_aug: Dict, seed: int = 0) -> Callable:
     """``augment(images_u8, step)``: the on-device photometrics of
     ``device_aug`` (``{"views", "preset"}``), in the image tower's dtype.
@@ -224,22 +281,25 @@ def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
                     ema_cfg: Optional[EmaConfig] = None,
                     total_steps: int = 1,
                     device_aug: Optional[Dict] = None,
-                    seed: int = 0) -> Callable:
+                    seed: int = 0, axis_name=None) -> Callable:
     """The step for ``model``'s method, with the update rule ``tx`` from
     ``optim_entry`` and the lr ``schedule`` (for the ``lr`` metric).
     ``total_steps``: the run's length, for DeCLIP's ``linear`` loss
     weights. ``device_aug`` (``{"views", "preset"}``): the images are uint8
-    crops, augmented on the device with draws keyed by ``seed`` and the
-    step (``make_augment``)."""
+    crops, augmented on the device with draws keyed by ``seed``, the step
+    and the rank (``make_augment``). ``axis_name``: the data group
+    (``parallel.Group``), or None for one process; the model's BatchNorms
+    take theirs from ``model_entry(..., data_group=)``."""
     method = method or method_of(model)
     grad_clip = dict(cfg.get("grad_clip") or {})
     if int((cfg.get("grad_cache") or {}).get("chunks", 0) or 0) > 1:
         raise NotImplementedError(
             "grad_cache is not ported yet (ROADMAP.md item 1.10)")
-    from_out = make_losses_from_out(cfg, method, total_steps=total_steps)
+    from_out = make_losses_from_out(cfg, method, axis_name=axis_name,
+                                    total_steps=total_steps)
     use_bank = bool(getattr(model, "return_nn_bank", False))
     check_grad = bool(cfg.get("check_grad", False))
-    augment = (make_augment(model, device_aug, seed)
+    augment = (make_augment(model, device_aug, rank_seed(seed, axis_name))
                if device_aug is not None else None)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -258,10 +318,17 @@ def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
         # still decays, as under optax
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(params.items(), grads)}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if axis_name is not None:
+            grads = mean_over_ranks(grads, axis_name)
+            keys = list(metrics)
+            reduced = torch.stack([metrics[k].float() for k in keys])
+            comms.all_reduce_(reduced, axis_name, op="mean")
+            metrics = dict(zip(keys, reduced.unbind()))
         grad_norm = global_norm(list(grads.values()))
         # the one host read of the step
         loss_v, norm_v = torch.stack(
-            [total.detach().float(), grad_norm]).tolist()
+            [metrics["loss"].float(), grad_norm]).tolist()
         finite = math.isfinite(loss_v) and math.isfinite(norm_v)
         if finite:
             logit_scale = params["logit_scale"]
@@ -273,12 +340,14 @@ def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
                 ema_step(state.ema_params, params, state.step + 1, ema_cfg)
             commit_bn_stats(model)
             if use_bank:
-                # aug first, then orig (declip.py:288-291)
-                enqueue(state.bank_text, out["text_embed_aug"])
-                enqueue(state.bank_text, out["text_embed"])
+                # aug first, then orig (declip.py:288-291); the global
+                # batch's rows in rank order
+                with torch.no_grad():
+                    for key in ("text_embed_aug", "text_embed"):
+                        enqueue(state.bank_text, gather_features(
+                            out[key].detach(), axis_name))
         else:
             discard_bn_stats(model)
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["lr"] = schedule(state.step)
         metrics["grad_norm"] = grad_norm
         metrics["update_skipped"] = 0.0 if finite else 1.0
