@@ -161,7 +161,29 @@ Phases (any failed check raises, and the script exits non-zero):
    exact launches of K1-K5; the step times of (b) are two ranks sharing
    one card over gloo, not a performance number; (c) the same over NCCL
    on two cards where the machine has them, else one line saying that it
-   did not run.
+   did not run; (b) also runs phase 12d's cases;
+12. the last two reference configs and the loss modes: (a) ``main``
+   trains the yfcc15m_vit_siglip recipe as its file has it (CLIP
+   ViT-B/32, bf16, B=128, ``sigmoid_ring`` at world 1, logit_bias_init
+   -10, Adafactor, the norm clip) on phase 7's corpus for 6 steps, saved
+   at the end, with its zero-shot eval, then resumes for one step with
+   Adafactor's slots restored bit for bit; losses finite, the logged bias
+   moving from -10, the exact launches (24 K1 and 24 K2 a step); steps
+   4-6 beside phase 4's step; one Adafactor update's device ms and state
+   MiB beside AdamW's on the same model; (b) ``main`` trains the
+   declip88m_vitb32_declip recipe (DeCLIP ViT-B/32 at embed 3072, the
+   2^16 x 3072 bank, SGD with nesterov, the abs-min guard, batch 64) for
+   4 steps with its eval: losses finite, the bank pointer, the logit scale
+   at or above 3, 48 K1 and 48 K2 a step; (c) one fp32 loss and gradient
+   of CLIP ViT-B/32 at B=128 through K1/K2 under chunked (chunk 32) and
+   ring against full, sigmoid_chunked and sigmoid_ring against sigmoid,
+   then GradCache (4 chunks) against the unchunked step: the loss within
+   1e-5, each parameter's ||g - g_ref|| <= 1e-4 ||g_ref||, the
+   re-forward's outputs bit for bit the embedding pass's; then the bf16
+   train step with and without GradCache, its peak device memory and step
+   time; (d) inside 11b's launch, ``ring`` and ``sigmoid_ring`` on CLIP
+   ViT-B/32, fp32, two gloo ranks at 2 x 64 against one process at 128,
+   within 1e-4.
 
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
@@ -574,6 +596,34 @@ DP_JOIN_TIMEOUT_S = 300
 # both sides instead.
 DP_RTOL = 1e-4
 DP_BANK_ATOL = 1e-5
+# phase 12: the last two reference configs and the loss modes. 12a: the
+# SigLIP recipe through the solver (CLIP ViT-B/32, sigmoid_ring,
+# logit_bias_init -10, Adafactor), saved at the end and resumed for a step;
+# 12b: the DeCLIP-88M ViT-B/32 recipe (embed 3072, the 2^16 x 3072 bank,
+# SGD with nesterov, the abs-min guard, batch 64 as its file has it)
+SIGLIP_RECIPE = os.path.join(
+    "experiments", "clip_experiments", "yfcc15m", "yfcc15m_vit_siglip",
+    "config.yaml")
+DECLIP88M_RECIPE = os.path.join(
+    "experiments", "declip_experiments", "declip88m",
+    "declip88m_vitb32_declip", "config.yaml")
+SIGLIP_STEPS, DECLIP88M_STEPS = 6, 4
+CLIP_PER_STEP = {"K1": 24, "K2": 24, "K3": 0, "K4": 0, "K5": 0}
+DECLIP_VIT_PER_STEP = {"K1": 48, "K2": 48, "K3": 0, "K4": 0, "K5": 0}
+# 12c: one fp32 step of CLIP ViT-B/32 at B=128 under each loss kind against
+# its full kind, and GradCache's step against the unchunked one: the loss
+# within LOSS_IMPL_RTOL, each parameter's gradient as ||g - g_ref|| <=
+# LOSS_IMPL_GRAD_REL_NORM ||g_ref|| (the same sums in other orders)
+LOSS_IMPL_CHUNK = 32
+LOSS_IMPL_CASES = (("chunked", "full"), ("ring", "full"),
+                   ("sigmoid_chunked", "sigmoid"), ("sigmoid_ring", "sigmoid"))
+LOSS_IMPL_RTOL = 1e-5
+LOSS_IMPL_GRAD_REL_NORM = 1e-4
+GRAD_CACHE_CHUNKS = 4
+GRAD_CACHE_TIMED_STEPS = 5
+# 12d: phase 11b's ranks also run the ring kinds, CLIP ViT-B/32 in fp32 at
+# 2 x 64 against one process at 128, within DP_RTOL
+DP_RING_CASES = ("ring", "sigmoid_ring")
 
 
 def check(cond, msg):
@@ -4150,11 +4200,14 @@ def phase_dp_launcher(solver_result, tmp, corpus):
 
 def _dp_case(name, world):
     """Phase 11b's case ``name`` ("declip", "declip_per_rank_bn",
-    "filip") for a world of ``world``: (config text, image_encode
-    overrides, batch builder). The per-rank BatchNorm's one-process
-    counterpart is the same batch in two BatchNorm groups."""
+    "filip", and phase 12d's "ring" and "sigmoid_ring") for a world of
+    ``world``: (config text, image_encode overrides, batch builder). The
+    per-rank BatchNorm's one-process counterpart is the same batch in two
+    BatchNorm groups."""
     if name == "filip":
         return FILIP_CONFIG, {}, _filip_batch
+    if name in DP_RING_CASES:
+        return clip_loss_config(name), {}, _clip_batch
     extra = {}
     if name == "declip_per_rank_bn":
         extra = ({"use_sync_bn": False} if world > 1
@@ -4316,13 +4369,16 @@ def phase_dp_two_ranks(tmp, backend="gloo"):
     """Phase 11b (gloo, two ranks sharing the one card) or 11c (NCCL, one
     card a rank): DeCLIP-R50 at full width in fp32 with BatchNorm over the
     global batch and, ``use_sync_bn: false``, over each rank's rows, then
-    FILIP ViT-B/32 (K3-K5 at 64 queries against 128 keys), each rank on
+    FILIP ViT-B/32 (K3-K5 at 64 queries against 128 keys), then phase
+    12d's CLIP ViT-B/32 under ``loss_impl`` ring and sigmoid_ring (the
+    blocks moving by the differentiable shift, through host memory under
+    gloo), each rank on
     half of the batch, one step against one process on the whole batch
     from the same weights (the MLM masks are the batch's, no draw is
     keyed by the rank)."""
     import torch
 
-    cases = ("declip", "declip_per_rank_bn", "filip")
+    cases = ("declip", "declip_per_rank_bn", "filip", *DP_RING_CASES)
     # the one-process references run here while the ranks run
     ranks, wall, wholes = run_ranks(
         DP_WORLD, "--phase-11b-rank",
@@ -4340,7 +4396,8 @@ def phase_dp_two_ranks(tmp, backend="gloo"):
         except AssertionError as e:  # the other cases still report
             failed.append(str(e))
             worst = {"failed": str(e)}
-        per_step = {"declip": 24, "declip_per_rank_bn": 24, "filip": 24}
+        per_step = {"declip": 24, "declip_per_rank_bn": 24, "filip": 24,
+                    "ring": 24, "sigmoid_ring": 24}
         li = 2 if name == "filip" else 0
         want = {"K1": per_step[name], "K2": per_step[name], "K3": li,
                 "K4": li, "K5": li}
@@ -4389,6 +4446,494 @@ def phase_data_parallel(solver_result, tmp, corpus):
               f"machine has {n} card(s) and NCCL refuses two ranks on one "
               f"device; not counted as passed", flush=True)
     return out
+
+
+# ---------------------------------------------------------------- phase 12
+def clip_loss_config(kind):
+    """TRAIN_CONFIG (the YFCC15M ViT-CLIP recipe) under ``loss_impl``
+    ``kind`` (chunk LOSS_IMPL_CHUNK), with a SigLIP logit bias (-10) for
+    the sigmoid kinds."""
+    text = TRAIN_CONFIG
+    if kind.startswith("sigmoid"):
+        text = text.replace("clip: {use_allgather: True}",
+                            "clip: {use_allgather: True, "
+                            "logit_bias_init: -10.0}")
+    return text + (f"loss_impl: {{type: {kind}, "
+                   f"chunk_size: {LOSS_IMPL_CHUNK}}}\n")
+
+
+def _clip_batch(rng):
+    """B=128 seeded images and SOT/EOT token rows, on the card."""
+    import numpy as np
+    import torch
+
+    return {"images": torch.from_numpy(rng.normal(
+                size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda(),
+            "tokens": torch.from_numpy(_tokens(rng, TRAIN_BATCH)).cuda()}
+
+
+def _host_slots(opt_state):
+    return {slot: {k: t.detach().cpu().clone() for k, t in tensors.items()}
+            for slot, tensors in opt_state.slots.items()}
+
+
+def _solver_checks(label, solver, exp, steps, per_step, eval_batches,
+                   launches):
+    """The checks phases 10 and 12 make of a solver run of ``steps`` steps:
+    losses finite, no update skipped, the exact launches, 160 zero-shot
+    results in range -> (scalars, top-1/top-5)."""
+    import numpy as np
+
+    scalars = scalars_by_tag(os.path.join(exp, "events", "scalars.jsonl"))
+    for tag in [t for t in scalars if t.endswith("loss")]:
+        values = [v for _, v in scalars[tag]]
+        check(len(values) == steps and np.isfinite(values).all(),
+              f"{label}: {tag} {values}")
+    check([v for _, v in scalars["update_skipped"]] == [0.0] * steps,
+          f"{label}: skipped updates")
+    want = solver_method_calls(solver, steps, per_step, False, eval_batches)
+    check(launches == want, f"{label}: kernel calls {launches}, want {want}")
+    n_val = SOLVER_CLASSES * SOLVER_PER_CLASS
+    with open(os.path.join(exp, "results", "results.txt.rank0")) as f:
+        n_results = sum(1 for _ in f)
+    top = {k: scalars[f"eval0/{k}"][-1][1] for k in ("top1", "top5")}
+    check(n_results == n_val and all(0 <= v <= 100 for v in top.values()),
+          f"{label}: {n_results} results (want {n_val}), {top}")
+    return scalars, top
+
+
+def phase_siglip_solver(tmp, corpus, train_result):
+    """Phase 12a: the yfcc15m_vit_siglip recipe through the solver's
+    ``main`` on phase 7's corpus (only the data paths and frequencies
+    set): SIGLIP_STEPS steps, saved at the end, the zero-shot eval, then a
+    run resumed from that checkpoint for one step, whose restored
+    Adafactor slots must equal the saved ones bit for bit."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch import solver as solver_mod
+
+    cfg_path, sets = solver_experiment(tmp, "exp_siglip", corpus,
+                                       SIGLIP_RECIPE, save_freq=SIGLIP_STEPS)
+    exp = os.path.dirname(cfg_path)
+    restored = {}
+    real_restore = solver_mod.restore_checkpoint
+
+    def recording_restore(path, state):
+        out = real_restore(path, state)
+        restored["slots"] = _host_slots(state.opt_state)
+        restored["counts"] = (state.opt_state.count,
+                              state.opt_state.sched_count, state.step)
+        return out
+
+    runs = {}
+    solver_mod.restore_checkpoint = recording_restore
+    try:
+        for name, steps in (("first", SIGLIP_STEPS),
+                            ("resume", SIGLIP_STEPS + 1)):
+            with _CallCounter() as plain:
+                reset_launches()  # a main path starts
+                t = time.perf_counter()
+                solver = solver_mod.main(
+                    ["--config", cfg_path, "--device", "cuda", "--set",
+                     *sets, f"lr_scheduler.kwargs.max_iter={steps}"])
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t
+                launches = read_launches()  # ... and ends
+            check(plain.calls == 0, f"phase 12a {name}: {plain.calls} plain "
+                                    f"calls")
+            st = solver.state
+            eval_batches = -(-SOLVER_CLASSES * SOLVER_PER_CLASS
+                             // TRAIN_BATCH)
+            runs[name] = {"launches": launches, "wall_s": wall_s,
+                          "start_step": solver.start_step, "step": st.step,
+                          "timings": list(solver.timings),
+                          "want": solver_method_calls(
+                              solver, st.step - solver.start_step,
+                              CLIP_PER_STEP, False, eval_batches)}
+            if name == "first":
+                vis = solver.model.visual
+                check((solver.method, type(solver.tx).__name__,
+                       solver.config.loss_impl.type, solver.global_batch,
+                       vis.width, len(vis.transformer.resblocks), vis.dtype,
+                       st.step)
+                      == ("clip", "AdafactorRule", "sigmoid_ring",
+                          TRAIN_BATCH, 768, 12, torch.bfloat16,
+                          SIGLIP_STEPS),
+                      f"phase 12a: not the SigLIP recipe at full width")
+                saved = _host_slots(st.opt_state)
+                scalars, top = _solver_checks(
+                    "phase 12a", solver, exp, SIGLIP_STEPS, CLIP_PER_STEP,
+                    eval_batches, launches)
+                bias = [v for _, v in scalars["logit_bias"]]
+                check(len(bias) == SIGLIP_STEPS and bias[0] == -10.0
+                      and bias[-1] != -10.0 and np.isfinite(bias).all(),
+                      f"phase 12a: logit_bias {bias}")
+                runs[name].update(
+                    losses=[v for _, v in scalars["loss"]], logit_bias=bias,
+                    top1=top["top1"], top5=top["top5"],
+                    window=solver_window(solver.timings, *SOLVER_TIMED,
+                                         TRAIN_BATCH),
+                    state_mib=state_bytes_mib(st.opt_state))
+            del solver, st
+            torch.cuda.empty_cache()
+    finally:
+        solver_mod.restore_checkpoint = real_restore
+    resume = runs["resume"]
+    check((resume["start_step"], resume["step"], restored.get("counts"))
+          == (SIGLIP_STEPS, SIGLIP_STEPS + 1, (SIGLIP_STEPS,) * 3),
+          f"phase 12a: resumed {resume['start_step']} -> {resume['step']}, "
+          f"restored counts {restored.get('counts')}")
+    check(sorted(saved) == sorted(restored["slots"]) and all(
+        torch.equal(t, restored["slots"][slot][k])
+        for slot, tensors in saved.items() for k, t in tensors.items()),
+        "phase 12a: the resumed run's Adafactor slots differ from the "
+        "saved ones")
+    check(resume["launches"] == resume["want"],
+          f"phase 12a resume: kernel calls {resume['launches']}, want "
+          f"{resume['want']}")
+    first = runs["first"]
+    window = first["window"]
+    out = {**first, "resume": resume, "slots": sorted(saved),
+           "phase4_step_ms": train_result["step_ms"],
+           "step_ratio_to_phase4": window["step_s_without_saves"] * 1e3
+           / train_result["step_ms"]}
+    print(f"phase 12a: {SIGLIP_STEPS} steps of {SIGLIP_RECIPE} in "
+          f"{first['wall_s']:.1f} s; losses "
+          f"{[round(x, 4) for x in first['losses']]}; logit_bias "
+          f"{[round(x, 4) for x in first['logit_bias']]}; zero-shot top1 "
+          f"{first['top1']:.2f} top5 {first['top5']:.2f}; steps "
+          f"{SOLVER_TIMED[0]}-{SOLVER_TIMED[1]}: "
+          f"{window['step_s'] * 1e3:.2f} ms/step, "
+          f"{window['pairs_per_s']:.1f} pairs/s "
+          f"({window['step_s_without_saves'] * 1e3:.2f} ms without the "
+          f"save, {window['data_s'] * 1e3:.2f} waiting for data), against "
+          f"phase 4's repeated-batch step {train_result['step_ms']:.2f} ms "
+          f"(ratio {out['step_ratio_to_phase4']:.3f}); Adafactor state "
+          f"{first['state_mib']:.1f} MiB; kernel calls {first['launches']}; "
+          f"resumed at {SIGLIP_STEPS} with its slots {sorted(saved)} bit "
+          f"for bit, kernel calls {resume['launches']}", flush=True)
+    return out
+
+
+def state_bytes_mib(opt_state):
+    from declip_tpu_torch.optim import state_bytes
+
+    return state_bytes(opt_state) / 2 ** 20
+
+
+def optimizer_cost():
+    """Phase 12a's optimizer numbers: one update of the SigLIP recipe's
+    Adafactor and of the ViT-CLIP recipe's AdamW on CLIP ViT-B/32 at full
+    width (seeded gradients): device ms by the profiler (CUDA-event ms
+    beside it) and the state's MiB, with AdamW's 2 x |P| fp32."""
+    import torch
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models import model_entry
+    from declip_tpu_torch.optim import (
+        optim_entry,
+        path_prefix_mask,
+        scheduler_entry,
+    )
+
+    siglip = parse_config(os.path.join(ROOT, SIGLIP_RECIPE))
+    clip = parse_config(TRAIN_CONFIG)
+    kwargs = dict(siglip.model.kwargs)
+    kwargs["dtype"] = siglip.precision.dtype
+    model = model_entry({"type": siglip.model.type, "kwargs": kwargs})
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    model = model.cuda()
+    named = dict(model.named_parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = {n: 1e-3 * torch.randn(p.shape, device="cuda", generator=gen)
+             for n, p in named.items()}
+    n_params = sum(p.numel() for p in named.values())
+    out = {"params": n_params, "adamw_2p_mib": 2 * 4 * n_params / 2 ** 20}
+    for label, cfg in (("Adafactor", siglip), ("AdamW", clip)):
+        sched = scheduler_entry(cfg.lr_scheduler,
+                                max_iter=int(cfg.lr_scheduler.kwargs.max_iter))
+        tx = optim_entry(cfg.optimizer, model, sched,
+                         pconfig=cfg.optimizer.pconfig,
+                         grad_clip=dict(cfg.grad_clip),
+                         frozen_mask=path_prefix_mask(
+                             named, model.visual.frozen_param_paths()))
+        st = tx.init(named)
+
+        def update(tx=tx, st=st):
+            tx.update_(grads, st, named, grad_norm=0.5)
+
+        dev_ms, _ = device_ms(update, iters=5)
+        out[label] = {"device_ms": dev_ms,
+                      "event_ms": cuda_ms(update, iters=5, warmup=1),
+                      "state_mib": state_bytes_mib(st)}
+        del tx, st
+    print(f"phase 12a optimizers on CLIP ViT-B/32 ({n_params / 1e6:.1f} M "
+          f"fp32 params): Adafactor {out['Adafactor']} against AdamW "
+          f"{out['AdamW']} (device ms by the profiler, None where it saw no "
+          f"device events; CUDA-event ms; state MiB; AdamW's 2 x |P| fp32 "
+          f"{out['adamw_2p_mib']:.1f} MiB)", flush=True)
+    del model, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_declip88m_solver(tmp, corpus):
+    """Phase 12b: the declip88m_vitb32_declip recipe through the solver's
+    ``main`` on phase 7's corpus (the data paths, frequencies and its
+    pretrain path, a file this machine has not, set): DECLIP88M_STEPS
+    steps of DeCLIP ViT-B/32 at embed 3072 with the 2^16 x 3072 bank, SGD
+    with nesterov and the abs-min guard, then its zero-shot eval."""
+    import torch
+
+    from declip_tpu_torch import solver as solver_mod
+
+    cfg_path, sets = solver_experiment(tmp, "exp_declip88m", corpus,
+                                       DECLIP88M_RECIPE, save_freq=0,
+                                       save_many=None)
+    exp = os.path.dirname(cfg_path)
+    with _CallCounter() as plain:
+        reset_launches()  # a main path starts
+        t = time.perf_counter()
+        solver = solver_mod.main(
+            ["--config", cfg_path, "--device", "cuda", "--set", *sets,
+             "saver.pretrain.path=null",
+             f"lr_scheduler.kwargs.max_iter={DECLIP88M_STEPS}"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        launches = read_launches()  # ... and ends
+    check(plain.calls == 0, f"phase 12b: {plain.calls} plain calls")
+    st, model = solver.state, solver.model
+    batch = solver.global_batch
+    tx = solver.tx
+    check((solver.method, type(tx).__name__, tx.nesterov, tx.momentum,
+           model.visual.width, len(model.visual.transformer.resblocks),
+           tuple(st.bank_text.bank.shape), st.step)
+          == ("declip", "SGDRule", True, 0.9, 768, 12, (2 ** 16, 3072),
+              DECLIP88M_STEPS),
+          "phase 12b: not the DeCLIP-88M ViT-B/32 recipe at full width")
+    check(st.bank_text.ptr == 2 * batch * DECLIP88M_STEPS % 2 ** 16,
+          f"phase 12b: bank pointer {st.bank_text.ptr}")
+    scale = float(st.params["logit_scale"].detach()[0])
+    check(scale >= 3.0, f"phase 12b: logit_scale {scale} under the "
+                        f"abs-min guard's 3")
+    scalars, top = _solver_checks(
+        "phase 12b", solver, exp, DECLIP88M_STEPS, DECLIP_VIT_PER_STEP,
+        -(-SOLVER_CLASSES * SOLVER_PER_CLASS // batch), launches)
+    out = {"launches": launches, "wall_s": wall_s, "batch": batch,
+           "losses": [v for _, v in scalars["loss"]],
+           "terms": {t: scalars[t][-1][1] for t in scalars
+                     if t.endswith("loss")},
+           "logit_scale": scale, "bank_ptr": st.bank_text.ptr,
+           "top1": top["top1"], "top5": top["top5"],
+           "state_mib": state_bytes_mib(st.opt_state),
+           "params": sum(p.numel() for p in model.parameters())}
+    print(f"phase 12b: {DECLIP88M_STEPS} steps of {DECLIP88M_RECIPE} "
+          f"(batch {batch}, {out['params'] / 1e6:.1f} M params, bank "
+          f"{tuple(st.bank_text.bank.shape)}) in {wall_s:.1f} s; losses "
+          f"{[round(x, 4) for x in out['losses']]}; logit_scale {scale:.4f}; "
+          f"bank pointer {st.bank_text.ptr}; zero-shot top1 "
+          f"{top['top1']:.2f} top5 {top['top5']:.2f}; SGD state "
+          f"{out['state_mib']:.1f} MiB; kernel calls {launches}", flush=True)
+    del solver, st, model, tx
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grads_rel(label, names, grads, ref):
+    """Each parameter's ||g - g_ref|| / ||g_ref|| (0 where both are 0),
+    checked against LOSS_IMPL_GRAD_REL_NORM -> the worst three."""
+    import torch
+
+    rel = {}
+    for n, a, b in zip(names, grads, ref):
+        norm = torch.linalg.vector_norm(b).item()
+        diff = torch.linalg.vector_norm(a - b).item()
+        rel[n] = diff / norm if norm > 0 else diff
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    check(worst[0][1] <= LOSS_IMPL_GRAD_REL_NORM,
+          f"{label}: gradients beyond {LOSS_IMPL_GRAD_REL_NORM} of their "
+          f"reference's norm: {worst}")
+    return worst
+
+
+def phase_loss_impl():
+    """Phase 12c: one fp32 loss and gradient of CLIP ViT-B/32 at B=128
+    through the kernels under each chunked and ring kind against its full
+    kind, then GradCache's three passes against the unchunked step (the
+    re-forward's outputs bit for bit the embedding pass's); then the bf16
+    train step with and without GradCache: peak device memory and step
+    time, and its device busy time by the profiler."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models import model_entry
+    from declip_tpu_torch.optim import (
+        optim_entry,
+        path_prefix_mask,
+        scheduler_entry,
+    )
+    from declip_tpu_torch.train import (
+        make_losses_from_out,
+        make_train_step,
+        new_train_state,
+    )
+    from declip_tpu_torch.train.grad_cache import cached_value_and_grad
+
+    batch = _clip_batch(np.random.default_rng(SEED))
+
+    def build(kind, dtype):
+        cfg = parse_config(clip_loss_config(kind))
+        kwargs = dict(cfg.model.kwargs)
+        kwargs["dtype"] = dtype
+        model = model_entry({"type": cfg.model.type, "kwargs": kwargs})
+        model.init_weights(torch.Generator().manual_seed(SEED))
+        return cfg, model.cuda()
+
+    def loss_grads(kind, model):
+        from_out = make_losses_from_out(parse_config(clip_loss_config(kind)),
+                                        "clip")
+        total, _ = from_out(model, None, model(batch))
+        params = list(model.parameters())
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        return float(total.detach()), [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+    out = {"kinds": {}}
+    with _CallCounter() as plain:
+        reset_launches()  # a main path starts
+        for ref_kind in ("full", "sigmoid"):
+            _, model = build(ref_kind, "float32")
+            names = [n for n, _ in model.named_parameters()]
+            ref_loss, ref = loss_grads(ref_kind, model)
+            for kind, base in LOSS_IMPL_CASES:
+                if base != ref_kind:
+                    continue
+                loss, grads = loss_grads(kind, model)
+                err = abs(loss - ref_loss) / abs(ref_loss)
+                check(err <= LOSS_IMPL_RTOL, f"phase 12c {kind}: loss {loss} "
+                                             f"vs {base} {ref_loss}")
+                worst = _grads_rel(f"phase 12c {kind}", names, grads, ref)
+                out["kinds"][kind] = {"loss": loss, "ref_loss": ref_loss,
+                                      "loss_rel_err": err,
+                                      "worst_grad_rel_norm": worst}
+                del grads
+            if ref_kind == "full":
+                # GradCache's three passes against the unchunked step
+                diff = {}
+                named = dict(model.named_parameters())
+                total, _, _, cached = cached_value_and_grad(
+                    model, make_losses_from_out(
+                        parse_config(clip_loss_config("full")), "clip"),
+                    None, batch, GRAD_CACHE_CHUNKS, named,
+                    reforward_diff=diff)
+                total = float(total.detach())
+                err = abs(total - ref_loss) / abs(ref_loss)
+                check(err <= LOSS_IMPL_RTOL, f"phase 12c grad_cache: loss "
+                                             f"{total} vs {ref_loss}")
+                worst = _grads_rel("phase 12c grad_cache", names,
+                                   [cached[n] for n in names], ref)
+                check(diff["max_abs"] == 0.0,
+                      f"phase 12c grad_cache: the re-forward differs from "
+                      f"the embedding pass by {diff['max_abs']}")
+                out["grad_cache_fp32"] = {
+                    "loss_rel_err": err, "worst_grad_rel_norm": worst,
+                    "reforward_max_abs_diff": diff["max_abs"]}
+                del cached
+            del model, ref
+            torch.cuda.empty_cache()
+        launches = read_launches()  # ... and ends
+    # six losses of 24 K1 and 24 K2; GradCache's M chunks twice forward
+    # and once backward
+    want = {"K1": 6 * 24 + 2 * GRAD_CACHE_CHUNKS * 24,
+            "K2": 6 * 24 + GRAD_CACHE_CHUNKS * 24, "K3": 0, "K4": 0, "K5": 0}
+    check(launches == want and plain.calls == 0,
+          f"phase 12c: kernel calls {launches}, want {want}; plain calls "
+          f"{plain.calls}")
+    out["launches"] = launches
+
+    # the bf16 train step of the recipe with and without GradCache
+    steps = {}
+    for label, chunks in (("unchunked", 0), ("grad_cache", GRAD_CACHE_CHUNKS)):
+        cfg, model = build("full", "bfloat16")
+        if chunks:
+            cfg["grad_cache"] = {"chunks": chunks}
+        named = dict(model.named_parameters())
+        sched = scheduler_entry(cfg.lr_scheduler,
+                                max_iter=int(cfg.lr_scheduler.kwargs.max_iter))
+        tx = optim_entry(cfg.optimizer, model, sched,
+                         pconfig=cfg.optimizer.pconfig,
+                         grad_clip=dict(cfg.grad_clip),
+                         frozen_mask=path_prefix_mask(
+                             named, model.visual.frozen_param_paths()))
+        state = new_train_state(model=model, opt_state=tx.init(named))
+        step = make_train_step(model, tx, cfg, sched)
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # a main path starts
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = []
+        for _ in range(GRAD_CACHE_TIMED_STEPS):
+            _, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+        end.record()
+        end.synchronize()
+        launches = read_launches()  # ... and ends
+        n = GRAD_CACHE_TIMED_STEPS
+        per = ({"K1": 2 * chunks * 24, "K2": chunks * 24} if chunks
+               else {"K1": 24, "K2": 24})
+        check(launches == {"K1": n * per["K1"], "K2": n * per["K2"],
+                           "K3": 0, "K4": 0, "K5": 0},
+              f"phase 12c bf16 {label}: kernel calls {launches}")
+        losses = [float(x) for x in losses]
+        check(np.isfinite(losses).all(), f"phase 12c bf16 {label}: losses "
+                                         f"{losses}")
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        # device busy a step (None where the profiler saw no device event)
+        busy_ms, _ = device_ms(lambda: step(state, batch), iters=2)
+        steps[label] = {"step_ms": start.elapsed_time(end) / n,
+                        "peak_mib": peak_mib, "busy_ms": busy_ms,
+                        "launches": launches, "losses": losses}
+        del state, step, tx, model, named
+        torch.cuda.empty_cache()
+    out["bf16"] = steps
+    out["bf16"]["step_ratio"] = (steps["grad_cache"]["step_ms"]
+                                 / steps["unchunked"]["step_ms"])
+    out["bf16"]["peak_ratio"] = (steps["grad_cache"]["peak_mib"]
+                                 / steps["unchunked"]["peak_mib"])
+    print(f"phase 12c: fp32 CLIP ViT-B/32 at B={TRAIN_BATCH}, each kind "
+          f"against its full kind: "
+          + "; ".join(f"{k} loss rel err {v['loss_rel_err']:.2e}, worst "
+                      f"grad {v['worst_grad_rel_norm'][0]}"
+                      for k, v in out["kinds"].items())
+          + f"; grad_cache ({GRAD_CACHE_CHUNKS} chunks) loss rel err "
+          f"{out['grad_cache_fp32']['loss_rel_err']:.2e}, worst grad "
+          f"{out['grad_cache_fp32']['worst_grad_rel_norm'][0]}, re-forward "
+          f"max abs diff {out['grad_cache_fp32']['reforward_max_abs_diff']}"
+          f"; kernel calls {out['launches']}", flush=True)
+    print(f"phase 12c: bf16 train step, unchunked "
+          f"{steps['unchunked']['step_ms']:.2f} ms (device busy "
+          f"{steps['unchunked']['busy_ms']}) and "
+          f"{steps['unchunked']['peak_mib']:.0f} MiB peak; grad_cache "
+          f"{steps['grad_cache']['step_ms']:.2f} ms (device busy "
+          f"{steps['grad_cache']['busy_ms']}) and "
+          f"{steps['grad_cache']['peak_mib']:.0f} MiB peak (step x"
+          f"{out['bf16']['step_ratio']:.3f}, peak x"
+          f"{out['bf16']['peak_ratio']:.3f})", flush=True)
+    return out
+
+
+def phase_last_configs(tmp, corpus, train_result):
+    """Phase 12a-c (12d runs inside phase 11b's launch)."""
+    return {"siglip": phase_siglip_solver(tmp, corpus, train_result),
+            "optimizers": optimizer_cost(),
+            "declip88m": phase_declip88m_solver(tmp, corpus),
+            "loss_impl": phase_loss_impl()}
 
 
 def _path_sums(rows, cases, dtype_name, prefix=""):
@@ -4455,7 +5000,8 @@ def _li_entries(li_rows, li_paths, k3_eval):
 
 def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                  train_result, filip_result, declip_result, solver_result,
-                 fast_result, methods_result, solver_methods_result):
+                 fast_result, methods_result, solver_methods_result,
+                 last_result):
     """One entry per kernel. K1 is on every path: its launches are the sum
     over the paths, each counted from 0 around it; its times are the
     serving path's (the sum over its two shapes, image L=50 and text L=77
@@ -4467,7 +5013,9 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
     FILIP, DeFILIP (with and without dense_aug) and DeFILIP solver paths
     (``_li_entries``). The solver's runs (phase 7: the DeCLIP recipe
     through ``solver.main``, eval included; its resume; phase 8's fast
-    input path; phase 10's DeFILIP and SLIP-R50) add to the launches."""
+    input path; phase 10's DeFILIP and SLIP-R50; phase 12's SigLIP and
+    DeCLIP-88M recipes, its fp32 loss-kind steps and its bf16 steps with
+    and without GradCache) add to the launches."""
     serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
     k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
     k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
@@ -4481,7 +5029,15 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                  methods_result["defilip"]["dense_aug_launches"],
              "train_slip": methods_result["slip"]["launches"],
              "solver_defilip": solver_methods_result["defilip"]["launches"],
-             "solver_slip_r50": solver_methods_result["slip_r50"]["launches"]}
+             "solver_slip_r50": solver_methods_result["slip_r50"]["launches"],
+             "solver_siglip": last_result["siglip"]["launches"],
+             "solver_siglip_resume":
+                 last_result["siglip"]["resume"]["launches"],
+             "solver_declip88m": last_result["declip88m"]["launches"],
+             "loss_impl_fp32": last_result["loss_impl"]["launches"],
+             **{f"grad_cache_bf16_{k}": v["launches"] for k, v in
+                last_result["loss_impl"]["bf16"].items()
+                if isinstance(v, dict)}}
     k1_paths = {"serve": slice_result["launches"],
                 "train": train_result["launches"],
                 **{p: n["K1"] for p, n in paths.items()}}
@@ -4576,12 +5132,14 @@ def main():
         print(f"the profiler sees device events: {probe}", flush=True)
         dp_result = timed("data_parallel", phase_data_parallel,
                           solver_result, tmp, corpus)
+        last_result = timed("last_configs", phase_last_configs, tmp, corpus,
+                            train_result)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     line = kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                         train_result, filip_result, declip_result,
                         solver_result, fast_result, methods_result,
-                        solver_methods_result)
+                        solver_methods_result, last_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "hmma": hmma,
@@ -4595,6 +5153,7 @@ def main():
                    "train_methods": methods_result,
                    "solver_methods": solver_methods_result,
                    "data_parallel": dp_result,
+                   "last_configs": last_result,
                    "kernels": line["kernels"], "phase_s": PHASE_S,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")

@@ -14,7 +14,11 @@ Format: the reference's ``ckpt.pth.tar`` / ``ckpt_<iter>.pth.tar``, a
   running statistics included (what ``declip_tpu.convert_pth.load_pth`` and
   ``declip_tpu.tools.convert --to_pth`` read and write);
 - ``last_iter``: the step;
-- ``optimizer``: Adam's moments and counts (``OptState``);
+- ``optimizer``: the rule's counts and each of its state slots by name
+  (``OptState``: Adam's ``mu`` and ``nu``, SGD's ``trace``, Adafactor's
+  ``v_row``/``v_col``/``v``, ...), ``{"count", "sched_count", slot:
+  {key: tensor}, ...}``, which for Adam is the layout of the port's
+  earlier checkpoints;
 - ``ema``: the EMA shadow, or None;
 - ``logit_guard``: the EMA_logit_scale guard's buffers, or None;
 - ``bank``: DeCLIP's NN text bank and its pointer, or None;
@@ -99,8 +103,8 @@ def state_to_host(state) -> Dict:
         "optimizer": None if opt is None else {
             "count": int(opt.count),
             "sched_count": int(opt.sched_count),
-            "mu": {k: _host_copy(v) for k, v in opt.mu.items()},
-            "nu": {k: _host_copy(v) for k, v in opt.nu.items()}},
+            **{slot: {k: _host_copy(v) for k, v in tensors.items()}
+               for slot, tensors in opt.slots.items()}},
         "ema": None if state.ema_params is None else {
             k: _host_copy(v) for k, v in state.ema_params.items()},
         "logit_guard": guard,
@@ -216,12 +220,16 @@ def restore_checkpoint(path: str, state):
     discard_bn_stats(state.model)
     opt = ckpt["optimizer"]
     st = state.opt_state
-    if set(opt["mu"]) != set(st.mu):
-        raise ValueError(f"{path}: optimizer state names differ from the "
-                         f"model's parameters")
-    for n in st.mu:
-        _into(st.mu[n], opt["mu"][n])
-        _into(st.nu[n], opt["nu"][n])
+    saved = {k for k, v in opt.items() if isinstance(v, dict)}
+    if saved != set(st.slots) or any(set(opt[slot]) != set(tensors)
+                                     for slot, tensors in st.slots.items()):
+        raise ValueError(
+            f"{path}: optimizer state slots {sorted(saved)} differ from "
+            f"this run's rule ({sorted(st.slots)}) or its names from the "
+            f"model's parameters")
+    for slot, tensors in st.slots.items():
+        for n, t in tensors.items():
+            _into(t, opt[slot][n])
     st.count = int(opt["count"])
     st.sched_count = int(opt.get("sched_count", opt["count"]))
     if state.ema_params is not None:

@@ -16,6 +16,10 @@
 - :func:`load_pth` reads the ``{"model": state, "last_iter": n}`` file that
   ``python -m declip_tpu.tools.convert --to_pth`` writes (the reference's
   checkpoint format).
+- :func:`jax_leaves` goes the other way for a model's parameters: which
+  of the port's tensors make one leaf of the JAX package's parameter tree
+  and how each reads in that leaf's layout, for the optimizer statistics
+  that the JAX package takes per leaf (Adafactor, LARS).
 
 Either state goes to ``model.load_state_dict(state, strict=True)``, which
 is the check that every weight carried across.
@@ -24,10 +28,12 @@ is the check that every weight carried across.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from dataclasses import dataclass
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from declip_tpu_torch.models.memory_bank import BankState
 
@@ -126,3 +132,87 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
     return {(k[len("module."):] if k.startswith("module.") else k): v
             for k, v in ckpt["model"].items()
             if not k.endswith(".num_batches_tracked")}
+
+
+@dataclass
+class JaxLeaf:
+    """One leaf of the JAX package's parameter tree over the port's
+    parameters: ``names`` in leaf order (the resblocks ``0..L-1`` of a
+    leaf that ``nn.scan`` stacks over depth, one name otherwise) and each
+    one's ``layout``: ``copy``; ``t``, a Dense kernel, [out, in] here and
+    [in, out] there; ``conv``, OIHW here and HWIO there; ``patch``, the
+    ViT patch embedding, a conv [W, 3, p, p] here and a Dense
+    [p*p*3, W] there. ``key`` names the leaf: the port's name with the
+    resblock index taken out."""
+
+    key: str
+    names: List[str]
+    layouts: List[str]
+    stacked: bool
+
+    def to_jax(self, tensors: List[torch.Tensor]) -> torch.Tensor:
+        """The leaf in the JAX layout, from the port's tensors (a copy
+        where the layout or the stacking needs one)."""
+        parts = [_to_jax(t, lay) for t, lay in zip(tensors, self.layouts)]
+        return torch.stack(parts) if self.stacked else parts[0]
+
+    def from_jax(self, leaf: torch.Tensor) -> List[torch.Tensor]:
+        """The port's tensors (views where the layout allows) of a leaf in
+        the JAX layout."""
+        parts = leaf.unbind(0) if self.stacked else [leaf]
+        return [_from_jax(x, lay) for x, lay in zip(parts, self.layouts)]
+
+
+def _to_jax(t: torch.Tensor, layout: str) -> torch.Tensor:
+    if layout == "t":
+        return t.t()
+    if layout == "conv":
+        return t.permute(2, 3, 1, 0)
+    if layout == "patch":  # conv [W, 3, p, p] -> dense [p*p*3, W]
+        return t.permute(2, 3, 1, 0).reshape(-1, t.shape[0])
+    return t
+
+
+def _from_jax(x: torch.Tensor, layout: str) -> torch.Tensor:
+    if layout == "t":
+        return x.t()
+    if layout == "conv":
+        return x.permute(3, 2, 0, 1)
+    if layout == "patch":
+        p = int(round((x.shape[0] / 3) ** 0.5))
+        return x.reshape(p, p, 3, x.shape[1]).permute(3, 2, 0, 1)
+    return x
+
+
+_RESBLOCK = re.compile(r"\.resblocks\.(\d+)\.")
+
+
+def jax_leaves(model: nn.Module) -> List[JaxLeaf]:
+    """The JAX parameter tree's leaves over ``model``'s parameters, in
+    ``named_parameters`` order of their first tensor: the inverse of
+    :func:`state_from_jax_variables` (a transformer's resblocks stacked
+    back into one leaf per kind of parameter, Dense kernels transposed,
+    conv kernels to HWIO, the patch embedding to its Dense [p*p*3, W])."""
+    from declip_tpu_torch.models.vit import PatchEmbed
+
+    modules = dict(model.named_modules())
+    leaves: Dict[str, JaxLeaf] = {}
+    for name, p in model.named_parameters():
+        owner_name, _, local = name.rpartition(".")
+        owner = modules[owner_name]
+        if p.ndim == 4:
+            layout = "patch" if isinstance(owner, PatchEmbed) else "conv"
+        elif p.ndim == 2 and (isinstance(owner, nn.Linear)
+                              or local == "in_proj_weight"):
+            layout = "t"
+        else:
+            layout = "copy"
+        m = _RESBLOCK.search(name)
+        key = (name if m is None else
+               name[:m.start()] + ".layers." + name[m.end():])
+        leaf = leaves.setdefault(key, JaxLeaf(key, [], [], m is not None))
+        if m is not None and int(m.group(1)) != len(leaf.names):
+            raise ValueError(f"{name}: resblocks out of order")
+        leaf.names.append(name)
+        leaf.layouts.append(layout)
+    return list(leaves.values())

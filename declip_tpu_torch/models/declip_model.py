@@ -75,10 +75,6 @@ class DECLIP(nn.Module):
         if unported:  # return_filip among them: DeFILIP's, as in JAX
             raise TypeError(f"{type(self).__name__} got unexpected kwargs "
                             f"{sorted(unported)}")
-        if logit_bias_init is not None:
-            raise NotImplementedError(
-                "a DeCLIP logit_bias (logit_bias_init) trains with the "
-                "sigmoid loss, not ported yet (ROADMAP.md item 1.10)")
         self.visual = visual
         self.encode_text = text
         self.use_allgather = use_allgather
@@ -96,6 +92,10 @@ class DECLIP(nn.Module):
         self.logit_scale_init = (LOGIT_SCALE_INIT if logit_scale_init is None
                                  else logit_scale_init)
         self.logit_scale = nn.Parameter(torch.empty(1, device=device))
+        # the SigLIP bias of the sigmoid loss kinds (logit_bias_init)
+        self.logit_bias_init = logit_bias_init
+        self.logit_bias = (nn.Parameter(torch.empty(1, device=device))
+                           if logit_bias_init is not None else None)
         image_dim = visual.embed_dim
         text_dim = text.text_projection.out_features
         self.projector = ProjectionMLP(image_dim, dtype=dtype, device=device)
@@ -113,6 +113,8 @@ class DECLIP(nn.Module):
         self.visual.init_weights(generator)
         self.encode_text.init_weights(generator)
         nn.init.constant_(self.logit_scale, self.logit_scale_init)
+        if self.logit_bias is not None:
+            nn.init.constant_(self.logit_bias, self.logit_bias_init)
         heads = [self.projector, self.predictor]
         if self.return_simsiam_nn_text:
             heads += [self.projector_nn_text, self.predictor_nn_text]
@@ -184,6 +186,8 @@ class DECLIP(nn.Module):
         out["text_embed"] = text_embed
         out["text_embed_aug"] = text_embed_aug
         out["logit_scale"] = self.scale_value()
+        if self.logit_bias is not None:
+            out["logit_bias"] = self.logit_bias[0]
 
         if self.return_simsiam_text:
             z1t = self.projector(text_embed)

@@ -105,10 +105,6 @@ class FILIP(nn.Module):
         unknown = sorted(set(compat) - set(_COMPAT_KWARGS))
         if unknown:
             raise TypeError(f"FILIP got unexpected kwargs {unknown}")
-        if logit_bias_init is not None:
-            raise NotImplementedError(
-                "a FILIP logit_bias (logit_bias_init) trains with the sigmoid "
-                "loss, not ported yet (ROADMAP.md item 1.10)")
         self.visual = visual
         self.encode_text = text
         self.use_allgather = use_allgather
@@ -121,6 +117,10 @@ class FILIP(nn.Module):
         self.logit_scale_init = (LOGIT_SCALE_INIT if logit_scale_init is None
                                  else logit_scale_init)
         self.logit_scale = nn.Parameter(torch.empty(1, device=device))
+        # the SigLIP bias of the sigmoid loss kinds (logit_bias_init)
+        self.logit_bias_init = logit_bias_init
+        self.logit_bias = (nn.Parameter(torch.empty(1, device=device))
+                           if logit_bias_init is not None else None)
         text_width = text.ln_final.normalized_shape[0]
         if return_dense:
             self.logit_scale_dense = nn.Parameter(torch.empty((),
@@ -136,6 +136,8 @@ class FILIP(nn.Module):
         self.visual.init_weights(generator)
         self.encode_text.init_weights(generator)
         nn.init.constant_(self.logit_scale, self.logit_scale_init)
+        if self.logit_bias is not None:
+            nn.init.constant_(self.logit_bias, self.logit_bias_init)
         heads = []
         if self.return_dense:
             nn.init.constant_(self.logit_scale_dense, LOGIT_SCALE_INIT)
@@ -190,6 +192,8 @@ class FILIP(nn.Module):
         out["image_embed"] = l2_normalize(image_embed)
         out["text_embed"] = l2_normalize(text_embed, eps=1e-10)
         out["logit_scale"] = self.scale_value()
+        if self.logit_bias is not None:
+            out["logit_bias"] = self.logit_bias[0]
 
         if self.return_dense:
             dense_img = l2_normalize(self._dense(self.image_mapping,

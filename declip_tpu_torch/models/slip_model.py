@@ -53,10 +53,6 @@ class SLIP(nn.Module):
                  logit_scale_init: Optional[float] = None, dtype=None,
                  device=None):
         super().__init__()
-        if logit_bias_init is not None:
-            raise NotImplementedError(
-                "a SLIP logit_bias (logit_bias_init) trains with the sigmoid "
-                "loss, not ported yet (ROADMAP.md item 1.10)")
         self.visual = visual
         self.encode_text = text
         self.use_allgather = use_allgather
@@ -67,6 +63,10 @@ class SLIP(nn.Module):
         self.logit_scale_init = (LOGIT_SCALE_INIT if logit_scale_init is None
                                  else logit_scale_init)
         self.logit_scale = nn.Parameter(torch.empty(1, device=device))
+        # the SigLIP bias of the sigmoid loss kinds (logit_bias_init)
+        self.logit_bias_init = logit_bias_init
+        self.logit_bias = (nn.Parameter(torch.empty(1, device=device))
+                           if logit_bias_init is not None else None)
         if return_sim:
             in_dim = (visual.embed_dim if isinstance(visual, ModifiedResNet)
                       else visual.width)
@@ -78,6 +78,8 @@ class SLIP(nn.Module):
         self.visual.init_weights(generator)
         self.encode_text.init_weights(generator)
         nn.init.constant_(self.logit_scale, self.logit_scale_init)
+        if self.logit_bias is not None:
+            nn.init.constant_(self.logit_bias, self.logit_bias_init)
         if self.return_sim:
             self.predictor_sim.init_weights(generator)
 
@@ -104,6 +106,8 @@ class SLIP(nn.Module):
             "text_embed": l2_normalize(text_embed, eps=1e-10),
             "logit_scale": self.scale_value(),
         }
+        if self.logit_bias is not None:
+            out["logit_bias"] = self.logit_bias[0]
         if self.return_sim:
             feat_1 = self._sim_feature(img_1)
             feat_2 = self._sim_feature(img_2)

@@ -9,10 +9,14 @@ all-reduce, misc.py:38-40). Each returns the one-process value unchanged
 without a group.
 
 Tensors: ``all_reduce_``, ``all_gather`` (rank order), ``reduce_scatter``
-(this rank's rows of the sum over ranks) and ``broadcast_``. NCCL runs each
-natively. Under gloo, ``reduce_scatter`` is an all-reduce and a slice.
-gloo takes CUDA tensors for every collective used here (two ranks on one
-H100, PERF.md), so nothing is staged through host memory by this module.
+(this rank's rows of the sum over ranks), ``broadcast_`` and ``shift``
+(the ring's hop: this rank's block to the next rank, the previous rank's
+block here; ``lax.ppermute`` in the JAX package). NCCL runs each natively.
+Under gloo, ``reduce_scatter`` is an all-reduce and a slice. gloo takes
+CUDA tensors for every collective used here (two ranks on one H100,
+PERF.md), but PyTorch lists its point-to-point send and receive for CPU
+tensors only: ``shift`` stages a CUDA block through host memory under
+gloo, and nothing else here does.
 """
 
 from __future__ import annotations
@@ -74,6 +78,27 @@ def broadcast_(t: torch.Tensor, group: Group) -> torch.Tensor:
 
     dist.broadcast(t, 0, group=group.pg)
     return t
+
+
+def shift(t: torch.Tensor, group: Group, step: int = 1) -> torch.Tensor:
+    """The ``t`` of rank ``rank - step`` of ``group`` (cyclic), while this
+    rank's ``t`` goes to rank ``rank + step``: one send and one receive,
+    posted together and in the same order on every rank."""
+    import torch.distributed as dist
+
+    w = group.size
+    dst = group.ranks[(group.rank + step) % w]
+    src = group.ranks[(group.rank - step) % w]
+    staged = group.backend == "gloo" and t.is_cuda
+    x = t.detach().contiguous()
+    if staged:
+        x = x.cpu()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, dst, group.pg),
+           dist.P2POp(dist.irecv, out, src, group.pg)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.to(t.device) if staged else out
 
 
 def barrier(group: Optional[Group] = None) -> None:

@@ -103,6 +103,7 @@ from declip_tpu_torch.optim import (
     optim_entry,
     path_prefix_mask,
     scheduler_entry,
+    state_bytes,
 )
 from declip_tpu_torch.parallel import comms, dist
 from declip_tpu_torch.tokenizer import get_tokenizer
@@ -386,6 +387,12 @@ class Solver:
         state = new_train_state(
             model=self.model, opt_state=self.tx.init(named),
             ema_params=ema_params, bank_text=bank, with_logit_guard=guard)
+        n_params = sum(p.numel() for p in named.values())
+        self.logger.info(
+            f"optimizer={self._opt_cfg['type']} state "
+            f"{state_bytes(state.opt_state) / 2 ** 20:.1f} MiB "
+            f"({', '.join(sorted(state.opt_state.slots)) or 'no slots'}) "
+            f"for {n_params} parameters")
 
         # auto-resume (clip_solver.py:128-139)
         self.start_step = 0

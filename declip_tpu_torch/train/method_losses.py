@@ -25,9 +25,11 @@ from declip_tpu_torch.losses import (
     simsiam_loss,
 )
 from declip_tpu_torch.ops.contrastive import (
+    chunked_cross_entropy,
     clip_infonce,
     gather_features,
     infonce_labels,
+    loss_impl_kind,
     make_pair_loss,
     similarity_logits,
     topk_accuracy,
@@ -37,23 +39,37 @@ from declip_tpu_torch.ops.filip_ops import dispatch_late_interaction
 Metrics = Dict[str, torch.Tensor]
 
 
+def _pair_scale(out: Dict[str, Any]):
+    """The pair loss's scale argument (method_losses.py:37-44 of the JAX
+    package): a model built with a SigLIP ``logit_bias`` (``clip:
+    {logit_bias_init: ...}``) puts it in its outputs, and it travels as a
+    ``(scale, bias)`` tuple, which the sigmoid kinds unpack and the
+    softmax kinds ignore."""
+    if "logit_bias" in out:
+        return (out["logit_scale"], out["logit_bias"])
+    return out["logit_scale"]
+
+
 def clip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
                 pair_loss=None) -> Tuple[torch.Tensor, Metrics]:
-    """clip_solver.py:407-430: single symmetric InfoNCE.
+    """clip_solver.py:407-430: single symmetric InfoNCE (or the configured
+    ``loss_impl``), with ``logit_bias`` among the metrics where the model
+    has one.
 
     pair_loss: the config-selected implementation (make_pair_loss); built
     from cfg when the train step does not supply it."""
-    if "logit_bias" in out:
-        raise NotImplementedError(
-            "a model with a logit_bias (logit_bias_init) trains with the "
-            "sigmoid loss, not ported yet (ROADMAP.md item 1.10)")
     if pair_loss is None:
         pair_loss = make_pair_loss(cfg, axis_name=axis_name)
     loss, logits_i, labels = pair_loss(
-        out["image_embed"], out["text_embed"], out["logit_scale"])
+        out["image_embed"], out["text_embed"], _pair_scale(out))
     top1, top5 = topk_accuracy(logits_i, labels)
     metrics = {"loss": loss, "clip_loss": loss, "top1": top1, "top5": top5,
                "logit_scale": out["logit_scale"]}
+    if "logit_bias" in out:
+        # a copy: the model's output is a view of the parameter, which the
+        # step's update then changes in place; the metric is the bias the
+        # forward used, as JAX's
+        metrics["logit_bias"] = out["logit_bias"].detach().clone()
     return loss, metrics
 
 
@@ -87,7 +103,7 @@ def filip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
     if pair_loss is None:
         pair_loss = make_pair_loss(cfg, axis_name=axis_name)
     img, txt = out["image_embed"], out["text_embed"]
-    clip_loss, logits_i, labels_acc = pair_loss(img, txt, out["logit_scale"])
+    clip_loss, logits_i, labels_acc = pair_loss(img, txt, _pair_scale(out))
 
     dense_loss = torch.zeros((), device=img.device)
     if "dense_image" in out:
@@ -120,7 +136,7 @@ def _declip_clip_terms(out, cfg, pair_loss):
     """The 2x2 view x (text, text_aug) CLIP losses (declip_solver.py:
     442-452): the mean of the four, or of the two on the main captions
     under ``data.train.only_image_two_view``."""
-    scale = out["logit_scale"]
+    scale = _pair_scale(out)
     i1, i2 = out["image_embed_1"], out["image_embed_2"]
     t, ta = out["text_embed"], out["text_embed_aug"]
     l1, logits_i1, labels_acc = pair_loss(i1, t, scale)
@@ -170,18 +186,30 @@ def declip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
         # image vs NN(text) and vs NN(text_aug) logits through symmetric
         # InfoNCE, as the reference pairs them (declip_solver.py:474-482);
         # the gathered neighbours' columns in rank order, the labels this
-        # rank's rows (the JAX package's chunked form of this term is the
-        # same value)
+        # rank's rows
         scale = out["logit_scale"]
         i1, i2 = out["image_embed_1"], out["image_embed_2"]
         labels = infonce_labels(i1.shape[0], axis_name, device=device)
         g_nn = torch.cat([gather_features(t, axis_name) for t in nn_text])
         g_nn_aug = torch.cat([gather_features(t, axis_name)
                               for t in nn_text_aug])
-        l_nn1 = clip_infonce(similarity_logits(i1, g_nn, scale),
-                             similarity_logits(i1, g_nn_aug, scale), labels)
-        l_nn2 = clip_infonce(similarity_logits(i2, g_nn, scale),
-                             similarity_logits(i2, g_nn_aug, scale), labels)
+        if loss_impl_kind(cfg) == "full":
+            l_nn1 = clip_infonce(similarity_logits(i1, g_nn, scale),
+                                 similarity_logits(i1, g_nn_aug, scale),
+                                 labels)
+            l_nn2 = clip_infonce(similarity_logits(i2, g_nn, scale),
+                                 similarity_logits(i2, g_nn_aug, scale),
+                                 labels)
+        else:
+            # every other kind, the sigmoid ones too: the blockwise
+            # softmax log-sum-exp over the bank's keys, which are query
+            # results and not batch rows, so no ring turns them (JAX
+            # method_losses.py:150-166, its default chunk of 1024)
+            def ce(a, b):
+                return chunked_cross_entropy(a, b, scale, labels)
+
+            l_nn1 = (ce(i1, g_nn) + ce(i1, g_nn_aug)) / 2
+            l_nn2 = (ce(i2, g_nn) + ce(i2, g_nn_aug)) / 2
         clip_nn_text = (l_nn1 + l_nn2) / 2
 
     wtype = w.get("type")

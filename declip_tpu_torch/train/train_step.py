@@ -4,8 +4,10 @@ slip, filip, declip and defilip).
 ``make_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``, the reference's train-loop body (prototype/solver/
 clip_solver.py:380-560): forward, loss, backward, the optimizer's update
-(grad clip, AdamW, pconfig decay, frozen mask), the post-step logit-scale
-guard and the EMA. The step updates ``state`` in place and returns it.
+(grad clip, the configured rule, pconfig decay, frozen mask), the
+post-step logit-scale guard and the EMA. Under ``grad_cache: {chunks: M}``
+the forward and backward run in M chunks (train/grad_cache.py). The step
+updates ``state`` in place and returns it.
 
 ``loss_fn(model, state, batch) -> (loss, metrics)`` is kept apart from the
 update, as in the JAX package: the gradient of its loss with respect to the
@@ -68,14 +70,19 @@ from declip_tpu_torch.models.clip_model import CLIP, l2_normalize
 from declip_tpu_torch.models.declip_model import DECLIP
 from declip_tpu_torch.models.defilip_model import DEFILIP
 from declip_tpu_torch.models.filip_model import FILIP
-from declip_tpu_torch.models.layers import commit_bn_stats, discard_bn_stats
+from declip_tpu_torch.models.layers import (
+    BatchNorm,
+    commit_bn_stats,
+    discard_bn_stats,
+)
 from declip_tpu_torch.models.memory_bank import enqueue, query_topk
 from declip_tpu_torch.models.slip_model import SLIP
 from declip_tpu_torch.ops.contrastive import gather_features, make_pair_loss
-from declip_tpu_torch.optim import AdamRule, global_norm
+from declip_tpu_torch.optim import global_norm
 from declip_tpu_torch.parallel import comms
 from declip_tpu_torch.train import method_losses
 from declip_tpu_torch.train.ema import EmaConfig, ema_step
+from declip_tpu_torch.train.grad_cache import cached_value_and_grad
 from declip_tpu_torch.train.state import TrainState
 
 _PASS_THROUGH = (None, "norm", "value", "logit_scale_grad", "constant")
@@ -92,6 +99,7 @@ _LOSSES = {"clip": method_losses.clip_losses,
            "defilip": method_losses.defilip_losses}
 # the methods whose loss takes the NN bank's inputs and the step count
 _BANK_METHODS = ("declip", "defilip")
+_SSL_METHODS = ("moco", "simclr", "clsa")
 
 
 def method_of(model) -> str:
@@ -276,7 +284,27 @@ def make_augment(model, device_aug: Dict, seed: int = 0) -> Callable:
     return augment
 
 
-def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
+def check_grad_cache(model, method: str) -> None:
+    """JAX's refusals of ``grad_cache`` (train_step.py:238-281 there),
+    with its reasons: GradCache needs a forward in which no sample sees
+    another."""
+    if method in _SSL_METHODS:
+        raise NotImplementedError(
+            "grad_cache does not support SSL methods (queue/momentum "
+            "state couples steps)")
+    for tower in ("visual", "encode_text"):
+        if getattr(getattr(model, tower, None), "moe_experts", 0):
+            raise NotImplementedError(
+                "grad_cache + MoE towers: router capacity and aux loss "
+                "are batch-coupled in the forward")
+    if any(isinstance(m, (torch.nn.modules.batchnorm._BatchNorm, BatchNorm))
+           for m in model.modules()):
+        raise NotImplementedError(
+            "grad_cache requires BatchNorm-free towers (ViT); this model "
+            "carries batch_stats")
+
+
+def make_train_step(model, tx, cfg: Dict, schedule: Callable, *,
                     method: Optional[str] = None,
                     ema_cfg: Optional[EmaConfig] = None,
                     total_steps: int = 1,
@@ -284,6 +312,8 @@ def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
                     seed: int = 0, axis_name=None) -> Callable:
     """The step for ``model``'s method, with the update rule ``tx`` from
     ``optim_entry`` and the lr ``schedule`` (for the ``lr`` metric).
+    ``cfg``'s ``grad_cache: {chunks: M}`` runs the forward and backward in
+    M chunks (train/grad_cache.py).
     ``total_steps``: the run's length, for DeCLIP's ``linear`` loss
     weights. ``device_aug`` (``{"views", "preset"}``): the images are uint8
     crops, augmented on the device with draws keyed by ``seed``, the step
@@ -292,9 +322,9 @@ def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
     take theirs from ``model_entry(..., data_group=)``."""
     method = method or method_of(model)
     grad_clip = dict(cfg.get("grad_clip") or {})
-    if int((cfg.get("grad_cache") or {}).get("chunks", 0) or 0) > 1:
-        raise NotImplementedError(
-            "grad_cache is not ported yet (ROADMAP.md item 1.10)")
+    gc_chunks = int((cfg.get("grad_cache") or {}).get("chunks", 0) or 0)
+    if gc_chunks > 1:
+        check_grad_cache(model, method)
     from_out = make_losses_from_out(cfg, method, axis_name=axis_name,
                                     total_steps=total_steps)
     use_bank = bool(getattr(model, "return_nn_bank", False))
@@ -310,10 +340,15 @@ def make_train_step(model, tx: AdamRule, cfg: Dict, schedule: Callable, *,
             model.train()
         params = state.params
         discard_bn_stats(model)  # statistics of a forward outside a step
-        out = model(batch)
-        total, metrics = from_out(model, state, out)
-        grads = torch.autograd.grad(total, list(params.values()),
-                                    allow_unused=True)
+        if gc_chunks > 1:
+            total, metrics, out, grads = cached_value_and_grad(
+                model, from_out, state, batch, gc_chunks, params)
+            grads = [grads[n] for n in params]
+        else:
+            out = model(batch)
+            total, metrics = from_out(model, state, out)
+            grads = torch.autograd.grad(total, list(params.values()),
+                                        allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient: it
         # still decays, as under optax
         grads = {n: torch.zeros_like(p) if g is None else g

@@ -576,18 +576,68 @@ def _unported(kind):
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("logit_bias", "1.10"),
-    ("hf_text", "1.9"), ("moe", "1.10"), ("grad_cache", "1.10"),
-    ("chunked", "1.10"), ("ring", "1.10"), ("sigmoid", "1.10")])
+    ("hf_text", "1.9"), ("moe", "1.10")])
 def test_unported_variants_raise(kind, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        if kind in ("grad_cache", "chunked", "ring", "sigmoid"):
-            model = model_entry(MODELS["res50"][0])
-            cfg = ({"grad_cache": {"chunks": 2}} if kind == "grad_cache"
-                   else {"loss_impl": {"type": kind}})
-            make_train_step(model, None, cfg, lambda i: 0.0)
-        else:
-            _unported(kind)
+        _unported(kind)
+
+
+def test_grad_cache_refuses_the_batchnorm_model():
+    """GradCache on DeCLIP-R50 raises with the JAX package's reason: its
+    BatchNorm couples the samples inside the forward."""
+    model = model_entry(MODELS["res50"][0])
+    with pytest.raises(NotImplementedError, match="BatchNorm-free towers"):
+        make_train_step(model, None, {"grad_cache": {"chunks": 2}},
+                        lambda i: 0.0)
+
+
+@pytest.mark.parametrize("kind", ["logit_bias", "chunked", "ring",
+                                  "sigmoid"])
+def test_loss_impl_matches_jax(jax_init, kind):
+    """DeCLIP-R50's loss under the ``loss_impl`` kinds the port refused
+    before they were ported (the NN-text term blockwise under every kind
+    but ``full``), and with a SigLIP ``logit_bias`` (logit_bias_init -10,
+    the SigLIP recipe's ``sigmoid_ring``, JAX's over a one-device mesh):
+    the total and every metric against JAX's on the same outputs."""
+    from jax.sharding import Mesh
+
+    from declip_tpu.ops.contrastive import make_pair_loss as jax_pair_loss
+
+    jmodel, variables, jbank = jax_init["res50"]
+    cfg = MODELS["res50"][0]
+    if kind == "logit_bias":
+        cfg = {"type": cfg["type"], "kwargs": {
+            **cfg["kwargs"], "clip": {**cfg["kwargs"]["clip"],
+                                      "logit_bias_init": -10.0}}}
+        jmodel = jax_model_entry(cfg)
+        variables = {**variables, "params": {
+            **variables["params"],
+            "logit_bias": np.full((1,), -10.0, np.float32)}}
+    loss_cfg = {**_cfg("res50"), "loss_impl": {
+        "type": "sigmoid_ring" if kind == "logit_bias" else kind,
+        "chunk_size": 3, "acc_window": 4}}
+    batch = _batch(MODELS["res50"][1], 2)
+    want, _ = _jax_out(jmodel, variables, batch)
+    pair = jax_pair_loss(loss_cfg, mesh=Mesh(np.asarray(jax.devices()[:1]),
+                                             ("data",)))
+    jtotal, jmetrics = jax.jit(lambda v, o: jax_declip_losses(
+        o, loss_cfg, None, step=3, total_steps=8, pair_loss=pair,
+        **_jax_nn(jmodel, v, jbank, o)))(variables, want)
+    port = model_entry(cfg)
+    port.load_state_dict(state_from_jax_variables(variables), strict=True)
+    got = port.train()(_torch_batch(batch))
+    if kind == "logit_bias":
+        assert float(got["logit_bias"]) == -10.0
+    state = new_train_state(model=port, opt_state=None, step=3,
+                            bank_text=bank_from_jax(jbank.bank, jbank.ptr))
+    total, metrics = make_losses_from_out(loss_cfg, "declip",
+                                          total_steps=8)(port, state, got)
+    assert sorted(metrics) == sorted(jmetrics)
+    np.testing.assert_allclose(float(total.detach()), float(jtotal),
+                               rtol=RTOL)
+    for key, v in jmetrics.items():
+        np.testing.assert_allclose(float(metrics[key].detach()), float(v),
+                                   rtol=RTOL, atol=1e-6, err_msg=key)
 
 
 @pytest.mark.parametrize("name", list(MODELS))

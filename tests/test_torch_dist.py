@@ -9,8 +9,10 @@ after it. Each rank holds the contiguous half of every global batch, as
 the JAX solver lays the global batch over its data axis.
 
 - The global-batch losses (``clip_pair_loss``, SLIP's ``nt_xent_gather``,
-  DeCLIP's NN-text term and FILIP's dense term through the late
-  interaction's plain versions): the mean of the ranks' losses, and each
+  DeCLIP's NN-text term, FILIP's dense term through the late
+  interaction's plain versions, and the ``ring`` and ``sigmoid_ring`` loss
+  kinds, whose blocks move by the differentiable shift, the latter with a
+  SigLIP bias): the mean of the ranks' losses, and each
   rank's gradient with respect to its own features over the world size,
   against JAX's shard_map mode on a 2-device mesh (its loss ``pmean``-ed,
   its gradient that of the mean), rtol 1e-5 and atol 1e-6; DeCLIP's
@@ -105,6 +107,9 @@ def _loss_inputs():
     n, d = 8, 16
     return {
         "clip": {"img": feats(n, d), "txt": feats(n, d), "scale": 7.0},
+        "ring": {"img": feats(n, d), "txt": feats(n, d), "scale": 7.0},
+        "sigmoid_ring": {"img": feats(n, d), "txt": feats(n, d),
+                         "scale": 7.0, "bias": -3.0},
         "nt_xent": {"z_i": feats(n, d), "z_j": feats(n, d)},
         "convirt": {"z_i": feats(n, d), "z_j": feats(n, d)},
         "nn_text": {"i1": feats(n, d), "i2": feats(n, d), "t": feats(n, d),
@@ -124,6 +129,15 @@ def _jax_loss(name, x, axis):
     if name == "clip":
         return jax_contrastive.clip_pair_loss(x["img"], x["txt"], scale,
                                               axis)[0]
+    if name in ("ring", "sigmoid_ring"):
+        bias = jnp.asarray(x.get("bias", 0.0), jnp.float32)
+        if axis is None:  # the global batch's: the full kind
+            full = {"ring": "full", "sigmoid_ring": "sigmoid"}[name]
+            return jax_contrastive.make_pair_loss(
+                {"loss_impl": full})(x["img"], x["txt"], (scale, bias))[0]
+        return jax_contrastive.make_pair_loss(
+            {"loss_impl": name}, axis_name=axis)(
+                x["img"], x["txt"], (scale, bias))[0]
     if name == "nt_xent":
         zi, zj = x["z_i"], x["z_j"]
         labels = jax_contrastive.infonce_labels(zi.shape[0], axis)
@@ -158,11 +172,12 @@ def _jax_shard_map(name, inputs):
     the devices, in one compile; ConVIRT's JAX loss takes no axis, so its
     reference is the global batch's."""
     mesh = Mesh(np.asarray(jax.devices()[:WORLD]), ("data",))
-    keys = [k for k in inputs if k != "scale"]
+    keys = [k for k in inputs if k not in ("scale", "bias")]
     argnums = tuple(range(len(keys)))
 
     def loss_of(xs, axis):
-        x = dict(zip(keys, xs), scale=inputs.get("scale", 1.0))
+        x = dict(zip(keys, xs), scale=inputs.get("scale", 1.0),
+                 bias=inputs.get("bias", 0.0))
         return _jax_loss(name, x, axis)
 
     if name == "convirt":
@@ -358,7 +373,7 @@ def _check_loss(name, ranks, want):
 
 
 @pytest.mark.parametrize("name", ["clip", "nt_xent", "convirt", "nn_text",
-                                  "filip"])
+                                  "filip", "ring", "sigmoid_ring"])
 def test_loss_matches_jax_shard_map(runs, name):
     _check_loss(name, [r["losses"][name] for r in runs["ranks"]],
                 runs["losses"][name])

@@ -157,11 +157,12 @@ def test_forward_and_losses_match_jax(jax_init):
                                        err_msg=key)
 
 
-@pytest.mark.parametrize("kind", ["logit_bias", "moe"])
+@pytest.mark.parametrize("kind", ["moe"])
 def test_unported_variants_raise(kind):
-    """What the port does not train yet raises at construction: a SigLIP
-    logit bias (the sigmoid loss) and MoE towers. (filip_res50 builds:
-    tests/test_torch_resnet.py.)"""
+    """What the port does not train yet raises at construction: MoE
+    towers. (filip_res50 builds: tests/test_torch_resnet.py; a SigLIP
+    logit bias builds and trains since the sigmoid loss is ported:
+    tests/test_torch_loss_impl.py.)"""
     cfg = {"type": MODEL_CFG["type"], "kwargs": dict(MODEL_CFG["kwargs"])}
     if kind == "logit_bias":
         cfg["kwargs"]["clip"] = {**cfg["kwargs"]["clip"],

@@ -458,3 +458,39 @@ def test_loader_configs_of_the_fast_input_path(smoke, tmp_path):
         item = ds[0]["image"]
         assert item.dtype == "uint8" and item.shape == (224, 224, 6)
     assert "type" not in cfgs["a"] and "root_dir" not in cfgs["c"]
+
+
+@pytest.mark.parametrize("kind", ["ring", "sigmoid_ring", "chunked",
+                                  "sigmoid_chunked"])
+def test_phase_12_configs_name_their_loss_kind(smoke, kind):
+    """Phase 12's CLIP ViT-B/32 configurations: the ViT-CLIP recipe under
+    the kind (chunk 32), with a SigLIP bias of -10 for the sigmoid kinds
+    only, at full width (built on the meta device)."""
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models import model_entry
+
+    cfg = parse_config(smoke.clip_loss_config(kind))
+    assert dict(cfg.loss_impl) == {"type": kind,
+                                   "chunk_size": smoke.LOSS_IMPL_CHUNK}
+    model = model_entry({"type": cfg.model.type,
+                         "kwargs": dict(cfg.model.kwargs)}, device="meta")
+    assert model.visual.width == 768
+    assert (model.logit_bias is not None) == kind.startswith("sigmoid")
+    if kind.startswith("sigmoid"):
+        assert cfg.model.kwargs.clip.logit_bias_init == -10.0
+
+
+@pytest.mark.parametrize("scale,ok", [(1 + 5e-5, True), (1 + 2e-4, False)])
+def test_phase_12_gradient_check_reads_relative_norms(smoke, scale, ok):
+    """Phase 12c's gradient check: ||g - g_ref|| <= 1e-4 ||g_ref|| for
+    every parameter; a parameter whose reference is zero must be zero."""
+    ref = [torch.ones(4), torch.zeros(3)]
+    grads = [ref[0] * scale, torch.zeros(3)]
+    if ok:
+        worst = smoke._grads_rel("t", ["a", "b"], grads, ref)
+        assert worst[0][0] == "a"
+    else:
+        with pytest.raises(AssertionError, match="beyond"):
+            smoke._grads_rel("t", ["a", "b"], grads, ref)
+    with pytest.raises(AssertionError, match="beyond"):
+        smoke._grads_rel("t", ["a", "b"], [ref[0], torch.ones(3)], ref)

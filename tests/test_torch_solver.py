@@ -368,6 +368,50 @@ def test_tiny_declip_end_to_end_through_main(tmp_path):
     assert torch.equal(resumed.state.bank_text.bank, st.bank_text.bank)
 
 
+def test_tiny_clip_siglip_through_main_resumes_bit_for_bit(tmp_path):
+    """``main`` on tiny_clip with the SigLIP recipe's loss and optimizer
+    set (``sigmoid_ring``, ``logit_bias_init`` -10, Adafactor, the norm
+    clip): 2 steps with a save at 1 and 2, the bias logged; then a run
+    resumed from step 1 ends at step 2 on the same parameters, Adafactor's
+    slots and the bias bit for bit."""
+    from declip_tpu_torch.solver import main
+
+    sets = ["lr_scheduler.kwargs.max_iter=2", "saver.save_freq=1",
+            "saver.print_freq=1", "data.test=[]",
+            "loss_impl.type=sigmoid_ring",
+            "model.kwargs.clip.logit_bias_init=-10.0",
+            "grad_clip={\"type\": \"norm\", \"value\": 1.0}",
+            "optimizer.type=Adafactor",
+            "optimizer.kwargs={\"lr\": 0.001, \"weight_decay\": 0.0001}"]
+    runs = []
+    for name in ("whole", "resumed"):
+        exp = tmp_path / name
+        exp.mkdir()
+        shutil.copy(TINY_CLIP, exp / "config.yaml")
+        if name == "resumed":
+            # the whole run's step-1 checkpoint, alone
+            os.makedirs(exp / "checkpoints")
+            shutil.copy(tmp_path / "whole" / "checkpoints" /
+                        "ckpt_1.pth.tar", exp / "checkpoints")
+        runs.append(main(["--config", str(exp / "config.yaml"), "--device",
+                          "cpu", "--set", *sets]))
+    whole, resumed = runs
+    assert resumed.start_step == 1 and resumed.state.step == 2
+    assert sorted(whole.state.opt_state.slots) == ["v", "v_col", "v_row"]
+    bias = [v for _, v in _scalars(tmp_path / "whole", "logit_bias")]
+    # the bias each step's forward read: the init twice, the first step's
+    # lr being the schedule's base_lr 0; the second step moves it
+    assert bias == [-10.0, -10.0]
+    assert float(whole.state.params["logit_bias"][0]) != -10.0
+    assert [v for _, v in _scalars(tmp_path / "whole", "update_skipped")] \
+        == [0.0, 0.0]
+    for n, p in whole.state.params.items():
+        assert torch.equal(p, resumed.state.params[n]), n
+    for slot, tensors in whole.state.opt_state.slots.items():
+        for k, t in tensors.items():
+            assert torch.equal(t, resumed.state.opt_state.slots[slot][k]), k
+
+
 def test_main_evaluate_prints_the_metric(tmp_path, capsys):
     """``--evaluate`` runs data.test and prints the metrics as JSON."""
     from declip_tpu_torch.solver import main
@@ -640,6 +684,17 @@ def test_tiny_methods_end_to_end_through_main(tmp_path, src, method, views):
 
 
 REFERENCE = {  # experiment: (method, dense eval, image tower)
+    "clip_experiments/yfcc15m/yfcc15m_r50_clip": ("clip", False, "r50"),
+    "clip_experiments/yfcc15m/yfcc15m_vit_clip": ("clip", False, "vit"),
+    "clip_experiments/yfcc15m/yfcc15m_vit_siglip": ("clip", False, "vit"),
+    "declip_experiments/yfcc15m/yfcc15m_r50_declip": ("declip", False,
+                                                      "r50"),
+    "declip_experiments/yfcc15m/yfcc15m_vit_declip": ("declip", False,
+                                                      "vit"),
+    "declip_experiments/declip88m/declip88m_r50_declip": ("declip", False,
+                                                          "r50"),
+    "declip_experiments/declip88m/declip88m_vitb32_declip": ("declip", False,
+                                                             "vit"),
     "defilip_experiments/yfcc15m/yfcc15m_vit_defilip": ("defilip", True,
                                                         "vit"),
     "slip_experiments/yfcc15m/yfcc15m_vit_slip": ("slip", False, "vit"),
@@ -647,6 +702,15 @@ REFERENCE = {  # experiment: (method, dense eval, image tower)
     "filip_experiments/yfcc15m/yfcc15m_vit_filip": ("filip", True, "vit"),
     "filip_experiments/yfcc15m/yfcc15m_r50_filip": ("filip", True, "r50"),
 }
+
+
+# the optimizer rule and loss kind of the configs that do not train with
+# AdamW and the full loss
+OPTIMIZERS = {
+    "clip_experiments/yfcc15m/yfcc15m_vit_siglip": ("AdafactorRule",
+                                                    "sigmoid_ring"),
+    "declip_experiments/declip88m/declip88m_vitb32_declip": ("SGDRule",
+                                                             "full")}
 
 
 # the towers cut to one narrow layer for the Solver's build on the CPU
@@ -660,12 +724,13 @@ NARROW = {"vit": {"model.kwargs.image_encode.layers": 1,
 
 @pytest.mark.parametrize("exp", list(REFERENCE))
 def test_reference_config_builds_a_solver(tmp_path, exp):
-    """The reference configs of DeFILIP, SLIP and FILIP, as their files
-    have them: the model at full width on the meta device (shapes only),
-    and a Solver on the CPU with the towers cut to one narrow layer (the
-    training data read from the synthetic set), whose test entries
-    evaluate as the JAX package decides: dense for the FILIP family,
-    pooled for SLIP."""
+    """Every reference config under experiments/ (CLIP, SigLIP, DeCLIP,
+    DeCLIP-88M, DeFILIP, SLIP, FILIP), as its file has it: the model at
+    full width on the meta device (shapes only), and a Solver on the CPU
+    with the towers cut to one narrow layer and DeCLIP's bank to 1,024 rows
+    (the training data read from the synthetic set), with the config's
+    optimizer and loss kind, whose test entries evaluate as the JAX package
+    decides: dense for the FILIP family, pooled for the others."""
     from declip_tpu_torch.config import override
     from declip_tpu_torch.models import model_entry
     from declip_tpu_torch.models.resnet import ModifiedResNet
@@ -697,6 +762,10 @@ def test_reference_config_builds_a_solver(tmp_path, exp):
     sets = {**NARROW[tower], "model.kwargs.text_encode.transformer_layers": 1,
             "model.kwargs.text_encode.transformer_width": 64,
             "model.kwargs.text_encode.transformer_heads": 2}
+    if method == "declip":  # the bank cut to 1,024 rows on the CPU
+        sets["model.kwargs.clip.nn_size"] = 1024
+    if cfg.get_path("saver.pretrain.path"):  # a file of the reference's
+        sets["saver.pretrain.path"] = None
     for key, value in sets.items():
         cfg = override(cfg, key, value)
     solver = Solver(cfg, device="cpu")
@@ -706,3 +775,11 @@ def test_reference_config_builds_a_solver(tmp_path, exp):
         assert solver.train_cfg["transforms"] == {"type": "SLIP"}
     if method == "defilip":
         assert tuple(solver.state.bank_text.bank.shape) == (2 ** 16, 512)
+    if method == "declip":
+        assert tuple(solver.state.bank_text.bank.shape) == (
+            1024, cfg.model.kwargs.clip.feature_dim)
+    optimizer, loss_impl = OPTIMIZERS.get(exp, ("AdamRule", "full"))
+    assert type(solver.tx).__name__ == optimizer
+    assert cfg.get("loss_impl", {"type": "full"})["type"] == loss_impl
+    if "siglip" in exp:
+        assert float(solver.state.params["logit_bias"][0]) == -10.0

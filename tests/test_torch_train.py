@@ -341,13 +341,65 @@ def test_bf16_losses_match_jax(jax_init):
                for t in state.opt_state.mu.values())
 
 
-def test_logit_bias_model_refuses_the_softmax_loss():
-    """A model with a SigLIP logit bias needs the sigmoid loss, which is not
-    ported: the loss raises instead of training with the bias ignored."""
+def test_logit_bias_model_trains_with_the_sigmoid_loss():
+    """The tiny CLIP with a SigLIP logit bias (logit_bias_init -10) under
+    ``loss_impl: sigmoid_ring`` and the norm clip: the port's step, from
+    the JAX init, against JAX's loss and gradient on the same batch (its
+    ring over a one-device mesh, as its Solver runs it): the loss, the
+    logged bias and the gradient's norm, and each parameter's gradient as
+    test_loss_fn_gradients_match_jax holds it; the step moves the bias."""
+    from jax.sharding import Mesh
+
+    from declip_tpu.ops.contrastive import make_pair_loss as jax_pair_loss
+    from declip_tpu.train.method_losses import clip_losses
+
     cfg = _model_cfg()
     cfg["kwargs"]["clip"] = {"logit_bias_init": -10.0}
+    loss_cfg = {"grad_clip": {"type": "norm", "value": 1.0},
+                "loss_impl": {"type": "sigmoid_ring"}}
+    jmodel = jax_model_entry(cfg)
+    batch = _batch(3)
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda: jmodel.init(jax.random.PRNGKey(0), batch,
+                            train=True))()["params"])
+    pair = jax_pair_loss(loss_cfg, mesh=Mesh(np.asarray(jax.devices()[:1]),
+                                             ("data",)))
+
+    def jax_loss(p):
+        out = jmodel.apply({"params": p}, batch, train=True)
+        return clip_losses(out, loss_cfg, None, pair)[0]
+
+    loss, grads = jax.jit(jax.value_and_grad(jax_loss))(params)
+    want = state_from_jax_variables(
+        {"params": jax.tree_util.tree_map(np.asarray, grads)})
+
     model = model_entry(cfg)
-    model.init_weights(torch.Generator().manual_seed(0))
-    loss_fn = make_loss_fn({})
-    with pytest.raises(NotImplementedError, match="sigmoid"):
-        loss_fn(model, None, _torch_batch(_batch()))
+    model.load_state_dict(state_from_jax_variables({"params": params}),
+                          strict=True)
+    named = dict(model.named_parameters())
+    total, _ = make_loss_fn(loss_cfg)(model, None, _torch_batch(batch))
+    np.testing.assert_allclose(float(total.detach()), float(loss), rtol=RTOL)
+    got = torch.autograd.grad(total, list(named.values()))
+    norm = float(torch.sqrt(sum(g.square().sum() for g in got)))
+    for name, g in zip(named, got):
+        g, w = g.numpy(), want[name].numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-5, err_msg=name)
+        rows = _key_rows(name, g)
+        if rows is not None:  # 0 in exact arithmetic: noise on both sides
+            assert np.abs(g[rows]).max() < 1e-6 * norm, name
+            assert np.abs(w[rows]).max() < 1e-6 * norm, name
+    assert float(np.abs(want["logit_bias"].numpy()).max()) > 0
+
+    sched = scheduler_entry(SCHED, max_iter=MAX_ITER)
+    tx = optim_entry(OPT, model, sched, pconfig=PCONFIG,
+                     grad_clip=loss_cfg["grad_clip"],
+                     frozen_mask=path_prefix_mask(
+                         named, model.visual.frozen_param_paths()))
+    state = new_train_state(model=model, opt_state=tx.init(named))
+    state, metrics = make_train_step(model, tx, loss_cfg, sched)(
+        state, _torch_batch(batch))
+    np.testing.assert_allclose(float(metrics["loss"]), float(loss),
+                               rtol=RTOL)
+    np.testing.assert_allclose(float(metrics["grad_norm"]), norm, rtol=RTOL)
+    assert float(metrics["logit_bias"]) == -10.0  # what the forward read
+    assert float(named["logit_bias"].detach()[0]) != -10.0

@@ -44,6 +44,7 @@ def loss_value_and_grads(name, inputs, group):
         clip_pair_loss,
         gather_features,
         infonce_labels,
+        make_pair_loss,
     )
     from declip_tpu_torch.train.method_losses import (
         declip_losses,
@@ -51,10 +52,16 @@ def loss_value_and_grads(name, inputs, group):
     )
 
     x = {k: _rows(torch.from_numpy(v), group).clone().requires_grad_()
-         for k, v in inputs.items() if k != "scale"}
+         for k, v in inputs.items() if k not in ("scale", "bias")}
     scale = torch.tensor(float(inputs.get("scale", 1.0)))
     if name == "clip":
         loss = clip_pair_loss(x["img"], x["txt"], scale, group)[0]
+    elif name in ("ring", "sigmoid_ring"):
+        # the ring's blocks move by the differentiable shift
+        bias = torch.tensor(float(inputs.get("bias", 0.0)))
+        loss = make_pair_loss({"loss_impl": {"type": name}},
+                              axis_name=group)(x["img"], x["txt"],
+                                               (scale, bias))[0]
     elif name == "nt_xent":
         zi, zj = x["z_i"], x["z_j"]
         labels = infonce_labels(zi.shape[0], group)
