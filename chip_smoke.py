@@ -7,7 +7,8 @@ Phases (any failed check raises, and the script exits non-zero):
 
 1. card and build: the card's name and power limit, nvcc's version, and a
    fresh nvcc build of every CUDA kernel (sm_90a), one nvcc per source, all
-   started together; ptxas' registers and spills per kernel; the toolkit's
+   started together (phase 7's corpus is written meanwhile, and K3-K5's
+   source, the slowest, builds on through phases 2 and 2b); ptxas' registers and spills per kernel; the toolkit's
    ``cuobjdump -sass`` of the libraries, which must show HMMA (tensor-core)
    instructions in K1's bf16 and fp32 (split TF32) kernels, in K2's bf16
    kernels and in K3's bf16 kernels, and no ptxas spill in any of them or
@@ -99,7 +100,8 @@ Phases (any failed check raises, and the script exits non-zero):
    once and prints a metric. The solver's step time and pairs/s at steps
    4-6 beside phase 6's, the wait for data and its share of the step, the
    host-to-device copy, os.cpu_count(), the checkpoint's size and write
-   time and the eval's time;
+   time and the eval's time; the loader alone for two rounds of its 7
+   workers' batches (they land in rounds), its rate over the second;
 8. the fast input path: the same recipe and corpus through ``main`` with
    ``data.train.device_aug=true`` on webdataset shards (the corpus packed
    into 4 by ``python -m declip_tpu_torch.tools.make_wds``'s ``pack``) read
@@ -111,7 +113,8 @@ Phases (any failed check raises, and the script exits non-zero):
    photometrics on the card against the CPU on the same parameters (fp32,
    1e-5) and their device time; the loader alone with device_aug's crops,
    (a) thread workers on the JSONL metafile, (b) process workers, (c)
-   process workers on the shards, beside phase 7's host-MOCOV2 loader, and
+   process workers on the shards, each over its second round as in phase
+   7, beside phase 7's host-MOCOV2 loader, and
    one batch of (a) on one thread. Every input decodes with PIL: the
    card's host has no libjpeg headers to build the native decoder with;
 9. the DeFILIP and SLIP training slices: ``defilip_vitb32`` and
@@ -183,7 +186,33 @@ Phases (any failed check raises, and the script exits non-zero):
    train step with and without GradCache, its peak device memory and step
    time; (d) inside 11b's launch, ``ring`` and ``sigmoid_ring`` on CLIP
    ViT-B/32, fp32, two gloo ranks at 2 x 64 against one process at 128,
-   within 1e-4.
+   within 1e-4;
+13. the SSL builders (models/ssl_builders.py): (a) ``moco_vitb32``,
+   ``simclr_vitb32`` and ``clsa_vitb32`` at full width (ViT-B/32, embed
+   2048, the head 2048 -> 128) with MoCo-v2's recipe (dim 128, K 2^16,
+   m 0.999, T 0.2; SGD lr 0.03, momentum 0.9, wd 1e-4), bf16, B=128,
+   CLSA with its five strong views (96-224 px), trained by
+   ``make_train_step`` on one repeated seeded batch: losses finite, no
+   skipped update, the queue pointer 128 further a step, the exact
+   launches a step (the key encoder runs K1 without a graph, never K2:
+   MoCo 24 K1 and 12 K2, SimCLR 24 and 24, CLSA 84 and 72) and no plain
+   version; step time and device busy; (b) ``moco_vitb32`` and
+   ``clsa_vitb32`` in fp32 at SSL_CHECK_LAYERS layers, one step through
+   K1/K2 against the plain attention path: the loss, each parameter's
+   gradient within 1e-4 of its norm, the queue rows the step wrote and
+   the key parameters; K1 and K2 alone at the strong views' lengths (L =
+   10, 17, 26, 37) in fp32 and bf16, as phases 2 and 2b hold them; (c)
+   ``main`` trains ``moco_res50`` with MoCo-v2's recipe (MOCOV2 views
+   from phase 7's corpus, inlined below) for SSL_SOLVER_STEPS steps,
+   saved at the end, then auto-resumes for one step: the queue, its
+   pointer, the key parameters and the key encoder's BatchNorm
+   statistics restored bit for bit; (d) ``main`` trains ``clsa_res50``
+   with ``CLSA5`` views for CLSA_SOLVER_STEPS steps: the strong views'
+   shapes, the DDM term; for each, the first step's wait for the
+   loader's first round (with its workers' start-up) and one batch built
+   on one thread. ``python3 chip_smoke.py --ssl-loader-rates`` runs the
+   two loaders alone for three rounds instead, on the host only: their
+   ms a batch over the last two.
 
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
@@ -275,6 +304,9 @@ SERVE_BUCKET_CASES = [
     (16, 12, 50, 64, False),
     (16, 8, 77, 64, True),
 ]
+# the kernels' sources in two build groups: the attention kernels, which
+# phases 2 and 2b need first, and K3-K5's, which builds on beside them
+BUILD_GROUPS = (["flash_attn_fwd", "flash_attn_bwd"], ["filip_li"])
 # (B, H, L, Dh, causal): the training path's two shapes first, at the
 # YFCC15M recipe's batch of 128 per card (bench.py:726)
 TRAIN_BATCH = 128
@@ -452,10 +484,10 @@ SOLVER_STEPS, SOLVER_SAVE_FREQ, SOLVER_RESUME_STEPS = 6, 3, 8
 # steps whose wall times are read (the first ones wait for the loader's
 # first batches and for cuDNN's first calls)
 SOLVER_TIMED = (4, 6)
-# the recipe's loader alone: batches it builds, and the ones after the
-# first SOLVER_LOADER_SKIP (its workers start together, so the first
-# num_workers = 7 batches land at once) whose arrivals give its steady rate
-SOLVER_LOADER_BATCHES, SOLVER_LOADER_SKIP = 18, 8
+# the recipe's loader alone: the batches it builds, two rounds of its
+# num_workers = 7 (its workers build a batch each side by side, so the
+# batches land in rounds; the second round gives the steady rate)
+SOLVER_LOADER_BATCHES = 14
 # phase 8: the same recipe and corpus on the fast input path; the corpus
 # packed into this many webdataset shards
 FAST_SHARDS = 4
@@ -626,6 +658,59 @@ GRAD_CACHE_TIMED_STEPS = 5
 DP_RING_CASES = ("ring", "sigmoid_ring")
 
 
+# phase 13: the SSL builders at full width, with MoCo-v2's recipe (dim 128,
+# K 2^16, m 0.999, T 0.2; SGD lr 0.03, momentum 0.9, weight decay 1e-4;
+# SimCLR keeps its T 0.5) and CLSA's five strong resolutions, bf16, B=128
+SSL_KWARGS = {"moco": {"dim": 128, "K": 65536, "m": 0.999, "T": 0.2},
+              "clsa": {"dim": 128, "K": 65536, "m": 0.999, "T": 0.2},
+              "simclr": {"dim": 128}}
+SSL_STRONG = (96, 128, 160, 192, 224)
+SSL_OPT = {"type": "SGD", "kwargs": {"lr": 0.03, "momentum": 0.9,
+                                     "weight_decay": 1e-4}}
+SSL_SCHED = {"type": "Cosine", "kwargs": {"base_lr": 0.0, "warmup_lr": 0.03,
+                                          "warmup_steps": 0}}
+SSL_WARMUP_STEPS, SSL_STEPS = 1, 4
+# the launches of a ViT-B/32 step, 12 layers a forward: the query's view,
+# the key encoder's without a graph (K1, no K2), SimCLR's second view, and
+# CLSA's five strong views
+SSL_PER_STEP = {"moco": {"K1": 24, "K2": 12, "K3": 0, "K4": 0, "K5": 0},
+                "simclr": {"K1": 24, "K2": 24, "K3": 0, "K4": 0, "K5": 0},
+                "clsa": {"K1": 84, "K2": 72, "K3": 0, "K4": 0, "K5": 0}}
+# 13b: the fp32 steps' depth, and the strong views' sequence lengths on
+# ViT-B/32 (96-192 px: 3 x 3 to 6 x 6 patches and the class token)
+SSL_CHECK_LAYERS = 4
+SSL_SHORT_CASES = [(TRAIN_BATCH, 12, n, 64, False) for n in (10, 17, 26, 37)]
+# 13c-d: MoCo-v2's recipe for the solver (phase 7's corpus gives the data
+# paths; MODEL and VIEWS are filled in)
+SSL_RECIPE = """
+model:
+    type: MODEL
+    kwargs: {dim: 128, K: 65536, m: 0.999, T: 0.2}
+precision: {dtype: bfloat16}
+optimizer:
+    type: SGD
+    kwargs: {lr: 0.03, momentum: 0.9, weight_decay: 0.0001}
+lr_scheduler:
+    type: Cosine
+    kwargs: {base_lr: 0.0, warmup_lr: 0.03, warmup_steps: 0, max_iter: 200}
+data:
+    type: clip
+    read_from: fs
+    batch_size: 128
+    num_workers: 7
+    train:
+        sampler: {type: distributed_iteration}
+        transforms: {type: VIEWS}
+        fseek: True
+saver: {print_freq: 1, save_many: True}
+"""
+# 13c's steps before its save (and one more after the resume), 13d's
+SSL_SOLVER_STEPS, CLSA_SOLVER_STEPS = 3, 2
+# --ssl-loader-rates: the batches each of 13c-d's loaders builds alone,
+# three rounds of its 7 workers (the rate is read over the last two)
+SSL_LOADER_BATCHES = 21
+
+
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -749,7 +834,13 @@ def _within(got, want, rtol, atol, atol_share=0.0):
     return ok, err.max().item(), share
 
 
-def phase_card_and_build():
+def phase_card_and_build(tmp):
+    """The card's name and power limit, and the kernels' build: one nvcc
+    for each source, all started together. The attention sources build in
+    a thread while this one writes phases 7 and 8's corpus under ``tmp``;
+    K3-K5's source, the slowest, builds on in the background through
+    phases 2 and 2b (``finish_build`` waits for it). -> (card, corpus, the
+    pending build)."""
     from declip_tpu_torch.ops import _build
 
     card = subprocess.run(
@@ -760,19 +851,49 @@ def phase_card_and_build():
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True).stdout
     print("nvcc:", [ln for ln in nvcc.splitlines() if "release" in ln][0])
-    names = ["flash_attn_fwd", "flash_attn_bwd", "filip_li"]
-    for name in names:  # build from the sources, not from a stale library
+    for name in BUILD_GROUPS[0] + BUILD_GROUPS[1]:
+        # build from the sources, not from a stale library
         if os.path.exists(_build.library_path(name)):
             os.remove(_build.library_path(name))
-    t0 = time.perf_counter()
-    secs = _build.build(names)
-    print(f"built {names} in {time.perf_counter() - t0:.1f} s "
-          f"(per source: {secs})")
+    pending = {"t0": time.perf_counter(), "secs": {}, "errors": []}
+
+    def build(names):
+        try:
+            pending["secs"].update(_build.build(names))
+        except Exception as e:  # reported by finish_build
+            pending["errors"].append(e)
+
+    threads = [threading.Thread(target=build, args=(g,))
+               for g in BUILD_GROUPS]
+    for th in threads:
+        th.start()
+    pending["thread"] = threads[1]
+    corpus = solver_corpus(tmp)
+    threads[0].join()
+    check(not pending["errors"], f"the build failed: {pending['errors']}")
+    print(f"built {BUILD_GROUPS[0]} in "
+          f"{time.perf_counter() - pending['t0']:.1f} s, beside phases 7 "
+          f"and 8's corpus (written in {corpus['seconds']:.1f} s)",
+          flush=True)
+    return card, corpus, pending
+
+
+def finish_build(pending):
+    """Waits for ``phase_card_and_build``'s background build: -> each
+    source's ptxas report."""
+    from declip_tpu_torch.ops import _build
+
+    pending["thread"].join()
+    check(not pending["errors"], f"the build failed: {pending['errors']}")
+    names = BUILD_GROUPS[0] + BUILD_GROUPS[1]
+    print(f"built {names}: {BUILD_GROUPS[1]} ready "
+          f"{time.perf_counter() - pending['t0']:.1f} s after the builds "
+          f"started (per source: {pending['secs']})", flush=True)
     ptxas = {name: ptxas_report(_build.build_log[name]) for name in names}
     for name, kernels in ptxas.items():
         for fn, rep in kernels.items():
             print(f"  {name}: {fn}: {rep}")
-    return card, ptxas
+    return ptxas
 
 
 def ptxas_report(log):
@@ -960,9 +1081,11 @@ def phase_kernel_vs_plain():
     return rows
 
 
-def phase_backward():
+def backward_row(b, h, l, dh, causal, dtype, seed):
     """K2 against attention_bwd_plain, and K1 as the training forward runs
-    it (with its log-sum-exp), at BWD_CASES in fp32 and bf16."""
+    it (with its log-sum-exp), on seeded inputs of one shape, checked at
+    BWD_TOLERANCE and TOLERANCE, then timed beside the plain versions, the
+    library's and the bounds. -> the row of phase 2b."""
     import torch
     import torch.nn.functional as F
 
@@ -973,98 +1096,110 @@ def phase_backward():
         flash_attention_bwd,
     )
 
+    dname = str(dtype).replace("torch.", "")
+    tol = BWD_TOLERANCE[dname]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, l, dh, generator=g,
+                               device="cuda").to(dtype)
+                   for _ in range(4))
+    scale = dh ** -0.5
+    o, lse = _forward_kernel(q, k, v, causal, scale, with_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              scale=scale)
+    want = attention_bwd_plain(q, k, v, do, causal, scale)
+    # K1's output as the training forward launches it (with lse)
+    check(o.shape == q.shape and o.dtype == dtype
+          and torch.isfinite(o).all().item(),
+          f"K1+lse output {o.shape} {o.dtype}, or not finite")
+    fwd_ok, fwd_err, fwd_share = _within(
+        o, attention_plain(q, k, v, causal, scale), *TOLERANCE[dname])
+    check(fwd_ok, f"K1+lse vs plain at {(b, h, l, dh, causal, dname)}"
+                  f": max abs err {fwd_err:.3g} beyond (rtol, atol, "
+                  f"atol share) {TOLERANCE[dname]}")
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(l, l, dtype=torch.bool,
+                                      device="cuda").tril(),
+                          float("-inf"))
+    lse_ok, lse_err, _ = _within(lse, torch.logsumexp(s, -1), 1e-5,
+                                 1e-5)
+    torch.cuda.synchronize()
+    check(lse_ok, f"K1 lse at {(b, h, l, dh, causal, dname)}: max "
+                  f"abs err {lse_err:.3g}")
+    errs, shares = {}, {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        check(a.shape == q.shape and a.dtype == dtype,
+              f"K2 {name} {a.shape} {a.dtype}")
+        check(torch.isfinite(a).all().item(), f"K2 {name} not finite")
+        ok, errs[name], shares[name] = _within(a, w, *tol)
+        check(ok, f"K2 vs plain at {(b, h, l, dh, causal, dname)}: "
+                  f"{name} max abs err {errs[name]:.3g} beyond "
+                  f"(rtol, atol, atol share) {tol}")
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(
+        *leaves, is_causal=causal, scale=scale)
+    fns = {
+        "ms": lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, scale=scale),
+        "plain_ms": lambda: attention_bwd_plain(q, k, v, do, causal,
+                                                scale),
+        # the library's backward kernels alone, a yardstick
+        "library_ms": lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True),
+        "fwd_ms": lambda: _forward_kernel(q, k, v, causal, scale,
+                                          with_lse=True),
+        "fwd_plain_ms": lambda: attention_plain(q, k, v, causal,
+                                                scale),
+        "fwd_library_ms": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale)}
+    times = {key: device_ms(fn)[0] or cuda_ms(fn)
+             for key, fn in fns.items()}
+    # K2's time by kernel (the row-term pre-pass, dk/dv, dq)
+    split = {re.search(r"flash_attn_\w+", n).group(0): round(t, 5)
+             for n, t in device_ms(fns["ms"])[1].items()}
+    bound_ms, bound_by = attention_bwd_bound(b, h, l, dh, causal,
+                                             dname)
+    fwd_bound_ms, fwd_bound_by = attention_bound(b, h, l, dh, causal,
+                                                 dname)
+    row = {"shape": [b, h, l, dh], "causal": causal, "dtype": dname,
+           "max_abs_err": max(errs.values()), "errs": errs,
+           "limit_shares": shares, "fwd_max_abs_err": fwd_err,
+           "fwd_limit_share": fwd_share, "lse_max_abs_err": lse_err,
+           "tolerance": tol,
+           **times, "split_ms": split,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "fwd_bound_ms": fwd_bound_ms,
+           "fwd_bound_by": fwd_bound_by}
+    del lib_out, leaves
+    return row
+
+
+def print_backward_row(row):
+    (b, h, l, dh), errs = row["shape"], row["errs"]
+    print(f"attn bwd B={b} H={h} L={l} Dh={dh} causal={int(row['causal'])} "
+          f"{row['dtype']:8s} err dq {errs['dq']:.2e} dk {errs['dk']:.2e} "
+          f"dv {errs['dv']:.2e} ({max(row['limit_shares'].values()):.1%} "
+          f"of limit)  K2 {row['ms']:.4f} ms  plain {row['plain_ms']:.4f}  "
+          f"sdpa bwd {row['library_ms']:.4f}  bound {row['bound_ms']:.5f} "
+          f"({row['bound_by']})  {row['bound_ms'] / row['ms']:.1%} of "
+          f"bound | K1+lse err o {row['fwd_max_abs_err']:.2e} "
+          f"({row['fwd_limit_share']:.1%}) lse "
+          f"{row['lse_max_abs_err']:.2e}  {row['fwd_ms']:.4f} ms  plain "
+          f"{row['fwd_plain_ms']:.4f}  sdpa {row['fwd_library_ms']:.4f}  "
+          f"bound {row['fwd_bound_ms']:.5f} | K2 by kernel "
+          f"{row['split_ms']}", flush=True)
+
+
+def phase_backward():
+    """K2 against attention_bwd_plain, and K1 as the training forward runs
+    it (with its log-sum-exp), at BWD_CASES in fp32 and bf16."""
+    import torch
+
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).replace("torch.", "")
-        tol = BWD_TOLERANCE[dname]
-        for i, (b, h, l, dh, causal) in enumerate(BWD_CASES):
-            g = torch.Generator(device="cuda").manual_seed(200 + i)
-            q, k, v, do = (torch.randn(b, h, l, dh, generator=g,
-                                       device="cuda").to(dtype)
-                           for _ in range(4))
-            scale = dh ** -0.5
-            o, lse = _forward_kernel(q, k, v, causal, scale, with_lse=True)
-            got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                      scale=scale)
-            want = attention_bwd_plain(q, k, v, do, causal, scale)
-            # K1's output as the training forward launches it (with lse)
-            check(o.shape == q.shape and o.dtype == dtype
-                  and torch.isfinite(o).all().item(),
-                  f"K1+lse output {o.shape} {o.dtype}, or not finite")
-            fwd_ok, fwd_err, fwd_share = _within(
-                o, attention_plain(q, k, v, causal, scale), *TOLERANCE[dname])
-            check(fwd_ok, f"K1+lse vs plain at {(b, h, l, dh, causal, dname)}"
-                          f": max abs err {fwd_err:.3g} beyond (rtol, atol, "
-                          f"atol share) {TOLERANCE[dname]}")
-            s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-            if causal:
-                s = s.masked_fill(~torch.ones(l, l, dtype=torch.bool,
-                                              device="cuda").tril(),
-                                  float("-inf"))
-            lse_ok, lse_err, _ = _within(lse, torch.logsumexp(s, -1), 1e-5,
-                                         1e-5)
-            torch.cuda.synchronize()
-            check(lse_ok, f"K1 lse at {(b, h, l, dh, causal, dname)}: max "
-                          f"abs err {lse_err:.3g}")
-            errs, shares = {}, {}
-            for name, a, w in zip(("dq", "dk", "dv"), got, want):
-                check(a.shape == q.shape and a.dtype == dtype,
-                      f"K2 {name} {a.shape} {a.dtype}")
-                check(torch.isfinite(a).all().item(), f"K2 {name} not finite")
-                ok, errs[name], shares[name] = _within(a, w, *tol)
-                check(ok, f"K2 vs plain at {(b, h, l, dh, causal, dname)}: "
-                          f"{name} max abs err {errs[name]:.3g} beyond "
-                          f"(rtol, atol, atol share) {tol}")
-            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            lib_out = F.scaled_dot_product_attention(
-                *leaves, is_causal=causal, scale=scale)
-            fns = {
-                "ms": lambda: flash_attention_bwd(
-                    q, k, v, o, lse, do, causal=causal, scale=scale),
-                "plain_ms": lambda: attention_bwd_plain(q, k, v, do, causal,
-                                                        scale),
-                # the library's backward kernels alone, a yardstick
-                "library_ms": lambda: torch.autograd.grad(
-                    lib_out, leaves, do, retain_graph=True),
-                "fwd_ms": lambda: _forward_kernel(q, k, v, causal, scale,
-                                                  with_lse=True),
-                "fwd_plain_ms": lambda: attention_plain(q, k, v, causal,
-                                                        scale),
-                "fwd_library_ms": lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, scale=scale)}
-            times = {key: device_ms(fn)[0] or cuda_ms(fn)
-                     for key, fn in fns.items()}
-            # K2's time by kernel (the row-term pre-pass, dk/dv, dq)
-            split = {re.search(r"flash_attn_\w+", n).group(0): round(t, 5)
-                     for n, t in device_ms(fns["ms"])[1].items()}
-            bound_ms, bound_by = attention_bwd_bound(b, h, l, dh, causal,
-                                                     dname)
-            fwd_bound_ms, fwd_bound_by = attention_bound(b, h, l, dh, causal,
-                                                         dname)
-            row = {"shape": [b, h, l, dh], "causal": causal, "dtype": dname,
-                   "max_abs_err": max(errs.values()), "errs": errs,
-                   "limit_shares": shares, "fwd_max_abs_err": fwd_err,
-                   "fwd_limit_share": fwd_share, "lse_max_abs_err": lse_err,
-                   "tolerance": tol,
-                   **times, "split_ms": split,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "fwd_bound_ms": fwd_bound_ms,
-                   "fwd_bound_by": fwd_bound_by}
-            rows.append(row)
-            print(f"attn bwd B={b} H={h} L={l} Dh={dh} causal={int(causal)} "
-                  f"{dname:8s} err dq {errs['dq']:.2e} dk {errs['dk']:.2e} "
-                  f"dv {errs['dv']:.2e} ({max(shares.values()):.1%} of "
-                  f"limit)  K2 {times['ms']:.4f} ms  plain "
-                  f"{times['plain_ms']:.4f}  sdpa bwd "
-                  f"{times['library_ms']:.4f}  bound {bound_ms:.5f} "
-                  f"({bound_by})  {bound_ms / times['ms']:.1%} of bound | "
-                  f"K1+lse err o {fwd_err:.2e} ({fwd_share:.1%}) lse "
-                  f"{lse_err:.2e}  "
-                  f"{times['fwd_ms']:.4f} ms  plain "
-                  f"{times['fwd_plain_ms']:.4f}  sdpa "
-                  f"{times['fwd_library_ms']:.4f}  bound {fwd_bound_ms:.5f}"
-                  f" | K2 by kernel {split}", flush=True)
-            del lib_out, leaves
+        for i, case in enumerate(BWD_CASES):
+            rows.append(backward_row(*case, dtype, 200 + i))
+            print_backward_row(rows[-1])
     return rows
 
 
@@ -1977,7 +2112,7 @@ def phase_train():
 
     # what the step's one host read (the non-finite check) costs: the step
     # against the same device work without the read, alternated
-    rounds, n = 10, 10
+    rounds, n = 6, 6
     read_cost = host_read_cost(
         lambda: step(state, batch),
         lambda: no_read(state, batch), rounds=rounds, n=n)
@@ -2728,17 +2863,20 @@ def solver_window(timings, first, last, batch):
             "h2d_ms_median": h2d[len(h2d) // 2], "h2d_ms_max": h2d[-1]}
 
 
-def loader_rate(arrivals, skip, batch):
+def loader_rate(arrivals, workers, batch):
     """Batches/s and pairs/s of a loader from the host times its batches
-    arrived at, past the first ``skip`` (which its workers build at
-    once)."""
-    check(len(arrivals) > skip + 1, f"{len(arrivals)} batches, want more "
-                                    f"than {skip + 1}")
-    span = arrivals[-1] - arrivals[skip]
-    rate = (len(arrivals) - 1 - skip) / span
-    return {"batches": len(arrivals), "first_batch_s": arrivals[0],
-            "batches_per_s": rate, "pairs_per_s": rate * batch,
-            "ms_per_batch": 1e3 / rate}
+    arrived at. Its ``workers`` build a batch each side by side, so the
+    batches land in rounds of ``workers``: the rate is read over whole
+    rounds past the first, from the first round's last arrival to the last
+    round's (a span that starts or ends inside a round reads the spread of
+    the round's arrivals, not the loader's rate)."""
+    n = len(arrivals)
+    check(n >= 2 * workers and n % workers == 0,
+          f"{n} batches, want whole rounds of {workers}, two at least")
+    rate = (n - workers) / (arrivals[-1] - arrivals[workers - 1])
+    return {"batches": n, "first_batch_s": arrivals[0],
+            "first_round_s": arrivals[workers - 1], "batches_per_s": rate,
+            "pairs_per_s": rate * batch, "ms_per_batch": 1e3 / rate}
 
 
 def solver_kernel_calls(solver, steps):
@@ -2900,7 +3038,8 @@ def phase_solver(declip_result, tmp, corpus):
     t = time.perf_counter()
     arrivals = [time.perf_counter() - t
                 for _ in solver._train_loader(-1)]
-    out["loader"] = loader_rate(arrivals, SOLVER_LOADER_SKIP, batch)
+    out["loader"] = loader_rate(
+        arrivals, int(solver.train_cfg["num_workers"]), batch)
     # one batch built on this thread alone, and its images' decode and
     # two MOCOV2 views apart: how far the workers scale, and where a
     # batch's host time goes
@@ -2918,9 +3057,10 @@ def phase_solver(declip_result, tmp, corpus):
     out["loader"]["views_ms_per_image"] = (time.perf_counter() - t) * 1e3 / 32
     lo = out["loader"]
     print(f"solver loader alone ({solver.train_cfg['num_workers']} "
-          f"thread workers, {os.cpu_count()} CPUs): first batch "
-          f"{lo['first_batch_s']:.2f} s, then {lo['ms_per_batch']:.1f} "
-          f"ms a batch, {lo['pairs_per_s']:.1f} pairs/s; one batch on "
+          f"thread workers, {os.cpu_count()} CPUs): the first round "
+          f"{lo['first_round_s']:.2f} s, then {lo['ms_per_batch']:.1f} "
+          f"ms a batch over the second, {lo['pairs_per_s']:.1f} pairs/s; "
+          f"one batch on "
           f"one thread {lo['one_thread_batch_s']:.2f} s (a JPEG decode "
           f"{lo['decode_ms_per_image']:.2f} ms, its two MOCOV2 views "
           f"{lo['views_ms_per_image']:.2f} ms)", flush=True)
@@ -3184,8 +3324,8 @@ def phase_fast_input(solver_result, tmp, corpus):
                   and b["images"].shape == (batch, 224, 224, 6),
                   f"loader ({name}) gave {b['images'].dtype} "
                   f"{b['images'].shape}")
-        out["loader"][name] = loader_rate(arrivals, SOLVER_LOADER_SKIP,
-                                          batch)
+        out["loader"][name] = loader_rate(
+            arrivals, int(cfg["num_workers"]), batch)
     # one batch of (a) built on this thread alone, and its images' decode
     # and two geometry crops apart
     solver.train_cfg = configs["a"]
@@ -3205,15 +3345,16 @@ def phase_fast_input(solver_result, tmp, corpus):
     out["loader"]["a"].update(one)
     lo, ref = out["loader"], solver_result["loader"]
     print(f"fast input, the loader alone ({solver.train_cfg['num_workers']} "
-          f"workers, {os.cpu_count()} CPUs, ms a batch past the first round, "
+          f"workers, {os.cpu_count()} CPUs, ms a batch over the second "
+          f"round, "
           f"pairs/s): phase 7's host MOCOV2 {ref['ms_per_batch']:.1f}, "
           f"{ref['pairs_per_s']:.1f}; (a) device_aug crops, threads, "
           f"JSONL {lo['a']['ms_per_batch']:.1f}, {lo['a']['pairs_per_s']:.1f}"
           f"; (b) processes {lo['b']['ms_per_batch']:.1f}, "
           f"{lo['b']['pairs_per_s']:.1f}; (c) shards, processes "
           f"{lo['c']['ms_per_batch']:.1f}, {lo['c']['pairs_per_s']:.1f}; "
-          f"first batch {lo['a']['first_batch_s']:.2f} / "
-          f"{lo['b']['first_batch_s']:.2f} / {lo['c']['first_batch_s']:.2f}"
+          f"the first round {lo['a']['first_round_s']:.2f} / "
+          f"{lo['b']['first_round_s']:.2f} / {lo['c']['first_round_s']:.2f}"
           f" s; one batch of (a) on one thread "
           f"{one['one_thread_batch_s']:.2f} s (a JPEG decode "
           f"{one['decode_ms_per_image']:.2f} ms, its two geometry crops "
@@ -4936,6 +5077,486 @@ def phase_last_configs(tmp, corpus, train_result):
             "loss_impl": phase_loss_impl()}
 
 
+# ---------------------------------------------------------------- phase 13
+def _ssl_model(name, dtype, **image_encode):
+    """``name`` (e.g. ``moco_vitb32``) with SSL_KWARGS, from seeded weights,
+    on the card."""
+    import torch
+
+    from declip_tpu_torch.models import model_entry
+
+    kwargs = {"dtype": dtype, **SSL_KWARGS[name.split("_")[0]]}
+    if image_encode:
+        kwargs["image_encode"] = image_encode
+    model = model_entry({"type": name, "kwargs": kwargs})
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    return model.cuda()
+
+
+def _ssl_setup(model):
+    """MoCo-v2's SGD, the train state (with the seeded key encoder and
+    queue for MoCo and CLSA) and the step. -> (state, step, tx)."""
+    import torch
+
+    from declip_tpu_torch.models.ssl_builders import init_moco_state
+    from declip_tpu_torch.optim import (
+        optim_entry,
+        path_prefix_mask,
+        scheduler_entry,
+    )
+    from declip_tpu_torch.train import (
+        make_train_step,
+        method_of,
+        new_train_state,
+    )
+
+    sched = scheduler_entry(SSL_SCHED, max_iter=100)
+    named = dict(model.named_parameters())
+    tx = optim_entry(SSL_OPT, model, sched, frozen_mask=path_prefix_mask(
+        named, model.visual.frozen_param_paths()))
+    ssl = None
+    if method_of(model) != "simclr":
+        ssl = init_moco_state(model, torch.Generator().manual_seed(SEED + 2),
+                              model.K, model.dim)
+    state = new_train_state(model=model, opt_state=tx.init(named), ssl=ssl)
+    return state, make_train_step(model, tx, {}, sched), tx
+
+
+def _ssl_batch(seed, strong):
+    """B=128 seeded two-view images [B, 224, 224, 6] on the card, each view
+    noise around a colour of its own, and a strong view [B, r, r, 3] for
+    each r of ``strong``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def views(res, c):
+        return (torch.randn(TRAIN_BATCH, res, res, c, generator=g,
+                            device="cuda")
+                + torch.randn(TRAIN_BATCH, 1, 1, c, generator=g,
+                              device="cuda"))
+
+    batch = {"images": views(224, 6)}
+    for i, r in enumerate(strong):
+        batch[f"images_strong_{i}"] = views(r, 3)
+    return batch
+
+
+def _ssl_train(name, profile):
+    """13a: ``name`` at full width in bf16, SSL_WARMUP_STEPS, then SSL_STEPS
+    counted and timed as the main path; with ``profile`` (the profiler
+    sees the card), the device's busy time."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.train import method_of
+
+    method = name.split("_")[0]
+    strong = SSL_STRONG if method == "clsa" else ()
+    t0 = time.perf_counter()
+    model = _ssl_model(name, "bfloat16")
+    vis = model.visual
+    check((vis.width, len(vis.transformer.resblocks), vis.patch_size,
+           vis.input_resolution, vis.embed_dim, model.hidden_dim, model.dim,
+           vis.dtype, method_of(model))
+          == (768, 12, 32, 224, 2048, 2048, 128, torch.bfloat16, method),
+          f"{name} is not ViT-B/32 at full width in bf16")
+    state, step, _ = _ssl_setup(model)
+    batch = _ssl_batch(SEED, strong)
+    setup_s = time.perf_counter() - t0
+    history = []
+    for _ in range(SSL_WARMUP_STEPS):
+        step(state, batch)
+    torch.cuda.synchronize()
+    ptr0 = None if state.ssl is None else state.ssl.queue_ptr
+    reset_launches()  # the main path starts
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with _CallCounter() as plain:
+        t = time.perf_counter()
+        start.record()
+        for _ in range(SSL_STEPS):
+            history.append(step(state, batch)[1])
+        end.record()
+        end.synchronize()
+        wall_s = time.perf_counter() - t
+    launches = read_launches()  # ... and ends
+    step_ms = start.elapsed_time(end) / SSL_STEPS
+    history = [{k: float(v) for k, v in m.items()} for m in history]
+    for m in history:
+        check(m["update_skipped"] == 0.0 and all(
+            np.isfinite(v) for k, v in m.items() if k.endswith("loss")),
+            f"{name}: a skipped or non-finite step {m}")
+    want = {k: n * SSL_STEPS for k, n in SSL_PER_STEP[method].items()}
+    check(launches == want, f"{name}: kernel calls {launches} in "
+                            f"{SSL_STEPS} steps, want {want}")
+    check(plain.calls + plain.cross == 0,
+          f"{name}: {plain.calls + plain.cross} plain-version calls")
+    result = {"launches": launches, "per_step": SSL_PER_STEP[method],
+              "steps": SSL_STEPS, "history": history, "step_ms": step_ms,
+              "host_step_ms": wall_s * 1e3 / SSL_STEPS,
+              "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+              "setup_s": setup_s, "strong": list(strong)}
+    if ptr0 is not None:
+        want_ptr = (ptr0 + TRAIN_BATCH * SSL_STEPS) % model.K
+        check(state.ssl.queue_ptr == want_ptr,
+              f"{name}: queue pointer {state.ssl.queue_ptr}, want {want_ptr}")
+        result["queue_ptr"] = [ptr0, state.ssl.queue_ptr]
+    busy = "device busy not measured (the profiler sees no device event)"
+    if profile:
+        result.update(profile_steps(lambda: step(state, batch), 2, step_ms))
+        busy = (f"device busy {result['busy_ms']:.2f} ms/step (idle "
+                f"{result['idle_share']:.1%}; K1 {result['k1_ms']:.2f} ms, "
+                f"K2 {result['k2_ms']:.2f} ms; by kind "
+                f"{result['by_kind_ms']})")
+    print(f"ssl {name}: {SSL_STEPS} steps, {step_ms:.2f} ms/step (CUDA "
+          f"events; host {result['host_step_ms']:.2f}), "
+          f"{result['images_per_s']:.1f} images/s, {busy}; losses "
+          f"{[round(m['loss'], 4) for m in history]}; kernel calls "
+          f"{launches}", flush=True)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def _ssl_fp32_step(name):
+    """13b: one fp32 step of ``name`` at SSL_CHECK_LAYERS layers through
+    K1/K2 and through the plain attention path, from the same seeded
+    weights, key encoder and queue: -> the readings; checks the loss
+    within STEP_LOSS_RTOL, each parameter's ||g_k - g_p|| within
+    STEP_GRAD_REL_NORM ||g_p||, the queue rows the step wrote (the key
+    encoder's K1 forward) within STEP_GRAD_TOLERANCE's atol, and each
+    path's launches. The key parameters after the step must be equal too,
+    but no kernel reaches them: the momentum update takes them from the
+    parameters before the step's update, so that check holds the step's
+    order, not the attention path."""
+    import torch
+
+    from declip_tpu_torch.models.layers import MultiHeadAttention
+
+    method = name.split("_")[0]
+    strong = SSL_STRONG if method == "clsa" else ()
+    batch = _ssl_batch(SEED + 1, strong)
+    runs = {}
+    for impl in ("auto", "xla"):
+        model = _ssl_model(name, "float32", layers=SSL_CHECK_LAYERS)
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.attn_impl = impl
+        state, step, tx = _ssl_setup(model)
+        grads = []
+        update = tx.update_
+
+        def capturing(g, *args, update=update, **kwargs):
+            grads.append([t.detach().clone() for t in g.values()])
+            return update(g, *args, **kwargs)
+
+        tx.update_ = capturing
+        ptr = state.ssl.queue_ptr
+        before = read_launches()
+        _, metrics = step(state, batch)
+        used = {k: n - before[k] for k, n in read_launches().items()}
+        views = 2 + len(strong)  # the query's, the key's, the strong ones
+        want = ({"K1": SSL_CHECK_LAYERS * views,
+                 "K2": SSL_CHECK_LAYERS * (views - 1)}
+                if impl == "auto" else {"K1": 0, "K2": 0})
+        check({k: used[k] for k in ("K1", "K2")} == want,
+              f"fp32 {name} step with attn_impl {impl}: K1/K2 calls {used}"
+              f", want {want}")
+        check(float(metrics["update_skipped"]) == 0.0,
+              f"fp32 {name} step skipped: {metrics}")
+        runs[impl] = {"loss": float(metrics["loss"]), "grads": grads[0],
+                      "names": list(dict(model.named_parameters())),
+                      "queue": state.ssl.queue[ptr:ptr + TRAIN_BATCH].clone(),
+                      "keys": [p.detach().clone() for p in
+                               state.ssl.key_model.parameters()]}
+        del model, state, step, tx
+        torch.cuda.empty_cache()
+    k, p = runs["auto"], runs["xla"]
+    loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    rel = {}
+    for n, a, b in zip(p["names"], k["grads"], p["grads"]):
+        norm = torch.linalg.vector_norm(b).item()
+        check(norm > 0, f"fp32 {name}: {n}'s gradient is 0 on the plain "
+                        f"path")
+        rel[n] = torch.linalg.vector_norm(a - b).item() / norm
+    queue_err = (k["queue"] - p["queue"]).abs().max().item()
+    keys_equal = all(torch.equal(a, b) for a, b in zip(k["keys"], p["keys"]))
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    out = {"loss": {"kernels": k["loss"], "plain": p["loss"]},
+           "loss_rel_err": loss_err, "max_grad_rel_norm_err": worst[0][1],
+           "largest": worst, "queue_max_abs_err": queue_err,
+           "key_params_equal": keys_equal, "layers": SSL_CHECK_LAYERS}
+    print(f"ssl {name} fp32 at {SSL_CHECK_LAYERS} layers, kernels vs plain: "
+          f"loss rel err {loss_err:.3g}, worst gradient {worst}, queue rows "
+          f"max abs err {queue_err:.3g}; the key parameters (the momentum "
+          f"update's order, no kernel) equal {keys_equal}", flush=True)
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"fp32 {name}: loss rel err {loss_err:.3g}")
+    check(worst[0][1] <= STEP_GRAD_REL_NORM,
+          f"fp32 {name}: gradients beyond {STEP_GRAD_REL_NORM} of their "
+          f"norms: {worst}")
+    check(queue_err <= STEP_GRAD_TOLERANCE[1],
+          f"fp32 {name}: the enqueued keys differ by {queue_err:.3g}")
+    check(keys_equal, f"fp32 {name}: the key parameters differ")
+    return out
+
+
+def _ssl_short_rows():
+    """13b: K1 (as the key encoder runs it, and with its log-sum-exp) and
+    K2 at SSL_SHORT_CASES in fp32 and bf16, held as phases 2 and 2b hold
+    them."""
+    import torch
+
+    fwd, bwd = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(SSL_SHORT_CASES):
+            row = attention_row(*case, dtype, 300 + i)
+            fwd.append(row)
+            print(f"attn B={case[0]} H={case[1]} L={case[2]} Dh={case[3]} "
+                  f"{row['dtype']:8s} err {row['max_abs_err']:.2e} "
+                  f"({row['limit_share']:.1%} of limit)  kernel "
+                  f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f}  sdpa "
+                  f"{row['library_ms']:.4f}  bound {row['bound_ms']:.5f} "
+                  f"({row['bound_by']})", flush=True)
+            bwd.append(backward_row(*case, dtype, 400 + i))
+            print_backward_row(bwd[-1])
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def ssl_experiment(tmp, name, corpus, model_type, views):
+    """SSL_RECIPE for ``model_type`` with ``views`` in ``tmp/name``, and
+    the --set arguments phase 7 gives its data paths and frequencies. ->
+    (config path, sets)."""
+    exp = os.path.join(tmp, name)
+    os.makedirs(exp)
+    cfg_path = os.path.join(exp, "config.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(SSL_RECIPE.replace("MODEL", model_type)
+                .replace("VIEWS", views))
+    return cfg_path, [
+        f"data.train.root_dir={json.dumps([corpus['root']])}",
+        f"data.train.meta_file={json.dumps([corpus['train_meta']])}",
+        "saver.val_freq=0"]
+
+
+def _ssl_host(ssl):
+    """The SSL state on the host: the key encoder's state dict, the queue,
+    the pointer."""
+    return ({k: v.detach().cpu().clone()
+             for k, v in ssl.key_model.state_dict().items()},
+            ssl.queue.detach().cpu().clone(), ssl.queue_ptr)
+
+
+def _ssl_solver(tmp, corpus, method, views, steps, resume):
+    """13c-d: ``main`` trains ``<method>_res50`` with SSL_RECIPE and
+    ``views`` for ``steps`` steps (the solver saves at its end), checks its
+    run and reads the loader's time a batch from it, and with ``resume``
+    auto-resumes for one step whose restored SSL state must equal the
+    saved one bit for bit."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch import solver as solver_mod
+
+    cfg_path, sets = ssl_experiment(tmp, f"exp_{method}", corpus,
+                                    f"{method}_res50", views)
+    exp = os.path.dirname(cfg_path)
+    seen, restored, saved = [], {}, None
+    make_step = solver_mod.make_train_step
+    real_restore = solver_mod.restore_checkpoint
+
+    def recording_make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def recorded(state, batch):
+            seen.append({k: (v.dtype, tuple(v.shape))
+                         for k, v in batch.items() if k.startswith("images")})
+            return step(state, batch)
+        return recorded
+
+    def recording_restore(path, state):
+        out = real_restore(path, state)
+        restored["ssl"] = _ssl_host(state.ssl)
+        return out
+
+    solver_mod.make_train_step = recording_make_train_step
+    solver_mod.restore_checkpoint = recording_restore
+    runs = {}
+    try:
+        for run, max_iter in (("first", steps), ("resume", steps + 1)):
+            if run == "resume" and not resume:
+                break
+            with _CallCounter() as plain:
+                reset_launches()  # a main path starts
+                t = time.perf_counter()
+                solver = solver_mod.main(
+                    ["--config", cfg_path, "--device", "cuda", "--set",
+                     *sets, "saver.save_freq=0",
+                     f"lr_scheduler.kwargs.max_iter={max_iter}"])
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t
+                launches = read_launches()  # ... and ends
+            runs[run] = {"solver": solver, "wall_s": wall_s,
+                         "launches": launches, "plain": plain.calls}
+            if run == "first" and resume:
+                saved = _ssl_host(solver.state.ssl)
+    finally:
+        solver_mod.make_train_step = make_step
+        solver_mod.restore_checkpoint = real_restore
+    solver = runs["first"]["solver"]
+    st, vis = solver.state, solver.model.visual
+    label = f"phase 13 {method}_res50"
+    check((solver.method, solver.global_batch, st.step, vis.layers,
+           vis.embed_dim, vis.dtype, solver.train_cfg["transforms"])
+          == (method, TRAIN_BATCH, steps, (3, 4, 6, 3), 2048,
+              torch.bfloat16, {"type": views}),
+          f"{label}: not the recipe at full width")
+    for run in runs.values():
+        check(run["launches"] == dict.fromkeys(("K1", "K2", "K3", "K4",
+                                                 "K5"), 0)
+              and run["plain"] == 0,
+              f"{label}: kernel calls {run['launches']}, plain self-"
+              f"attention {run['plain']} (a ResNet has none)")
+    strong = SSL_STRONG if method == "clsa" else ()
+    want_views = {"images": (torch.float32, (TRAIN_BATCH, 224, 224, 6)),
+                  **{f"images_strong_{i}": (torch.float32,
+                                            (TRAIN_BATCH, r, r, 3))
+                     for i, r in enumerate(strong)}}
+    check(seen[:steps] == [want_views] * steps,
+          f"{label}: the step's images {seen[:steps]}")
+    check(st.ssl.queue_ptr == steps * TRAIN_BATCH,
+          f"{label}: queue pointer {st.ssl.queue_ptr}")
+    # the first run's steps (a resume appends its own to the file)
+    scalars = {tag: [v for i, v in rows if i <= steps] for tag, rows in
+               scalars_by_tag(os.path.join(exp, "events",
+                                           "scalars.jsonl")).items()}
+    terms = ["loss", "moco_loss", "top1"] + (["ddm_loss"] if strong else [])
+    for tag in terms:
+        values = scalars.get(tag, [])
+        check(len(values) == steps and np.isfinite(values).all(),
+              f"{label}: {tag} {values}")
+    check(scalars["update_skipped"] == [0.0] * steps,
+          f"{label}: skipped updates")
+    window = solver_window(solver.timings, 2, steps, TRAIN_BATCH)
+    out = {"steps": steps, "wall_s": runs["first"]["wall_s"],
+           "launches": runs["first"]["launches"], "window": window,
+           "terms": {t: scalars[t] for t in terms},
+           "views": {k: list(v[1]) for k, v in want_views.items()}}
+    if resume:
+        again = runs["resume"]["solver"]
+        check((again.start_step, again.state.step) == (steps, steps + 1),
+              f"{label}: resumed {again.start_step} -> {again.state.step}")
+        keys, queue, ptr = restored["ssl"]
+        check(ptr == saved[2] and torch.equal(queue, saved[1])
+              and sorted(keys) == sorted(saved[0])
+              and all(torch.equal(v, saved[0][k]) for k, v in keys.items()),
+              f"{label}: the resumed key encoder, queue or pointer differ "
+              f"from the saved ones")
+        out["resume"] = {"wall_s": runs["resume"]["wall_s"],
+                         "restored": sorted(keys)[:3] + ["..."]}
+        del again
+    # the loader: a run of ``steps`` steps asks it for ``steps`` batches,
+    # which its thread workers build side by side from their start, so the
+    # first step's wait is that round with the workers' start-up, not a
+    # rate (--ssl-loader-rates reads the steady rate); one batch built on
+    # this thread alone is what each worker builds a round
+    workers = int(solver.train_cfg["num_workers"])
+    wait_s = solver.timings[0]["data_time"]
+    t = time.perf_counter()
+    solver._train_loader(-1)._build_batch(list(range(TRAIN_BATCH)), 0)
+    lo = out["loader"] = {"workers": workers,
+                          "first_round_batches": min(steps, workers),
+                          "first_wait_s": wait_s,
+                          "one_thread_batch_s": time.perf_counter() - t}
+    last = " ".join(f"{t} {v[-1]:.4f}" for t, v in out["terms"].items())
+    print(f"{label}: {steps} steps of MoCo-v2's recipe ({views} views) in "
+          f"{out['wall_s']:.1f} s; last step {last}; steps 2-{steps} "
+          f"{window['step_s'] * 1e3:.2f} ms/step, of which "
+          f"{window['data_s'] * 1e3:.2f} waiting for data; the first step "
+          f"waited {wait_s:.2f} s for the loader's first round "
+          f"({lo['first_round_batches']} batches side by side on its "
+          f"{workers} thread workers, their start-up included); one batch "
+          f"on one thread {lo['one_thread_batch_s']:.2f} s"
+          + (f"; resumed at {steps} with the queue, pointer, key "
+             f"parameters and key statistics bit for bit in "
+             f"{out['resume']['wall_s']:.1f} s" if resume else ""),
+          flush=True)
+    del solver, st, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssl_loader_rates():
+    """``python3 chip_smoke.py --ssl-loader-rates``: 13c-d's two loaders
+    (SSL_RECIPE's 7 thread workers, B=128, MOCOV2 and CLSA5 views of phase
+    7's corpus) alone, SSL_LOADER_BATCHES batches each through the
+    solver's own loader builder; the model stays on the CPU and the card
+    is not used. Prints each loader's ms a batch over the rounds of its
+    workers' batches after the first (``loader_rate``), and writes
+    chiprun_out/ssl_loader_rates.json."""
+    sys.path.insert(0, ROOT)
+    from declip_tpu_torch.config import override, parse_config
+    from declip_tpu_torch.solver import Solver
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loaders_")
+    out = {"cpu_count": os.cpu_count()}
+    try:
+        corpus = solver_corpus(tmp)
+        for method, views in (("moco", "MOCOV2"), ("clsa", "CLSA5")):
+            cfg_path, sets = ssl_experiment(tmp, f"rate_{method}", corpus,
+                                            f"{method}_res50", views)
+            cfg = parse_config(cfg_path)
+            for kv in sets:
+                key, _, value = kv.partition("=")
+                cfg = override(cfg, key, json.loads(value))
+            cfg["_config_path"] = cfg_path
+            solver = Solver(cfg, device="cpu")
+            solver.max_iter = SSL_LOADER_BATCHES
+            keys = {"images"} | {f"images_strong_{i}" for i in
+                                 range(len(SSL_STRONG) if views == "CLSA5"
+                                       else 0)}
+            t = time.perf_counter()
+            arrivals = []
+            for b in solver._train_loader(-1):
+                arrivals.append(time.perf_counter() - t)
+                check(keys <= set(b), f"{views} batch keys {sorted(b)}")
+            workers = int(solver.train_cfg["num_workers"])
+            out[views] = loader_rate(arrivals, workers, TRAIN_BATCH)
+            out[views]["arrivals_s"] = arrivals
+            lo = out[views]
+            print(f"ssl loader alone, {views} ({workers} thread workers, "
+                  f"{os.cpu_count()} CPUs): the first round of {workers} "
+                  f"batches in {lo['first_round_s']:.2f} s, then "
+                  f"{lo['ms_per_batch']:.1f} ms a batch over the next "
+                  f"{SSL_LOADER_BATCHES - workers}, {lo['pairs_per_s']:.1f} "
+                  f"images/s; arrivals (s) "
+                  f"{[round(a, 2) for a in arrivals]}", flush=True)
+            del solver
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "ssl_loader_rates.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+def phase_ssl(tmp, corpus):
+    """Phase 13: the SSL builders (see the module docstring)."""
+    profile = profiler_sees_device()
+    out = {"train": {name: _ssl_train(name, profile) for name in
+                     ("moco_vitb32", "simclr_vitb32", "clsa_vitb32")}}
+    out["fp32"] = {name: _ssl_fp32_step(name)
+                   for name in ("moco_vitb32", "clsa_vitb32")}
+    out["short"] = _ssl_short_rows()
+    out["moco_solver"] = _ssl_solver(tmp, corpus, "moco", "MOCOV2",
+                                     SSL_SOLVER_STEPS, resume=True)
+    out["clsa_solver"] = _ssl_solver(tmp, corpus, "clsa", "CLSA5",
+                                     CLSA_SOLVER_STEPS, resume=False)
+    return out
+
+
 def _path_sums(rows, cases, dtype_name, prefix=""):
     """Each time summed over the path's shapes in one dtype; the path is
     bound by what bounds its largest bound."""
@@ -5001,7 +5622,7 @@ def _li_entries(li_rows, li_paths, k3_eval):
 def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                  train_result, filip_result, declip_result, solver_result,
                  fast_result, methods_result, solver_methods_result,
-                 last_result):
+                 last_result, ssl_result):
     """One entry per kernel. K1 is on every path: its launches are the sum
     over the paths, each counted from 0 around it; its times are the
     serving path's (the sum over its two shapes, image L=50 and text L=77
@@ -5015,7 +5636,8 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
     through ``solver.main``, eval included; its resume; phase 8's fast
     input path; phase 10's DeFILIP and SLIP-R50; phase 12's SigLIP and
     DeCLIP-88M recipes, its fp32 loss-kind steps and its bf16 steps with
-    and without GradCache) add to the launches."""
+    and without GradCache; phase 13's MoCo, SimCLR and CLSA ViT-B/32
+    steps) add to the launches."""
     serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
     k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
     k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
@@ -5037,7 +5659,9 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
              "loss_impl_fp32": last_result["loss_impl"]["launches"],
              **{f"grad_cache_bf16_{k}": v["launches"] for k, v in
                 last_result["loss_impl"]["bf16"].items()
-                if isinstance(v, dict)}}
+                if isinstance(v, dict)},
+             **{f"train_{name}": r["launches"]
+                for name, r in ssl_result["train"].items()}}
     k1_paths = {"serve": slice_result["launches"],
                 "train": train_result["launches"],
                 **{p: n["K1"] for p, n in paths.items()}}
@@ -5105,19 +5729,19 @@ def main():
           f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    card, ptxas = timed("build", phase_card_and_build)
-    hmma = check_tensor_cores(ptxas)
-    rows = timed("kernels", phase_kernel_vs_plain)
-    bwd_rows = timed("backward", phase_backward)
-    li_rows = timed("late_interaction", phase_late_interaction)
-    k3_eval = timed("k3_eval", phase_k3_eval_shape)
-    slice_result = timed("serve", phase_slice)
-    train_result = timed("train", phase_train)
-    filip_result = timed("train_filip", phase_train_filip)
-    declip_result = timed("train_declip", phase_train_declip)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_solver_")
     try:
-        corpus = solver_corpus(tmp)
+        card, corpus, pending = timed("build", phase_card_and_build, tmp)
+        rows = timed("kernels", phase_kernel_vs_plain)
+        bwd_rows = timed("backward", phase_backward)
+        ptxas = finish_build(pending)
+        hmma = check_tensor_cores(ptxas)
+        li_rows = timed("late_interaction", phase_late_interaction)
+        k3_eval = timed("k3_eval", phase_k3_eval_shape)
+        slice_result = timed("serve", phase_slice)
+        train_result = timed("train", phase_train)
+        filip_result = timed("train_filip", phase_train_filip)
+        declip_result = timed("train_declip", phase_train_declip)
         solver_result = timed("solver", phase_solver, declip_result,
                               tmp, corpus)
         fast_result = timed("fast_input", phase_fast_input,
@@ -5134,12 +5758,13 @@ def main():
                           solver_result, tmp, corpus)
         last_result = timed("last_configs", phase_last_configs, tmp, corpus,
                             train_result)
+        ssl_result = timed("ssl", phase_ssl, tmp, corpus)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     line = kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                         train_result, filip_result, declip_result,
                         solver_result, fast_result, methods_result,
-                        solver_methods_result, last_result)
+                        solver_methods_result, last_result, ssl_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "hmma": hmma,
@@ -5153,7 +5778,7 @@ def main():
                    "train_methods": methods_result,
                    "solver_methods": solver_methods_result,
                    "data_parallel": dp_result,
-                   "last_configs": last_result,
+                   "last_configs": last_result, "ssl": ssl_result,
                    "kernels": line["kernels"], "phase_s": PHASE_S,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")
@@ -5170,4 +5795,6 @@ if __name__ == "__main__":
         sys.exit(dp_launcher_rank(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--phase-11b-rank"]:
         sys.exit(dp_rank(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--ssl-loader-rates"]:
+        sys.exit(ssl_loader_rates())
     sys.exit(main())

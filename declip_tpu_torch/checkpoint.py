@@ -22,6 +22,8 @@ Format: the reference's ``ckpt.pth.tar`` / ``ckpt_<iter>.pth.tar``, a
 - ``ema``: the EMA shadow, or None;
 - ``logit_guard``: the EMA_logit_scale guard's buffers, or None;
 - ``bank``: DeCLIP's NN text bank and its pointer, or None;
+- ``ssl``: MoCo's and CLSA's key encoder (its parameters and BatchNorm
+  statistics, as a state dict), the queue and its pointer, or None;
 
 beside a ``ckpt_meta.json`` sidecar with the saving run's topology. Writes
 go to a temporary file and are renamed into place, so a reader never sees a
@@ -110,6 +112,11 @@ def state_to_host(state) -> Dict:
         "logit_guard": guard,
         "bank": None if bank is None else {"bank": _host_copy(bank.bank),
                                            "ptr": int(bank.ptr)},
+        "ssl": None if state.ssl is None else {
+            "key_model": {k: _host_copy(v) for k, v in
+                          state.ssl.key_model.state_dict().items()},
+            "queue": _host_copy(state.ssl.queue),
+            "queue_ptr": int(state.ssl.queue_ptr)},
     }
 
 
@@ -250,15 +257,25 @@ def restore_checkpoint(path: str, state):
             raise ValueError(f"{path} holds no NN bank, which this run keeps")
         _into(state.bank_text.bank, bank["bank"])
         state.bank_text.ptr = int(bank["ptr"])
+    if state.ssl is not None:
+        ssl = ckpt.get("ssl")
+        if ssl is None:
+            raise ValueError(f"{path} holds no key encoder and queue, which "
+                             f"this run keeps")
+        state.ssl.key_model.load_state_dict(ssl["key_model"], strict=True)
+        discard_bn_stats(state.ssl.key_model)
+        _into(state.ssl.queue, ssl["queue"])
+        state.ssl.queue_ptr = int(ssl["queue_ptr"])
     state.step = int(ckpt["last_iter"])
     return state
 
 
 @torch.no_grad()
 def broadcast_state(state, group):
-    """Rank 0's model parameters and buffers (BatchNorm statistics) and
-    NN bank on every rank of ``group``, in place: the ranks of a
-    data-parallel run start from the same state. Nothing without a
+    """Rank 0's model parameters and buffers (BatchNorm statistics), NN
+    bank and SSL state (the key encoder's parameters and buffers, the
+    queue and its pointer) on every rank of ``group``, in place: the ranks
+    of a data-parallel run start from the same state. Nothing without a
     group."""
     if group is None:
         return state
@@ -270,6 +287,12 @@ def broadcast_state(state, group):
         comms.broadcast_(state.bank_text.bank, group)
         state.bank_text.ptr = comms.broadcast_object(
             state.bank_text.ptr, 0, group)
+    if state.ssl is not None:
+        key = state.ssl.key_model
+        for t in [*key.parameters(), *key.buffers(), state.ssl.queue]:
+            comms.broadcast_(t.data, group)
+        state.ssl.queue_ptr = comms.broadcast_object(
+            state.ssl.queue_ptr, 0, group)
     return state
 
 

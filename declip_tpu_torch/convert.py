@@ -12,7 +12,10 @@
   shape-``()`` ``logit_scale_dense``, the SimSiam heads, SLIP's
   ``predictor_sim``).
 - :func:`bank_from_jax` makes the port's ``BankState`` from a JAX
-  ``BankState``'s arrays, so that both packages start from one bank.
+  ``BankState``'s arrays, so that both packages start from one bank, and
+  :func:`ssl_from_jax` the port's ``MoCoState`` from a JAX ``MoCoState``
+  (an ``SSLModel``'s variables map with no special case: ``head_fc1``,
+  ``head.fc1`` are Linear layers here and Dense layers there).
 - :func:`load_pth` reads the ``{"model": state, "last_iter": n}`` file that
   ``python -m declip_tpu.tools.convert --to_pth`` writes (the reference's
   checkpoint format).
@@ -36,6 +39,7 @@ import torch
 from torch import nn
 
 from declip_tpu_torch.models.memory_bank import BankState
+from declip_tpu_torch.models.ssl_builders import MoCoState, init_moco_state
 
 _ATTN_NAMES = (
     (".attn.qkv.kernel", ".attn.in_proj_weight"),
@@ -119,6 +123,21 @@ def bank_from_jax(bank, ptr, device=None) -> BankState:
     dim] and ``ptr`` (arrays or numpy)."""
     return BankState(torch.from_numpy(np.array(bank, copy=True)).to(device),
                      int(np.asarray(ptr)))
+
+
+def ssl_from_jax(model: nn.Module, moco_state) -> MoCoState:
+    """The port's ``MoCoState`` for ``model`` (an ``SSLModel``) from a JAX
+    ``MoCoState`` (arrays or numpy): the key parameters and the key
+    encoder's BatchNorm statistics through
+    :func:`state_from_jax_variables`, the queue and its pointer."""
+    queue = np.array(moco_state.queue, dtype=np.float32, copy=True)
+    state = init_moco_state(model, torch.Generator(), *queue.shape)
+    state.key_model.load_state_dict(state_from_jax_variables(
+        {"params": moco_state.key_params,
+         "batch_stats": moco_state.key_batch_stats or {}}), strict=True)
+    state.queue.copy_(torch.from_numpy(queue))
+    state.queue_ptr = int(np.asarray(moco_state.queue_ptr))
+    return state
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:

@@ -21,7 +21,9 @@ same seeds and the same transform draws, the batches are the JAX loader's,
 bit for bit. ``worker_type: process`` builds whole batches in spawned worker
 processes with identical batch/keying semantics; the workers import no
 torch kernels and never touch CUDA. A uint8 image batch (the geometry-only
-crops of the on-device augmentation) stays uint8. ``type: clip_wds`` reads
+crops of the on-device augmentation) stays uint8; CLSA's list of views
+becomes ``images`` (the weak pair) and ``images_strong_{i}``, as in the
+JAX loader. ``type: clip_wds`` reads
 webdataset tar shards (data/wds.py).
 """
 
@@ -122,9 +124,20 @@ class ClipDataLoader:
     def _build_batch(self, indices: Sequence[int], batch_idx: int
                      ) -> Dict[str, Any]:
         items = [self.dataset[i] for i in indices]
-        images = np.stack([it["image"] for it in items])
-        if images.dtype != np.uint8:  # uint8 = a geometry-only transform
-            images = images.astype(np.float32)
+        strong: Dict[str, np.ndarray] = {}
+        if isinstance(items[0]["image"], list):
+            # CLSA's views (transforms.CLSAMultiResolutionTransform): the
+            # two 224 px weak views on the channel axis of 'images', each
+            # strong resolution its own images_strong_{i}
+            images = np.stack([np.concatenate(it["image"][:2], axis=-1)
+                               for it in items]).astype(np.float32)
+            for v in range(2, len(items[0]["image"])):
+                strong[f"images_strong_{v - 2}"] = np.stack(
+                    [it["image"][v] for it in items]).astype(np.float32)
+        else:
+            images = np.stack([it["image"] for it in items])
+            if images.dtype != np.uint8:  # uint8 = a geometry-only transform
+                images = images.astype(np.float32)
         captions = [it["caption"] for it in items]
         labels = np.asarray([it["label"] for it in items], np.int32)
 
@@ -133,6 +146,7 @@ class ClipDataLoader:
             "images": images,
             "tokens": tok.tokenize(captions, self.context_length),
             "labels": labels,
+            **strong,
         }
         # the draws are keyed by the rank too, so that ranks do not share
         # them; rank 0's are the one-process run's

@@ -14,8 +14,11 @@ Tests pass an explicit ``random.Random(seed)``.
 
 ``build_geometry_augmentation`` gives the geometry-only uint8 variants of
 the presets for the on-device path (data/device_aug.py does the rest on the
-card). Not in the port yet (ROADMAP.md item 1.7a.4; each raises): CLSA's
-multi-resolution views and AutoAugment (transforms_extra.py).
+card); AutoAugment and CLSA's views have none, as in the JAX package.
+``AUTOAUG`` and ``CLSA<n>[-r-r...|-lo_hi]`` take their ops from
+transforms_extra.py; CLSA's transform returns a list of views, two 224 px
+weak views and one strong view per resolution, which the loader collates
+(data/dataloader.py).
 """
 
 from __future__ import annotations
@@ -322,11 +325,6 @@ def build_geometry_augmentation(
         size = int(aug_type[7:] or 224)
         return GeometryUint8(Resize(256 if size <= 256 else size),
                              CenterCrop(size))
-    if aug_type == "AUTOAUG" or aug_type.startswith("CLSA"):
-        raise NotImplementedError(
-            f"augmentation {aug_type!r} (AutoAugment / CLSA views, "
-            f"transforms_extra.py) is not ported yet (ROADMAP.md item "
-            f"1.7a.4)")
     raise KeyError(f"no geometry variant for {aug_type!r}")
 
 
@@ -375,11 +373,55 @@ def build_common_augmentation(
         crop = {"ONECROP": 224, "ONECROP256": 256, "ONECROP384": 384}[aug_type]
         resize = 256 if crop <= 256 else 384
         return Compose([Resize(resize), CenterCrop(crop), to_normalized_array])
-    if aug_type == "AUTOAUG" or aug_type.startswith("CLSA"):
-        raise NotImplementedError(
-            f"augmentation {aug_type!r} (AutoAugment / CLSA views, "
-            f"transforms_extra.py) is not ported yet (ROADMAP.md item 1.7a.4)")
+    if aug_type == "AUTOAUG":
+        from declip_tpu_torch.data.transforms_extra import ImageNetPolicy
+
+        return Compose([
+            RandomResizedCrop(224, rng=rng),
+            ImageNetPolicy(rng=rng),
+            RandomHorizontalFlip(rng=rng),
+            to_normalized_array,
+        ])
+    if aug_type.startswith("CLSA"):
+        # 'CLSA5-16-24-32' (the strong views' resolutions) or 'CLSA5-16_32'
+        # (one resolution drawn from the range, once, here) —
+        # imagenet_dataloader.py:84-96, 133-150
+        from declip_tpu_torch.data.transforms_extra import CLSAAug
+
+        head, *res_spec = aug_type[4:].split("-")
+        num_times = int(head or 5)
+        if res_spec and "_" in res_spec[0]:
+            lo, hi = (int(e) for e in res_spec[0].split("_"))
+            resolutions = [rng.choice(range(lo, hi + 1))]
+        elif res_spec:
+            resolutions = [int(e) for e in res_spec]
+        else:
+            resolutions = [96, 128, 160, 192, 224]
+        base = Compose(_mocov2_ops(224, rng))
+        strong = Compose([CLSAAug(num_of_times=num_times, rng=rng),
+                          to_normalized_array])
+        return CLSAMultiResolutionTransform(base, strong, resolutions, rng)
     raise KeyError(f"undefined augmentation type {aug_type!r}")
+
+
+class CLSAMultiResolutionTransform:
+    """Two MoCo-v2 weak views and one strong view per resolution, each
+    cropped at its own size (transforms.py:56-80,
+    CALSMultiResolutionTransform): a list, since the views' sizes differ
+    and cannot share a channel axis."""
+
+    def __init__(self, base: Transform, strong: Transform,
+                 resolutions: Sequence[int],
+                 rng: Optional[random.Random] = None):
+        self.base = base
+        self.strong = strong
+        self.crops = [RandomResizedCrop(r, scale=(0.2, 1.0), rng=rng)
+                      for r in resolutions]
+
+    def __call__(self, img: Image.Image) -> List[np.ndarray]:
+        views = [self.base(img), self.base(img)]
+        views.extend(self.strong(crop(img)) for crop in self.crops)
+        return views
 
 
 class Normalize:

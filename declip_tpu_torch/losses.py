@@ -1,7 +1,6 @@
-"""Reference losses in plain torch (port of declip_tpu/losses.py: the
-masked-language-model, SimSiam, SimCLR NT-Xent (local and gathered) and
-ConVIRT NT-Xent losses; label smoothing comes with the SSL builders,
-ROADMAP.md item 1.8.4)."""
+"""Reference losses in plain torch (port of declip_tpu/losses.py: label
+smoothing, the masked-language-model, SimSiam, SimCLR NT-Xent (local and
+gathered) and ConVIRT NT-Xent losses)."""
 
 from __future__ import annotations
 
@@ -14,6 +13,21 @@ from declip_tpu_torch.ops.contrastive import (
 )
 from declip_tpu_torch.parallel import comms
 from declip_tpu_torch.tokenizer.mlm import IGNORE_INDEX
+
+
+def label_smooth_ce(logits: torch.Tensor, labels: torch.Tensor,
+                    smooth_ratio: float, num_classes: int) -> torch.Tensor:
+    """LabelSmoothCELoss (loss.py:7-21; JAX losses.py:19-28): the target
+    puts ``1 - smooth_ratio + smooth_ratio / num_classes`` on the label and
+    ``smooth_ratio / num_classes`` elsewhere; fp32 log-softmax, summed over
+    classes and averaged over rows."""
+    v = smooth_ratio / num_classes
+    target = torch.full(logits.shape, v, dtype=torch.float32,
+                        device=logits.device)
+    target[torch.arange(logits.shape[0], device=logits.device),
+           labels.long()] = 1 - smooth_ratio + v
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -(logp * target).sum() / logits.shape[0]
 
 
 def _unit(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:

@@ -9,6 +9,7 @@ from declip_tpu_torch.models import declip_model  # noqa: F401
 from declip_tpu_torch.models import defilip_model  # noqa: F401
 from declip_tpu_torch.models import filip_model  # noqa: F401
 from declip_tpu_torch.models import slip_model  # noqa: F401
+from declip_tpu_torch.models import ssl_builders  # noqa: F401
 
 
 def model_entry(config, data_group=None, **extra):

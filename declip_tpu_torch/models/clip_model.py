@@ -137,7 +137,9 @@ def bind_data_group(model: nn.Module, group, *, use_sync_bn: bool = True,
     (``comms.group_split``); the heads' (SimSiam, SLIP's predictor) take
     the global moments, as they do on the JAX solver's global batch. The
     running statistics take the global moments everywhere. Every rank
-    makes every subgroup, in the same order (torch's rule)."""
+    makes every subgroup, in the same order (torch's rule). An SSL model's
+    key encoder (``ssl_builders.init_moco_state``, a copy of the model made
+    after this binding) shares its BatchNorms' groups."""
     from declip_tpu_torch.parallel import comms
     from declip_tpu_torch.parallel.dist import new_group
 

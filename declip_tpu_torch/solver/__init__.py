@@ -42,9 +42,15 @@ step runs the photometrics on the card. The FILIP family (FILIP, DeFILIP)
 evaluates zero-shot by token-wise late interaction unless a test entry sets
 ``dense_eval: false`` (filip_solver.py:839-960): each image's dense tokens
 against each class's prompt-averaged dense tokens, through K3 on the card.
+The SSL builders (``moco_*``, ``simclr_*``, ``clsa_*``) train with their
+two-view default transforms (MOCOV2, SIMCLR, CLSA; CLSA's is built once
+here and handed to process workers, so that a drawn resolution is every
+worker's), their key encoder and queue in the train state and the
+checkpoint; they have no text tower, so a config of theirs with a
+``data.test`` entry raises, as zero-shot needs one (the JAX package has no
+SSL eval either).
 Not in the port yet, each raising when the Solver is built:
-``parallelism`` (TP/PP/EP/FSDP/SP, multi-slice; ROADMAP.md item 1.10), the methods
-without a port model (the SSL builders' MoCo, SimCLR and CLSA; item 1.8.4),
+``parallelism`` (TP/PP/EP/FSDP/SP, multi-slice; ROADMAP.md item 1.10),
 and the orbax backend and ``gs://`` saves (TPU/pod-only in the JAX
 package). The JAX package's compile cache and profiler hook have no
 counterpart here.
@@ -90,11 +96,15 @@ from declip_tpu_torch.data.evaluator import (
     RetrievalEvaluator,
 )
 from declip_tpu_torch.data.sampler import compute_total_iter
-from declip_tpu_torch.data.transforms import build_geometry_augmentation
+from declip_tpu_torch.data.transforms import (
+    build_common_augmentation,
+    build_geometry_augmentation,
+)
 from declip_tpu_torch.models import model_entry
 from declip_tpu_torch.models.clip_model import l2_normalize
 from declip_tpu_torch.models.layers import discard_bn_stats
 from declip_tpu_torch.models.memory_bank import init_bank
+from declip_tpu_torch.models.ssl_builders import init_moco_state
 from declip_tpu_torch.ops.filip_late_interaction import (
     late_interaction_logits_kernel,
 )
@@ -117,7 +127,6 @@ from declip_tpu_torch.train import (
 )
 from declip_tpu_torch.utils.logging import ScalarWriter, create_logger
 from declip_tpu_torch.utils.meters import AverageMeter, MeterGroup
-from declip_tpu_torch.utils.registry import MODELS
 
 # batch entries the model takes; the loader's labels and raw lists stay on
 # the host
@@ -222,11 +231,6 @@ class Solver:
     def build_model(self):
         mcfg = self.config.model
         mtype = mcfg["type"]
-        if mtype not in MODELS:
-            raise _not_ported(
-                f"model type {mtype!r} (the port has CLIP, SLIP, FILIP, "
-                f"DeCLIP and DeFILIP; the SSL builders' MoCo, SimCLR and CLSA "
-                f"are missing)", "1.8.4")
         kwargs = dict(mcfg.get("kwargs") or {})
         prec = self.config.get_path("precision.dtype", "bfloat16")
         kwargs["dtype"] = prec
@@ -266,7 +270,11 @@ class Solver:
     def build_data(self):
         dcfg = self.normalize_data_config(self.config.get("data") or {})
         train_cfg = dict(dcfg.get("train") or {})
-        train_cfg.setdefault("transforms", {"type": "STANDARD_CLIP"})
+        # the SSL methods need two views (their model refuses fewer than 6
+        # channels)
+        train_cfg.setdefault("transforms", {"type": {
+            "moco": "MOCOV2", "simclr": "SIMCLR", "clsa": "CLSA"}.get(
+                self.method, "STANDARD_CLIP")})
         self.per_chip_batch = int(train_cfg.get("batch_size", 8))
         self.host_batch = self.per_chip_batch
         self.global_batch = self.per_chip_batch * self.data_ways
@@ -280,6 +288,12 @@ class Solver:
                       if isinstance(tcfg, dict) else "STANDARD_CLIP")
             self.device_aug = {"views": views, "preset": preset}
             self.train_transform = build_geometry_augmentation(preset)
+        else:
+            tcfg = train_cfg["transforms"]
+            if isinstance(tcfg, dict) and str(
+                    tcfg.get("type", "")).startswith("CLSA"):
+                self.train_transform = build_common_augmentation(
+                    tcfg["type"])
         ds = build_clip_dataset(
             train_cfg, world_size=self.world, rank=self.rank,
             transform=self.train_transform)
@@ -290,6 +304,12 @@ class Solver:
         self.train_dataset = ds
         self.train_cfg = train_cfg
         self.test_cfgs: List[Dict] = list(dcfg.get("test") or [])
+        if self.test_cfgs and self.method in ("moco", "simclr", "clsa"):
+            raise ValueError(
+                f"{self.method}: data.test asks for a zero-shot eval, which "
+                f"needs a text tower for the class embeddings; an SSL model "
+                f"has none (the JAX package has no SSL eval): remove "
+                f"data.test")
 
     def _ckpt_meta(self) -> dict:
         """Topology sidecar: what the sampler stream was laid out for when
@@ -382,11 +402,18 @@ class Solver:
                 int(getattr(self.model, "nn_size", 2 ** 16)),
                 self._feature_dim(), device=self.device)
 
+        ssl = None
+        if self.method in ("moco", "clsa"):
+            ssl = init_moco_state(
+                self.model, torch.Generator().manual_seed(seed + 2),
+                int(self.model.K), int(self.model.dim))
+
         guard = dict(self.config.get("grad_clip") or {}).get(
             "type") == "logit_scale_param_ema"
         state = new_train_state(
             model=self.model, opt_state=self.tx.init(named),
-            ema_params=ema_params, bank_text=bank, with_logit_guard=guard)
+            ema_params=ema_params, bank_text=bank, with_logit_guard=guard,
+            ssl=ssl)
         n_params = sum(p.numel() for p in named.values())
         self.logger.info(
             f"optimizer={self._opt_cfg['type']} state "
@@ -559,9 +586,14 @@ class Solver:
                         if step > self.start_step + print_freq else 0.0)
                     remain = (self.max_iter - step) * self.meters[
                         "batch_time"].avg / max(print_freq, 1)
+                    # MoCo's and CLSA's terms beside the loss
+                    terms = "".join(f"{k} {metrics[k]:.4f} " for k in
+                                    ("moco_loss", "ddm_loss")
+                                    if k in metrics)
                     self.logger.info(
                         f"Iter [{step}/{self.max_iter}] "
                         f"loss {loss:.4f} ({self.meters['loss'].avg:.4f}) "
+                        f"{terms}"
                         f"lr {metrics.get('lr', 0):.2e} "
                         f"top1 {metrics.get('top1', 0):.2f} "
                         f"pairs/s {pairs_per_sec:.1f} "
@@ -741,7 +773,8 @@ class Solver:
         self.schedule = scheduler_entry(
             scfg, max_iter=self.max_iter,
             iters_per_epoch=self._iters_per_epoch)
-        # model, optimizer state, EMA, guard and bank, in place. Default:
+        # model, optimizer state, EMA, guard, bank and SSL state, in
+        # place. Default:
         # keep the restored optimizer state — it belongs to the good
         # checkpoint and carries the schedule count for that step (a delta
         # from the reference, which reloads only the model and rebuilds its

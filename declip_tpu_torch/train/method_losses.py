@@ -1,6 +1,6 @@
 """Per-method training loss assembly (port of
-declip_tpu/train/method_losses.py: CLIP, SLIP, FILIP, DeCLIP and DeFILIP;
-the SSL builders' MoCo, SimCLR and CLSA losses are not ported yet).
+declip_tpu/train/method_losses.py: CLIP, SLIP, FILIP, DeCLIP and DeFILIP,
+and the SSL builders' SimCLR and MoCo/CLSA losses).
 
 Each function takes the model's feature dict and returns
 ``(total_loss, metrics)``. Losses are per-row means, as in the JAX package
@@ -20,6 +20,7 @@ import torch
 
 from declip_tpu_torch.losses import (
     mlm_loss,
+    nt_xent,
     nt_xent_convirt,
     nt_xent_gather,
     simsiam_loss,
@@ -294,4 +295,60 @@ def defilip_losses(out: Dict[str, Any], cfg: Dict, axis_name: Optional[str],
     if w.get("type") is None:
         total = total + filip_loss * w.get("filip", 0.0)
     metrics.update({"loss": total, "filip_loss": filip_loss})
+    return total, metrics
+
+
+def simclr_losses(out: Dict[str, Any], axis_name: Optional[str], *,
+                  temperature: float = 0.5) -> Tuple[torch.Tensor, Metrics]:
+    """SimCLR's NT-Xent over the two weak views (simclr_builder.py; JAX
+    method_losses.py:304-317): the local NT-Xent with one process, this
+    rank's rows against the gathered views over a group."""
+    z1, z2 = out["q"], out["z2"]
+    if axis_name is None:
+        total = nt_xent(z1, z2, temperature)
+    else:
+        labels = infonce_labels(z1.shape[0], axis_name, device=z1.device)
+        total = nt_xent_gather(z1, gather_features(z1, axis_name), z2,
+                               gather_features(z2, axis_name), labels,
+                               temperature)
+    return total, {"loss": total, "simclr_loss": total}
+
+
+def moco_losses(out: Dict[str, Any], *, k: torch.Tensor,
+                queue: torch.Tensor, temperature: float = 0.07,
+                clsa_ratio: float = 1.0, clsa_avg: bool = True
+                ) -> Tuple[torch.Tensor, Metrics]:
+    """MoCo's InfoNCE of the queries against their keys and the queue's
+    negatives, and CLSA's DDM terms on the strong views where ``out`` has
+    them (moco_builder.py:133-161, clsa_builder.py:110-180; JAX
+    method_losses.py:320-357). Every term is a mean over this rank's rows,
+    so that the mean over the ranks is the global batch's."""
+    q = out["q"]
+
+    def logits_of(feats):
+        l_pos = (feats * k).sum(dim=-1, keepdim=True)
+        l_neg = feats.float() @ queue.float().t()
+        return torch.cat([l_pos, l_neg], dim=1).float() / temperature
+
+    logits_weak = logits_of(q)
+    logp = torch.log_softmax(logits_weak, dim=-1)
+    contrastive = -logp[:, 0].mean()
+
+    ddm = torch.zeros((), device=q.device)
+    strong = out.get("q_strong", ())
+    if strong:
+        # -P(weak) . log P(strong) per strong view (clsa_builder.py:158-172),
+        # with the gradient through P(weak) too, as the reference has it
+        p_weak = torch.softmax(logits_weak, dim=-1)
+        for q_s in strong:
+            logp_s = torch.log_softmax(logits_of(q_s), dim=-1)
+            ddm = ddm - (p_weak * logp_s).sum(dim=-1).mean()
+
+    total = contrastive + clsa_ratio * ddm
+    if strong and clsa_avg:  # clsa_builder.py:174-176
+        total = total / (len(strong) + 1)
+    top1 = 100.0 * (logits_weak.argmax(dim=-1) == 0).float().mean()
+    metrics = {"loss": total, "moco_loss": contrastive, "top1": top1}
+    if strong:
+        metrics["ddm_loss"] = ddm
     return total, metrics

@@ -4,7 +4,8 @@
 The JAX package keeps params in an immutable pytree; here they are the fp32
 parameters of the model, which the step updates in place, beside the
 optimizer state, the EMA shadow, the EMA_logit_scale guard's buffers
-(declip_solver.py:64-86) and DeCLIP's NN text bank. BatchNorm running
+(declip_solver.py:64-86), DeCLIP's NN text bank and MoCo's and CLSA's
+key encoder and queue (``ssl``, models/ssl_builders.py). BatchNorm running
 statistics (the JAX package's ``batch_stats``) are the model's buffers.
 """
 
@@ -17,6 +18,7 @@ import torch
 from torch import nn
 
 from declip_tpu_torch.models.memory_bank import BankState
+from declip_tpu_torch.models.ssl_builders import MoCoState
 from declip_tpu_torch.optim import OptState
 
 
@@ -31,6 +33,8 @@ class TrainState:
     logit_clip_count: Optional[torch.Tensor] = None
     # DeCLIP's NN memory bank of text features (return_nn_bank)
     bank_text: Optional[BankState] = None
+    # MoCo's and CLSA's momentum encoder and negatives queue
+    ssl: Optional[MoCoState] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -40,7 +44,8 @@ class TrainState:
 def new_train_state(*, model: nn.Module, opt_state: OptState,
                     ema_params: Optional[Dict[str, torch.Tensor]] = None,
                     step: int = 0, with_logit_guard: bool = False,
-                    bank_text: Optional[BankState] = None) -> TrainState:
+                    bank_text: Optional[BankState] = None,
+                    ssl: Optional[MoCoState] = None) -> TrainState:
     device = next(model.parameters()).device
     return TrainState(
         step=step,
@@ -54,4 +59,5 @@ def new_train_state(*, model: nn.Module, opt_state: OptState,
             torch.zeros((), dtype=torch.int32, device=device)
             if with_logit_guard else None),
         bank_text=bank_text,
+        ssl=ssl,
     )

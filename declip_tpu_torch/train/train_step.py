@@ -1,5 +1,6 @@
 """The training step (port of declip_tpu/train/train_step.py; methods clip,
-slip, filip, declip and defilip).
+slip, filip, declip and defilip, and the SSL builders' moco, simclr and
+clsa).
 
 ``make_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``, the reference's train-loop body (prototype/solver/
@@ -20,10 +21,20 @@ the neighbours, and projects them for nn-SimSiam (``project_nn_text``);
 after an accepted step it enqueues the augmented captions' features, then
 the originals'.
 
+MoCo and CLSA (train_step.py:209-222, 265-272, 310-320 of the JAX package),
+in its order: the momentum update of the key encoder from the parameters
+before this step's update; the keys of view 2 through it, with no
+gradient (its attention launches K1 and never K2); the loss against the
+queue as it stood before the step; the update; and after an accepted step
+the enqueue of the keys, the global batch's in rank order over a data
+group, as DeCLIP's bank. SimCLR takes no state.
+
 Non-finite containment (train_step.py:323-352; the reference checks every
 iteration, declip_solver.py:548-619): a NaN/inf loss or gradient leaves the
 parameters, optimizer state, EMA, guard buffers, BatchNorm running
-statistics and the NN bank untouched (bit-identical) and reports
+statistics, the NN bank and the SSL state (the momentum-updated key
+parameters, the queue and its pointer, the key encoder's BatchNorm
+statistics) untouched (bit-identical) and reports
 ``update_skipped == 1``; the step counter still advances. The port decides
 it on the host: the loss and the global gradient norm come to the host once
 per step (one device synchronisation), and a poisoned step never runs the
@@ -77,6 +88,13 @@ from declip_tpu_torch.models.layers import (
 )
 from declip_tpu_torch.models.memory_bank import enqueue, query_topk
 from declip_tpu_torch.models.slip_model import SLIP
+from declip_tpu_torch.models.ssl_builders import (
+    SSLModel,
+    encode_keys,
+    enqueue_keys,
+    momentum_update,
+    restore_keys,
+)
 from declip_tpu_torch.ops.contrastive import gather_features, make_pair_loss
 from declip_tpu_torch.optim import global_norm
 from declip_tpu_torch.parallel import comms
@@ -100,18 +118,21 @@ _LOSSES = {"clip": method_losses.clip_losses,
 # the methods whose loss takes the NN bank's inputs and the step count
 _BANK_METHODS = ("declip", "defilip")
 _SSL_METHODS = ("moco", "simclr", "clsa")
+# the SSL methods with a momentum encoder and a queue (TrainState.ssl)
+_MOCO_METHODS = ("moco", "clsa")
 
 
 def method_of(model) -> str:
+    if isinstance(model, SSLModel):
+        return model.ssl_method
     # DEFILIP subclasses DECLIP: the most specific class first
     for cls, method in ((DEFILIP, "defilip"), (DECLIP, "declip"),
                         (FILIP, "filip"), (SLIP, "slip"), (CLIP, "clip")):
         if isinstance(model, cls):
             return method
     raise NotImplementedError(
-        f"{type(model).__name__}: only CLIP, SLIP, FILIP, DeCLIP and DeFILIP "
-        f"train in the port so far; the SSL builders (MoCo, SimCLR, CLSA) "
-        f"are ROADMAP.md item 1.8.4")
+        f"{type(model).__name__}: no training method (CLIP, SLIP, FILIP, "
+        f"DeCLIP, DeFILIP, or an SSLModel's MoCo, SimCLR or CLSA)")
 
 
 @torch.no_grad()
@@ -181,15 +202,25 @@ def make_losses_from_out(cfg: Dict, method: str = "clip",
                          total_steps: int = 1) -> Callable:
     """``losses(model, state, out) -> (loss, metrics)``: the loss of
     ``method`` over the model's feature dict ``out`` (with DeCLIP's and
-    DeFILIP's bank query, which reads ``state``)."""
-    if method not in _LOSSES:
+    DeFILIP's bank query, which reads ``state``; MoCo's and CLSA's against
+    ``state.ssl``'s queue, with the keys under ``out["k"]``)."""
+    if method not in _LOSSES and method not in _SSL_METHODS:
         raise NotImplementedError(
-            f"method {method!r}: only {', '.join(_LOSSES)} train in the "
-            f"port so far (the SSL builders are ROADMAP.md item 1.8.4)")
-    losses = _LOSSES[method]
+            f"method {method!r}: not one of {', '.join(_LOSSES)}, "
+            f"{', '.join(_SSL_METHODS)}")
+    losses = _LOSSES.get(method)
     pair_loss = make_pair_loss(cfg, axis_name=axis_name)
 
     def from_out(model, state: Optional[TrainState], out):
+        if method == "simclr":
+            return method_losses.simclr_losses(
+                out, axis_name, temperature=float(model.T))
+        if method in _MOCO_METHODS:
+            return method_losses.moco_losses(
+                out, k=out["k"], queue=state.ssl.queue,
+                temperature=float(model.T),
+                clsa_ratio=float(model.clsa_ratio),
+                clsa_avg=bool(model.clsa_avg))
         if method not in _BANK_METHODS:
             return losses(out, cfg, axis_name, pair_loss)
         return losses(out, cfg, axis_name, pair_loss=pair_loss,
@@ -203,13 +234,24 @@ def make_losses_from_out(cfg: Dict, method: str = "clip",
 def make_loss_fn(cfg: Dict, method: str = "clip",
                  axis_name: Optional[str] = None,
                  total_steps: int = 1) -> Callable:
-    """``loss_fn(model, state, batch) -> (loss, metrics)`` for ``method``."""
+    """``loss_fn(model, state, batch) -> (loss, metrics)`` for ``method``
+    (MoCo's and CLSA's keys from ``state.ssl``'s key encoder as it
+    stands)."""
     from_out = make_losses_from_out(cfg, method, axis_name, total_steps)
 
     def loss_fn(model, state: Optional[TrainState], batch):
-        return from_out(model, state, model(batch))
+        return from_out(model, state, forward(model, state, batch, method))
 
     return loss_fn
+
+
+def forward(model, state: Optional[TrainState], batch, method: str):
+    """The model's feature dict, with MoCo's and CLSA's keys of view 2
+    under ``k`` (``ssl_builders.encode_keys``)."""
+    out = model(batch)
+    if method in _MOCO_METHODS:
+        out["k"] = encode_keys(state.ssl, batch)
+    return out
 
 
 def grad_norms_by_module(grads: Dict[str, torch.Tensor]
@@ -322,6 +364,11 @@ def make_train_step(model, tx, cfg: Dict, schedule: Callable, *,
     take theirs from ``model_entry(..., data_group=)``."""
     method = method or method_of(model)
     grad_clip = dict(cfg.get("grad_clip") or {})
+    if grad_clip.get("type") not in _PASS_THROUGH and \
+            getattr(model, "logit_scale", None) is None:
+        raise ValueError(f"grad_clip {grad_clip['type']!r} guards a "
+                         f"logit_scale, which {type(model).__name__} has "
+                         f"not")
     gc_chunks = int((cfg.get("grad_cache") or {}).get("chunks", 0) or 0)
     if gc_chunks > 1:
         check_grad_cache(model, method)
@@ -329,6 +376,7 @@ def make_train_step(model, tx, cfg: Dict, schedule: Callable, *,
                                     total_steps=total_steps)
     use_bank = bool(getattr(model, "return_nn_bank", False))
     check_grad = bool(cfg.get("check_grad", False))
+    moco = method in _MOCO_METHODS
     augment = (make_augment(model, device_aug, rank_seed(seed, axis_name))
                if device_aug is not None else None)
 
@@ -340,12 +388,22 @@ def make_train_step(model, tx, cfg: Dict, schedule: Callable, *,
             model.train()
         params = state.params
         discard_bn_stats(model)  # statistics of a forward outside a step
+        if moco:
+            if state.ssl is None:
+                raise ValueError(
+                    f"{method} needs a train state with its key encoder "
+                    f"and queue: new_train_state(ssl=ssl_builders."
+                    f"init_moco_state(...))")
+            discard_bn_stats(state.ssl.key_model)
+            # from the parameters before this step's update
+            # (moco_builder.py:50-53)
+            old_keys = momentum_update(state.ssl, model, float(model.m))
         if gc_chunks > 1:
             total, metrics, out, grads = cached_value_and_grad(
                 model, from_out, state, batch, gc_chunks, params)
             grads = [grads[n] for n in params]
         else:
-            out = model(batch)
+            out = forward(model, state, batch, method)
             total, metrics = from_out(model, state, out)
             grads = torch.autograd.grad(total, list(params.values()),
                                         allow_unused=True)
@@ -366,11 +424,13 @@ def make_train_step(model, tx, cfg: Dict, schedule: Callable, *,
             [metrics["loss"].float(), grad_norm]).tolist()
         finite = math.isfinite(loss_v) and math.isfinite(norm_v)
         if finite:
-            logit_scale = params["logit_scale"]
-            s_old = logit_scale.detach().clone()
+            logit_scale = params.get("logit_scale")
+            s_old = (None if logit_scale is None
+                     else logit_scale.detach().clone())
             tx.update_(grads, state.opt_state, params, grad_norm=norm_v)
-            state.logit_ema_buffer, state.logit_clip_count = \
-                logit_scale_guard(s_old, logit_scale, grad_clip, state)
+            if logit_scale is not None:
+                state.logit_ema_buffer, state.logit_clip_count = \
+                    logit_scale_guard(s_old, logit_scale, grad_clip, state)
             if state.ema_params is not None and ema_cfg is not None:
                 ema_step(state.ema_params, params, state.step + 1, ema_cfg)
             commit_bn_stats(model)
@@ -381,8 +441,16 @@ def make_train_step(model, tx, cfg: Dict, schedule: Callable, *,
                     for key in ("text_embed_aug", "text_embed"):
                         enqueue(state.bank_text, gather_features(
                             out[key].detach(), axis_name))
+            if moco:
+                commit_bn_stats(state.ssl.key_model)
+                # the global batch's keys in rank order
+                # (concat_all_gather, moco_builder.py:57-68)
+                enqueue_keys(state.ssl, gather_features(out["k"], axis_name))
         else:
             discard_bn_stats(model)
+            if moco:
+                discard_bn_stats(state.ssl.key_model)
+                restore_keys(state.ssl, old_keys)
         metrics["lr"] = schedule(state.step)
         metrics["grad_norm"] = grad_norm
         metrics["update_skipped"] = 0.0 if finite else 1.0

@@ -168,10 +168,11 @@ def test_geometry_presets_match_jax(photo, preset):
 
 
 def test_geometry_refuses_the_unported_presets():
-    with pytest.raises(NotImplementedError, match="item 1.7a.4"):
-        build_geometry_augmentation("CLSA")
-    with pytest.raises(KeyError):
-        build_geometry_augmentation("STANDARD")
+    # AutoAugment and CLSA's views have no geometry-only variant, as in the
+    # JAX package (they are host pipelines, data/transforms.py)
+    for preset in ("CLSA", "AUTOAUG", "STANDARD"):
+        with pytest.raises(KeyError, match="no geometry variant"):
+            build_geometry_augmentation(preset)
 
 
 def test_step_augments_on_the_device(tmp_path):

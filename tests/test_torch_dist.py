@@ -68,6 +68,7 @@ import test_torch_declip as tdeclip
 import test_torch_defilip as tdefilip
 import test_torch_filip as tfilip
 import test_torch_slip as tslip
+import test_torch_ssl as tssl
 import test_torch_train as ttrain
 
 from declip_tpu import losses as jax_losses
@@ -295,6 +296,18 @@ def _step_specs():
     return specs
 
 
+def _ssl_spec():
+    """moco_res50 at tests/test_torch_ssl.py's widths, two steps on global
+    batches of 2 x 4 rows, K 64: each step enqueues both ranks' keys."""
+    model = tssl._moco()
+    queue = _unit(np.random.default_rng(1).normal(size=(tssl.K, tssl.DIM)))
+    return {"model": tssl._cfg("moco_res50"), "opt": tssl.OPT,
+            "sched": tssl.SCHED, "max_iter": tssl.MAX_ITER,
+            "state": {k: v.numpy() for k, v in model.state_dict().items()},
+            "queue": queue,
+            "batches": [tssl._batch("moco_res50", i) for i in range(STEPS)]}
+
+
 def _trajectory_as_run(traj):
     return traj["state"], traj["hist"]
 
@@ -342,6 +355,7 @@ def runs(tmp_path_factory, two_steps):
     steps = _step_specs()
     spec = {"losses": losses,
             "steps": {k: s for k, (s, _) in steps.items()},
+            "ssl": _ssl_spec(),
             "solver": _solver_experiment(root, "world2", []),
             "preempted": _solver_experiment(root, "preempted", [])}
     ranks = torch_dist_cases.spawn(torch_dist_cases.run, WORLD,
@@ -355,7 +369,8 @@ def runs(tmp_path_factory, two_steps):
                        for name, x in losses.items()}
         jax_runs = {k: f.result() for k, f in runs_.items()}
     return {"ranks": ranks, "jax": jax_runs, "losses": jax_losses_,
-            "inputs": losses, "specs": spec["steps"], "root": root}
+            "inputs": losses, "specs": spec["steps"], "root": root,
+            "ssl": torch_dist_cases.ssl_trajectory(spec["ssl"], None)}
 
 
 # ------------------------------------------------------------------ losses
@@ -626,3 +641,29 @@ def test_launch_env_reads_torchrun_and_slurm():
         {"rank": 5, "world": 16, "local_rank": 5, "addr": "gpu07",
          "port": 29500}
     assert first_host("node3") == "node3"
+
+
+def test_moco_step_at_world_2_matches_one_process(runs):
+    """moco_res50 on two ranks of 4 rows against one process on the 8: the
+    metrics, the parameters and BatchNorm statistics of both encoders
+    (the query's and the key encoder's BatchNorms over the global batch),
+    and the queue with both ranks' keys enqueued in rank order, on both
+    ranks, within tests/test_torch_ssl.py's trajectory tolerance; the
+    ranks' states bit for bit equal."""
+    r0, r1 = (r["ssl"] for r in runs["ranks"])
+    want = runs["ssl"]
+    assert r0["hist"] == r1["hist"]
+    assert r0["ptr"] == r1["ptr"] == want["ptr"] == STEPS * tssl.B
+    for got in (r0, r1):
+        for part in ("state", "key"):
+            assert sorted(got[part]) == sorted(want[part])
+            for k, w in want[part].items():
+                np.testing.assert_array_equal(got[part][k], r1[part][k])
+                tssl._param_close(got[part][k], w, f"{part} {k}")
+        np.testing.assert_allclose(got["queue"], want["queue"],
+                                   rtol=tssl.RTOL, atol=tssl.PARAM_ATOL)
+    for got, w in zip(r0["hist"], want["hist"]):
+        assert sorted(got) == sorted(w) and got["update_skipped"] == 0.0
+        for k in w:
+            np.testing.assert_allclose(got[k], w[k], rtol=tssl.RTOL,
+                                       err_msg=k)

@@ -111,9 +111,10 @@ def test_onecrop_matches_jax(aug, size):
 
 
 def test_unported_augmentation_raises():
+    # AutoAugment and CLSA's views are ported (tests/test_torch_ssl.py holds
+    # them to the JAX package's); a name neither package defines raises
     for aug in ("AUTOAUG", "CLSA5-16-24"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_common_augmentation(aug)
+        assert callable(build_common_augmentation(aug))
     with pytest.raises(KeyError, match="undefined augmentation"):
         build_common_augmentation("NO_SUCH_AUG")
 

@@ -312,15 +312,19 @@ def test_solver_window_reads_steps_of_one(smoke):
 
 
 def test_loader_rate_skips_the_first_round(smoke):
-    """A loader whose first 3 batches land together at 2 s, then one every
-    0.5 s: 2 batches/s once past them."""
-    arrivals = [2.0, 2.0, 2.0, 2.5, 3.0, 3.5, 4.0]
+    """A loader of 3 workers whose batches land in rounds of 3, the rounds
+    ending at 2, 3.5 and 5 s: 6 batches past the first round in 3 s, 2
+    batches/s, however its arrivals spread inside a round. A span that is
+    not whole rounds, or only one round, is refused."""
+    arrivals = [1.9, 2.0, 2.0, 3.0, 3.5, 3.5, 4.4, 4.5, 5.0]
     r = smoke.loader_rate(arrivals, 3, 128)
     assert r["batches_per_s"] == pytest.approx(2.0)
     assert r["pairs_per_s"] == pytest.approx(256.0)
-    assert (r["first_batch_s"], r["batches"]) == (2.0, 7)
-    with pytest.raises(AssertionError):
-        smoke.loader_rate(arrivals[:4], 3, 128)
+    assert (r["first_batch_s"], r["first_round_s"], r["batches"]) == (
+        1.9, 2.0, 9)
+    for cut in (arrivals[:4], arrivals[:3]):
+        with pytest.raises(AssertionError):
+            smoke.loader_rate(cut, 3, 128)
 
 
 def test_scalars_by_tag_and_corpus(smoke, tmp_path):

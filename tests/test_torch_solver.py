@@ -531,25 +531,33 @@ def test_main_refuses_absent_cuda(tmp_path, monkeypatch):
     assert not (tmp_path / "checkpoints").exists()
 
 
-@pytest.mark.parametrize("sets,match", [
-    ({"parallelism": {"tp": 2}}, "item 1.10"),
-    ({"model.type": "moco_res50"}, "item 1.8.4"),
+@pytest.mark.parametrize("sets,exc,match", [
+    ({"parallelism": {"tp": 2}}, NotImplementedError, "item 1.10"),
+    # the SSL builders train, and have no text tower for tiny_clip's
+    # zero-shot eval (neither has the JAX package an SSL eval)
+    ({"model.type": "moco_res50",
+      "model.kwargs": {"image_encode": {"layers": [1, 1, 1, 1],
+                                        "width": 8, "embed_dim": 32}}},
+     ValueError, "needs a text tower"),
     # device_aug, wds shards and the native reader are ported; what stays
-    # out beside them: CLSA's views, shards on object stores, and the
-    # reference's kestrel hardware decoder
+    # out beside them: shards on object stores and the reference's kestrel
+    # hardware decoder; CLSA's views have no device_aug geometry, as in the
+    # JAX package
     ({"data.train.device_aug": True,
-      "data.train.transforms": {"type": "CLSA"}}, "item 1.7a.4"),
+      "data.train.transforms": {"type": "CLSA"}}, KeyError,
+     "no geometry variant"),
     ({"data.train.type": "clip_wds",
       "data.train.tar_files": "gs://bucket/s-{0000..0003}.tar"},
-     "item 1.7a.5"),
-    ({"data.train.read_from": "gcs"}, "item 1.7a"),
-    ({"data.train.image_reader": {"type": "kestrel"}}, "kestrel"),
+     NotImplementedError, "item 1.7a.5"),
+    ({"data.train.read_from": "gcs"}, NotImplementedError, "item 1.7a"),
+    ({"data.train.image_reader": {"type": "kestrel"}}, NotImplementedError,
+     "kestrel"),
 ], ids=["parallelism", "ssl", "device_aug", "wds", "gcs", "native"])
-def test_unported_parts_raise(tmp_path, sets, match):
+def test_unported_parts_raise(tmp_path, sets, exc, match):
     from declip_tpu_torch.solver import Solver
 
     cfg = _cfg("declip_tpu_torch", tmp_path, TINY_CLIP, sets)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         Solver(cfg, device="cpu")
 
 

@@ -209,6 +209,41 @@ def poisoned_step(spec, group):
     return {"skipped": out["hist"][0]["update_skipped"], "unchanged": same}
 
 
+def ssl_trajectory(spec, group):
+    """MoCo's ``make_train_step`` over ``group`` (None: one process) for
+    spec["steps"] steps on this rank's rows of each of spec["batches"],
+    from spec["state"] and the queue spec["queue"], the key encoder a copy
+    of the model as ``init_moco_state`` makes it: -> each step's metrics,
+    the model's and the key encoder's state dicts, the queue and its
+    pointer."""
+    from declip_tpu_torch.models import model_entry
+    from declip_tpu_torch.models.ssl_builders import init_moco_state
+    from declip_tpu_torch.optim import optim_entry, scheduler_entry
+    from declip_tpu_torch.train import make_train_step, new_train_state
+
+    model = model_entry(spec["model"], data_group=group)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in spec["state"].items()}, strict=True)
+    model.train()
+    ssl = init_moco_state(model, torch.Generator(), *spec["queue"].shape)
+    ssl.queue.copy_(torch.from_numpy(spec["queue"]))
+    sched = scheduler_entry(spec["sched"], max_iter=spec["max_iter"])
+    tx = optim_entry(spec["opt"], model, sched)
+    state = new_train_state(model=model, opt_state=tx.init(
+        dict(model.named_parameters())), ssl=ssl)
+    step = make_train_step(model, tx, {}, sched, axis_name=group)
+    hist = []
+    for batch in spec["batches"]:
+        state, metrics = step(state, _tensors({
+            k: _rows(v, group) for k, v in batch.items()}))
+        hist.append({k: float(v) for k, v in metrics.items()})
+    return {"hist": hist,
+            "state": {k: _np(v) for k, v in model.state_dict().items()},
+            "key": {k: _np(v) for k, v in
+                    ssl.key_model.state_dict().items()},
+            "queue": _np(ssl.queue), "ptr": ssl.queue_ptr}
+
+
 # ------------------------------------------------------------------ solver
 class FedInputs:
     """The solver's inputs made the same at any world size: each image's
@@ -343,7 +378,8 @@ def run(rank, spec):
            "steps": {name: trajectory(s, group)
                      for name, s in spec["steps"].items()},
            "summing": summing_trajectory(spec["steps"]["clip"], group),
-           "poisoned": poisoned_step(spec["steps"]["clip"], group)}
+           "poisoned": poisoned_step(spec["steps"]["clip"], group),
+           "ssl": ssl_trajectory(spec["ssl"], group)}
     out["solver"] = run_solver(*spec["solver"])
     out["preempted"] = preempted_solver(*spec["preempted"])
     return out
