@@ -212,7 +212,35 @@ Phases (any failed check raises, and the script exits non-zero):
    loader's first round (with its workers' start-up) and one batch built
    on one thread. ``python3 chip_smoke.py --ssl-loader-rates`` runs the
    two loaders alone for three rounds instead, on the host only: their
-   ms a batch over the last two.
+   ms a batch over the last two;
+14. the serving tools, on phase 3's CLIP ViT-B/32 at full width, fp32,
+   in two parts: (b) live, (d), (e) and (f) right after phase 6, so that
+   the profiler trace comes early in the run; the two exports as
+   ``python -m declip_tpu_torch.tools.convert`` processes beside phase
+   11b (no performance numbers there: they took 36 s in line), then
+   (a), (b)'s artifacts and (c) after it. (a) ``convert
+   --export-serving`` with a symbolic batch, fp32 and ``--quantize
+   int8``, each process's seconds and the MiB; each
+   ``torch.export`` artifact at B = 1, 8 and 16 against the live model
+   within 1e-5 of each row's norm, 12 K1 launches a tower call; (b) which
+   shapes ``torch._int_mm`` takes on the card, then int8, live and
+   exported, against fp32 at B = 1 and 8: each row's cosine above 0.995,
+   the artifact against the live int8 at 0.9999, the numbers moved, and
+   the ms a call (CUDA events; for the live int8 also profiler device
+   time) beside phase 3's fp32 towers;
+   (c) ``ServingHost.from_exported`` and ``from_config(int8=True)``, the
+   hosts ``serve --exported`` and ``serve --int8`` build, answer one-row
+   and batched HTTP requests, 12 K1 launches a batch, p50 and p95;
+   (d) ``tools.inference --saliency`` on 4 of phase 7's JPEGs: 12 + 24
+   K1 an image and 12 fp32 K2 an image, the probabilities within 1e-5 of
+   the live model's zero-shot on the same crops, each saliency map
+   [224, 224], finite and not all zero; (e) the FLOPs of one bf16 step
+   of phases 4 and 6 (``utils/flops.py``; K1-K5 by their registered
+   formulas) and the MFU of their step times against the H100 SXM5's
+   dense bf16 peak (NVIDIA's datasheet); (f) the yfcc15m_vit_siglip
+   recipe through ``main`` for 5 steps with ``profile: {enable: true,
+   start_step: 3, num_steps: 2}``: one trace under
+   ``<event_path>/profile`` whose device kernels include K1's.
 
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
@@ -1783,6 +1811,21 @@ def profile_steps(fn, iters, step_ms):
             "top_kernels_ms": [[n[:90], v] for n, v in top]}
 
 
+def step_flops(fn):
+    """FLOPs of one call of a training step (``utils/flops.py``: PyTorch's
+    counter for products and convolutions, K1-K5 by their registered
+    formulas) -> {"total", "kernels" (K1-K5's share of it),
+    "by_operator"}. The step runs once more for it."""
+    from declip_tpu_torch.utils.flops import flops_by_operator
+
+    by_op = flops_by_operator(fn)
+    total = sum(by_op.values())
+    kernels = sum(v for k, v in by_op.items()
+                  if k.startswith("declip_tpu_torch."))
+    return {"total": total, "kernels": kernels,
+            "kernels_share": kernels / max(total, 1), "by_operator": by_op}
+
+
 def step_without_read(loss_fn, tx, grad_clip):
     """The train step's device work with its one host read taken out, and
     with it the non-finite check: for timing what that read costs, never
@@ -1991,35 +2034,67 @@ def bf16_step_passes(c):
             and c["max"] <= STEP_BF16_GRAD_REL_NORM)
 
 
-def phase_train():
+def build_clip(cfg, dtype):
+    """Phase 4's model (``cfg``'s CLIP ViT-B/32 in ``dtype``, fp32
+    parameters) from the seeded weights, on the card."""
+    import torch
+
+    from declip_tpu_torch.models import model_entry
+
+    kwargs = dict(cfg.model.kwargs)
+    kwargs["dtype"] = dtype
+    model = model_entry({"type": cfg.model.type, "kwargs": kwargs})
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    return model.cuda()
+
+
+def clip_train_step(cfg, model):
+    """Phase 4's optimizer, train state, step and batch (TRAIN_BATCH seeded
+    images and texts on the card) for ``model`` -> (tx, state, step,
+    batch)."""
     import numpy as np
     import torch
 
-    from declip_tpu_torch.config import parse_config
-    from declip_tpu_torch.models import model_entry
-    from declip_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_bwd,
-    )
     from declip_tpu_torch.optim import (
         optim_entry,
         path_prefix_mask,
         scheduler_entry,
     )
-    from declip_tpu_torch.train import (
-        make_loss_fn,
-        make_train_step,
-        new_train_state,
+    from declip_tpu_torch.train import make_train_step, new_train_state
+
+    named = dict(model.named_parameters())
+    sched = scheduler_entry(cfg.lr_scheduler,
+                            max_iter=int(cfg.lr_scheduler.kwargs.max_iter))
+    tx = optim_entry(cfg.optimizer, model, sched,
+                     pconfig=cfg.optimizer.pconfig,
+                     grad_clip=dict(cfg.grad_clip),
+                     frozen_mask=path_prefix_mask(
+                         named, model.visual.frozen_param_paths()))
+    state = new_train_state(model=model, opt_state=tx.init(named))
+    step = make_train_step(model, tx, cfg, sched)
+    rng = np.random.default_rng(SEED)
+    batch = {
+        "images": torch.from_numpy(rng.normal(
+            size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda(),
+        "tokens": torch.from_numpy(_tokens(rng, TRAIN_BATCH)).cuda()}
+    return tx, state, step, batch
+
+
+def phase_train():
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
     )
+    from declip_tpu_torch.train import make_loss_fn
 
     cfg = parse_config(TRAIN_CONFIG)
 
     def build(dtype):
-        kwargs = dict(cfg.model.kwargs)
-        kwargs["dtype"] = dtype
-        model = model_entry({"type": cfg.model.type, "kwargs": kwargs})
-        model.init_weights(torch.Generator().manual_seed(SEED))
-        return model.cuda()
+        return build_clip(cfg, dtype)
 
     t0 = time.perf_counter()
     model = build(cfg.precision.dtype)
@@ -2032,21 +2107,8 @@ def phase_train():
     named = dict(model.named_parameters())
     check(all(p.dtype == torch.float32 for p in named.values()),
           "parameters are not fp32")
-    sched = scheduler_entry(cfg.lr_scheduler,
-                            max_iter=int(cfg.lr_scheduler.kwargs.max_iter))
-    tx = optim_entry(cfg.optimizer, model, sched,
-                     pconfig=cfg.optimizer.pconfig,
-                     grad_clip=dict(cfg.grad_clip),
-                     frozen_mask=path_prefix_mask(
-                         named, model.visual.frozen_param_paths()))
-    state = new_train_state(model=model, opt_state=tx.init(named))
-    step = make_train_step(model, tx, cfg, sched)
+    tx, state, step, batch = clip_train_step(cfg, model)
     no_read = step_without_read(make_loss_fn(cfg), tx, dict(cfg.grad_clip))
-    rng = np.random.default_rng(SEED)
-    batch = {
-        "images": torch.from_numpy(rng.normal(
-            size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda(),
-        "tokens": torch.from_numpy(_tokens(rng, TRAIN_BATCH)).cuda()}
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in named.values())
     print(f"train: clip_vitb32 bf16, {n_params / 1e6:.1f} M fp32 params, "
@@ -2100,6 +2162,7 @@ def phase_train():
           f"{launches}, peak device memory {peak_mib:.0f} MiB", flush=True)
 
     breakdown = profile_steps(lambda: step(state, batch), 3, step_ms)
+    flops = step_flops(lambda: step(state, batch))  # after the counts
     print(f"train: device busy {breakdown['busy_ms']:.2f} ms/step, idle "
           f"share {breakdown['idle_share']:.1%}, K1 "
           f"{breakdown['k1_ms']:.2f} ms ({breakdown['k1_share']:.1%}), K2 "
@@ -2197,7 +2260,7 @@ def phase_train():
             "steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP_STEPS,
             "losses": losses, "history": history, "step_ms": step_ms,
             "host_step_ms": wall_s * 1e3 / TRAIN_STEPS,
-            "pairs_per_s": TRAIN_BATCH * 1e3 / step_ms,
+            "pairs_per_s": TRAIN_BATCH * 1e3 / step_ms, "flops": flops,
             "peak_device_mib": peak_mib, "setup_s": setup_s, **breakdown,
             "host_read_cost": read_cost,
             "fp32_loss": totals, "fp32_loss_rel_err": loss_err,
@@ -2666,6 +2729,7 @@ def phase_train_declip():
           f"{peak_mib:.0f} MiB", flush=True)
 
     breakdown = profile_steps(lambda: step(state, batch), 3, step_ms)
+    flops = step_flops(lambda: step(state, batch))  # after the counts
     query = torch.nn.functional.normalize(torch.randn(
         TRAIN_BATCH, 1024, device="cuda", generator=torch.Generator(
             device="cuda").manual_seed(SEED)), dim=-1).to(torch.bfloat16)
@@ -2761,7 +2825,7 @@ def phase_train_declip():
             "warmup_steps": TRAIN_WARMUP_STEPS, "losses": losses,
             "history": history, "step_ms": step_ms,
             "host_step_ms": wall_s * 1e3 / DECLIP_TRAIN_STEPS,
-            "pairs_per_s": TRAIN_BATCH * 1e3 / step_ms,
+            "pairs_per_s": TRAIN_BATCH * 1e3 / step_ms, "flops": flops,
             "peak_device_mib": peak_mib, "setup_s": setup_s, **breakdown,
             "bank_query_ms": bank_ms, "bank_query_kernels": bank_kernels,
             "pooled_query_calls": plain.cross,
@@ -4567,15 +4631,20 @@ def phase_dp_two_ranks(tmp, backend="gloo"):
     return out
 
 
-def phase_data_parallel(solver_result, tmp, corpus):
-    """Phase 11: 11a, 11b (with phase 7's CLI evaluation beside it) and
-    11c."""
+def phase_data_parallel(solver_result, tmp, corpus, tools_result):
+    """Phase 11: 11a, 11b (with phase 7's CLI evaluation and phase 14's
+    exports beside it) and 11c -> (its result, the exports still to be
+    read by :func:`phase_serving_exports`)."""
     import torch
 
     out = {"launcher": phase_dp_launcher(solver_result, tmp, corpus)}
     cli = start_solver_cli(solver_result, tmp)
+    exports = start_serving_exports(tools_result)
     try:
         out["gloo_one_card"] = phase_dp_two_ranks(tmp, "gloo")
+    except BaseException:
+        stop_serving_exports(exports)
+        raise
     finally:
         finish_solver_cli(cli, solver_result)
     n = torch.cuda.device_count()
@@ -4586,7 +4655,7 @@ def phase_data_parallel(solver_result, tmp, corpus):
         print(f"phase 11c (NCCL at world {DP_WORLD}): not run, this "
               f"machine has {n} card(s) and NCCL refuses two ranks on one "
               f"device; not counted as passed", flush=True)
-    return out
+    return out, exports
 
 
 # ---------------------------------------------------------------- phase 12
@@ -5557,6 +5626,466 @@ def phase_ssl(tmp, corpus):
     return out
 
 
+# phase 14: the serving tools on phase 3's CLIP ViT-B/32 at full width, fp32
+TOOLS_BATCHES = (1, 8, 16)
+TOOLS_INT8_BATCHES = (1, 8)
+# an artifact against the live model, each row's max abs err over its norm
+# (the same kernels on the same inputs: what differs is only fusion order)
+EXPORT_REL_ERR = 1e-5
+# each row's cosine, int8 against fp32 (tests/test_quant.py:63-64's bound)
+INT8_COSINE = 0.995
+# the same int8 graph exported and live: activations that differ by fp32
+# rounding may flip a code
+INT8_ARTIFACT_COSINE = 0.9999
+# the H100 SXM5's dense bf16 tensor-core peak, NVIDIA's datasheet (at the
+# full 700 W; the card's power limit is printed beside every number)
+H100_BF16_DENSE_FLOPS = 989e12
+INFERENCE_IMAGES = 4
+INFERENCE_CLASSES = "cat,dog,car,tree"
+PROFILE_KEY = {"enable": True, "start_step": 3, "num_steps": 2}
+PROFILE_MAX_ITER = 5
+
+
+def int_mm_probe():
+    """What ``torch._int_mm`` takes on this card, shape by shape ({name:
+    "ok" or the error's first line}): the row count at 1, 16 and 17 with
+    the second operand row-major and column-major ("_t"), and an inner or
+    outer width off a multiple of 8. ops/quant.py pads every product to
+    what the card takes, its second operand column-major."""
+    import torch
+
+    shapes = {"m1": (1, 64, 64), "m16": (16, 64, 64), "m17": (17, 64, 64),
+              "m1_t": (1, 64, 64), "m16_t": (16, 64, 64),
+              "m17_t": (17, 64, 64), "k12_t": (32, 12, 64),
+              "n12_t": (32, 64, 12)}
+    out = {}
+    for name, (m, k, n) in shapes.items():
+        a = torch.ones(m, k, dtype=torch.int8, device="cuda")
+        b = (torch.ones(n, k, dtype=torch.int8, device="cuda").t()
+             if name.endswith("_t") else
+             torch.ones(k, n, dtype=torch.int8, device="cuda"))
+        try:
+            torch._int_mm(a, b)
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as e:
+            out[name] = str(e).strip().splitlines()[0][:160]
+    return out
+
+
+def _rows_cos(a, b):
+    import torch
+
+    return torch.nn.functional.cosine_similarity(a.double(), b.double(),
+                                                 dim=-1)
+
+
+def _serve_requests(host, rng):
+    """One compute thread and the HTTP front end on ``host``; one-row
+    requests one after another (5 images and 10 texts, their latencies;
+    an image request is mostly its JSON codec, phase 3), then
+    batched ones (4 concurrent 2-row image requests, a 5-row text
+    request). -> {"batches", "launches", "client_ms", "stats"}; K1
+    launches 12 a batch or the phase fails."""
+    import numpy as np
+
+    from declip_tpu_torch.ops.flash_attention import flash_attention
+
+    stop = threading.Event()
+    compute = threading.Thread(target=host.batcher.run_forever, args=(stop,),
+                               daemon=True)
+    compute.start()
+    url = f"http://127.0.0.1:{host.start_http('127.0.0.1', 0)}"
+    b0, l0 = host.batcher.stats["batches"], flash_attention.launches
+
+    def images(n):
+        return rng.normal(size=(n, 224, 224, 3)).astype(np.float32)
+
+    try:
+        lat = {"image": [], "text": []}
+        for i in range(10):
+            for kind, payload in (
+                    ("image", {"arrays": images(1).tolist()} if i < 5
+                     else None),
+                    ("text", {"tokens": _tokens(rng, 1).tolist()})):
+                if payload is None:
+                    continue
+                t = time.perf_counter()
+                _check_embeddings(_post(url, f"/v1/encode_{kind}", payload),
+                                  1)
+                lat[kind].append((time.perf_counter() - t) * 1e3)
+        for out in _concurrent(url, "/v1/encode_image",
+                               [{"arrays": images(2).tolist()}
+                                for _ in range(4)]):
+            _check_embeddings(out, 2)
+        _check_embeddings(_post(url, "/v1/encode_text",
+                                {"tokens": _tokens(rng, 5).tolist()}), 5)
+        stats = host.stats()
+    finally:
+        stop.set()
+        host.shutdown()
+        compute.join(timeout=30)
+    check(not compute.is_alive(), "compute thread did not stop")
+    batches = host.batcher.stats["batches"] - b0
+    launches = flash_attention.launches - l0
+    check(launches == 12 * batches,
+          f"{launches} K1 launches for {batches} batches (want 12 a batch)")
+    client = {k: {"p50_ms": float(np.percentile(v, 50)),
+                  "p95_ms": float(np.percentile(v, 95))}
+              for k, v in lat.items()}
+    return {"batches": batches, "launches": launches, "client_ms": client,
+            "latency_ms": stats["latency_ms"],
+            "mean_rows_per_batch": stats.get("mean_rows_per_batch")}
+
+
+def _tools_inputs():
+    """Phase 14's seeded tower inputs on the card, {(kind, B): rows} for
+    B in TOOLS_BATCHES, the same in both of its parts, and the generator
+    after them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    inputs = {}
+    for kind in ("image", "text"):
+        for b in TOOLS_BATCHES:
+            rows = (rng.normal(size=(b, 224, 224, 3)).astype(np.float32)
+                    if kind == "image" else _tokens(rng, b))
+            inputs[(kind, b)] = torch.from_numpy(rows).cuda()
+    return inputs, rng
+
+
+def phase_serving_tools(tmp, corpus, slice_result, train_result,
+                        declip_result):
+    """Phase 14's first part, on weights drawn from the seed once and
+    saved as the experiment's checkpoint, which every tool then loads:
+    (b) int8 live against fp32 and its ms beside fp32's (phase 3's);
+    (d) ``tools.inference --saliency`` on phase 7's JPEGs, K2 in fp32 12
+    times an image; (e) the FLOPs of phases 4 and 6's steps and an MFU
+    from their step times; (f) the solver's ``profile`` key, whose trace
+    must hold K1's kernel. The exports run beside phase 11b
+    (:func:`start_serving_exports`), and what reads them after it
+    (:func:`phase_serving_exports`)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch import solver as solver_mod
+    from declip_tpu_torch.data.dataset import pil_loader
+    from declip_tpu_torch.data.transforms import build_common_augmentation
+    from declip_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from declip_tpu_torch.ops.quant import int8_inference
+    from declip_tpu_torch.tools import inference
+    from declip_tpu_torch.tools._common import load_eval_model
+
+    exp = os.path.join(tmp, "exp_serving")
+    os.makedirs(os.path.join(exp, "checkpoints"))
+    cfg = os.path.join(exp, "config.yaml")
+    with open(cfg, "w") as f:
+        f.write(CONFIG)
+    out = {"exp": exp, "config": cfg, "int_mm": int_mm_probe(),
+           "part_s": {}}
+    print(f"phase 14: torch._int_mm on this card: {out['int_mm']}",
+          flush=True)
+    part_t = time.perf_counter()
+
+    def part(name):
+        nonlocal part_t
+        now = time.perf_counter()
+        out["part_s"][name] = now - part_t
+        part_t = now
+
+    # the seeded weights once, saved where the tools look for a trained
+    # experiment's (the newest checkpoints/ckpt*.pth.tar), so that each
+    # tool below reads them instead of drawing 151 M weights again
+    model = load_eval_model(cfg, "cuda")
+    torch.save({"model": {k: v.cpu() for k, v in
+                          model.state_dict().items()}},
+               os.path.join(exp, "checkpoints", "ckpt.pth.tar"))
+    part("setup")
+    reset_launches()  # main path starts
+    live = {"image": model.encode_image, "text": model.encode_text}
+    inputs, _ = _tools_inputs()
+
+    # (b) int8 live against fp32; its ms beside phase 3's fp32 towers
+    out["int8"] = {}
+    for kind in live:
+        for b in TOOLS_INT8_BATCHES:
+            x = inputs[(kind, b)]
+
+            def live_int8(kind=kind, x=x):
+                with int8_inference():
+                    return live[kind](x)
+
+            with torch.no_grad():
+                fp32, int8 = live[kind](x), live_int8()
+                cos = _rows_cos(int8, fp32).min().item()
+                moved = ((int8 - fp32).abs().max()
+                         / fp32.abs().max()).item()
+                ms = {"int8": cuda_ms(live_int8, 10, 2)}
+                busy = {"int8": device_ms(live_int8, 5)[0]}
+            ref = slice_result["tower_ms"][b][kind]
+            ms["fp32"], busy["fp32"] = ref["wall_ms"], ref["busy_ms"]
+            check(cos > INT8_COSINE,
+                  f"int8 {kind} B={b}: cosine {cos} (limit {INT8_COSINE})")
+            check(moved > 1e-4, f"int8 {kind} B={b}: moved the output by "
+                                f"{moved:.3g} of its max only")
+            out["int8"][f"{kind}_b{b}"] = {"cosine": {"int8": cos},
+                                           "moved": moved, "ms": ms,
+                                           "device_ms": busy}
+            print(f"phase 14b: {kind} B={b}: cosine {cos}, ms (CUDA "
+                  f"events) {ms}, device ms {busy}", flush=True)
+    part("b")
+
+    # (d) tools/inference.py with saliency maps on phase 7's JPEGs
+    img_dir = os.path.join(tmp, "inference_images")
+    os.makedirs(img_dir)
+    for src in sorted(glob.glob(os.path.join(corpus["root"], "train",
+                                             "*.jpg")))[:INFERENCE_IMAGES]:
+        shutil.copy(src, img_dir)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    t = time.perf_counter()
+    jsonl = inference.main(["--config", cfg, "--image_dir", img_dir,
+                            "--classes", INFERENCE_CLASSES, "--out",
+                            os.path.join(tmp, "inference.jsonl"),
+                            "--saliency"])
+    inference_s = time.perf_counter() - t
+    k1 = flash_attention.launches - before[0]
+    k2 = flash_attention_bwd.launches - before[1]
+    check((k1, k2) == (12 + 24 * INFERENCE_IMAGES, 12 * INFERENCE_IMAGES),
+          f"inference: {k1} K1 and {k2} K2 launches (want "
+          f"{12 + 24 * INFERENCE_IMAGES} and {12 * INFERENCE_IMAGES})")
+    with open(jsonl) as f:
+        recs = [json.loads(line) for line in f]
+    classes = INFERENCE_CLASSES.split(",")
+    class_emb = inference.class_embeddings(model, classes,
+                                           torch.device("cuda"))
+    crop = build_common_augmentation("ONECROP")
+    prob_err, sal_max = 0.0, []
+    check(len(recs) == INFERENCE_IMAGES, f"{len(recs)} inference records")
+    for rec in recs:
+        with open(os.path.join(img_dir, rec["filename"]), "rb") as f:
+            x = torch.from_numpy(np.asarray(crop(pil_loader(f.read())),
+                                            np.float32)[None]).cuda()
+        with torch.no_grad():
+            e = model.encode_image(x)
+            e = e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+            want = torch.softmax(100.0 * (e @ class_emb.T)[0], -1).cpu()
+        got = torch.tensor([rec["probs"][c] for c in classes])
+        prob_err = max(prob_err, (got - want).abs().max().item())
+        sal = np.load(rec["saliency"])
+        check(sal.shape == (224, 224) and np.isfinite(sal).all()
+              and sal.max() > 0, f"saliency {sal.shape} max {sal.max()}")
+        sal_max.append(float(sal.max()))
+    check(prob_err <= 1e-5, f"inference probabilities {prob_err:.3g} from "
+                            f"the live model's zero-shot (limit 1e-5)")
+    out["inference"] = {"seconds": inference_s, "k1": k1, "k2": k2,
+                        "prob_max_abs_err": prob_err,
+                        "saliency_max": sal_max}
+    print(f"phase 14d: inference {out['inference']}", flush=True)
+    del model, live, inputs
+    torch.cuda.empty_cache()
+    part("d")
+
+    # (e) FLOPs a step, and the MFU of phases 4 and 6's step times
+    out["flops"] = {}
+    for name, res in (("clip_vitb32_bf16_b128", train_result),
+                      ("declip_r50_bf16_b128", declip_result)):
+        fl = res["flops"]
+        out["flops"][name] = {
+            "flops": fl["total"], "kernels_share": fl["kernels_share"],
+            "kernels_by_op": {k: v for k, v in fl["by_operator"].items()
+                              if k.startswith("declip_tpu_torch.")},
+            "step_ms": res["step_ms"],
+            "mfu": fl["total"] / (res["step_ms"] / 1e3)
+            / H100_BF16_DENSE_FLOPS}
+        print(f"phase 14e: {name}: {fl['total'] / 1e12:.3f} TFLOP a step "
+              f"(K1-K5 {fl['kernels_share']:.1%}), {res['step_ms']:.2f} "
+              f"ms a step, MFU {out['flops'][name]['mfu']:.1%} of the "
+              f"H100 SXM5's 989 TFLOP/s dense bf16 (NVIDIA's datasheet)",
+              flush=True)
+
+    # (f) the solver's profile key
+    cfg_path, sets = solver_experiment(tmp, "exp_profile", corpus,
+                                       SIGLIP_RECIPE, save_freq=0)
+    solver_mod.main(["--config", cfg_path, "--device", "cuda", "--set",
+                     *sets, f"lr_scheduler.kwargs.max_iter="
+                     f"{PROFILE_MAX_ITER}", "data.test=[]",
+                     "profile=" + json.dumps(PROFILE_KEY)])
+    traces = glob.glob(os.path.join(os.path.dirname(cfg_path), "events",
+                                    "profile", "*.pt.trace.json"))
+    check(len(traces) == 1, f"profile traces: {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1_names = sorted({n for n in kernels if "flash_attn_fwd" in n})
+    check(k1_names, f"the trace holds no K1 kernel among {len(kernels)} "
+                    f"device kernels")
+    out["profile"] = {"trace_mib": os.path.getsize(traces[0]) / 2 ** 20,
+                      "device_kernels": len(kernels),
+                      "k1_events": sum("flash_attn_fwd" in n
+                                       for n in kernels),
+                      "k1_names": k1_names}
+    out["launches"] = read_launches()  # main path ends
+    part("e_f")
+    print(f"phase 14f: profile trace {out['profile']}; launches "
+          f"{out['launches']}; seconds by part {out['part_s']}", flush=True)
+    return out
+
+
+def start_serving_exports(tools):
+    """Phase 14's exports, started: ``python -m declip_tpu_torch.tools.
+    convert --export-serving`` with a symbolic batch, fp32 and
+    ``--quantize int8``, each in a process of its own as a user runs it
+    (``main`` runs them beside phase 11b, whose times are no performance
+    numbers) -> {name: (process, log, start)}."""
+    pending = {}
+    for name, extra in (("fp32", []), ("int8", ["--quantize", "int8"])):
+        log = open(os.path.join(tools["exp"], f"export_{name}.log"), "w")
+        argv = [sys.executable, "-m", "declip_tpu_torch.tools.convert",
+                "--export-serving", "--config", tools["config"], "--out",
+                os.path.join(tools["exp"], name), *extra]
+        pending[name] = (subprocess.Popen(
+            argv, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [ROOT, os.environ.get("PYTHONPATH", "")]))),
+            log, time.perf_counter())
+    return pending
+
+
+def stop_serving_exports(pending):
+    """Kills what is left of ``start_serving_exports``' processes."""
+    for proc, log, _ in (pending or {}).values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def phase_serving_exports(tools, pending, slice_result):
+    """Phase 14's second part, after phase 11b: (a) the two exports'
+    seconds (each process's wall time, beside 11b) and MiB, each artifact
+    loaded with ``torch.export.load`` at B = 1, 8, 16 against the live
+    model, 12 K1 launches a tower call; (b) the int8 artifact against
+    fp32 and against the live int8, and both artifacts' ms a call;
+    (c) ``serve --exported`` and ``serve --int8`` hosts over HTTP."""
+    import torch
+
+    from declip_tpu_torch.ops.flash_attention import flash_attention
+    from declip_tpu_torch.ops.quant import int8_inference
+    from declip_tpu_torch.tools import convert
+    from declip_tpu_torch.tools._common import load_eval_model
+    from declip_tpu_torch.tools.serve import ServingHost
+
+    exp, cfg = tools["exp"], tools["config"]
+    out = {"export_s": {}, "artifact_mib": {}, "part_s": {}}
+    t0 = time.perf_counter()
+    deadline = t0 + 600
+    try:
+        while len(out["export_s"]) < len(pending):
+            check(time.perf_counter() < deadline,
+                  f"exports still running: {sorted(pending)}")
+            for name, (proc, _, start) in pending.items():
+                if name not in out["export_s"] and proc.poll() is not None:
+                    out["export_s"][name] = time.perf_counter() - start
+            time.sleep(0.1)
+    finally:
+        stop_serving_exports(pending)
+    for name, (proc, log, _) in pending.items():
+        with open(log.name) as f:
+            text = f.read()
+        check(proc.returncode == 0,
+              f"convert --export-serving ({name}): rc {proc.returncode}, "
+              f"output {text[-3000:]}")
+        out["artifact_mib"][name] = {
+            fname: os.path.getsize(os.path.join(exp, name, fname)) / 2 ** 20
+            for fname in convert.ARTIFACTS.values()}
+    print(f"phase 14a: exported in {out['export_s']} s (each process's "
+          f"wall time, beside phase 11b), {out['artifact_mib']} MiB",
+          flush=True)
+    out["part_s"]["wait"] = time.perf_counter() - t0
+
+    model = load_eval_model(cfg, "cuda")
+    reset_launches()  # main path starts
+    arts = {name: {kind: torch.export.load(os.path.join(
+        exp, name, fname)).module()
+        for kind, fname in convert.ARTIFACTS.items()}
+        for name in pending}
+    live = {"image": model.encode_image, "text": model.encode_text}
+    inputs, rng = _tools_inputs()
+    out["export_rel_err"] = {}
+    with torch.no_grad():
+        for (kind, b), x in inputs.items():
+            l0 = flash_attention.launches
+            got = arts["fp32"][kind](x)
+            check(flash_attention.launches - l0 == 12,
+                  f"{kind} artifact B={b}: "
+                  f"{flash_attention.launches - l0} K1 launches (want 12)")
+            want = live[kind](x)
+            err = ((got - want).abs().amax(-1)
+                   / torch.linalg.vector_norm(want, dim=-1)).max().item()
+            out["export_rel_err"][f"{kind}_b{b}"] = err
+            check(got.shape == want.shape == (b, 512) and
+                  err <= EXPORT_REL_ERR,
+                  f"{kind} artifact B={b}: {err:.3g} of the row norm "
+                  f"(limit {EXPORT_REL_ERR})")
+    print(f"phase 14a: artifacts against the live model, max abs err over "
+          f"the row norm: {out['export_rel_err']}", flush=True)
+    out["part_s"]["a"] = time.perf_counter() - t0
+
+    # (b) the int8 artifact against fp32 and the live int8; ms a call
+    out["int8"] = {}
+    for kind in live:
+        for b in TOOLS_INT8_BATCHES:
+            x = inputs[(kind, b)]
+            with torch.no_grad():
+                fp32 = live[kind](x)
+                with int8_inference():
+                    int8 = live[kind](x)
+                exported = arts["int8"][kind](x)
+                cos = {"exported_int8": _rows_cos(exported, fp32).min()
+                       .item(),
+                       "exported_vs_live_int8": _rows_cos(exported, int8)
+                       .min().item()}
+                ms = {name: cuda_ms(lambda name=name, kind=kind, x=x:
+                                    arts[name][kind](x), 10, 2)
+                      for name in arts}
+            check(cos["exported_int8"] > INT8_COSINE,
+                  f"int8 artifact {kind} B={b}: cosine {cos} (limit "
+                  f"{INT8_COSINE})")
+            check(cos["exported_vs_live_int8"] >= INT8_ARTIFACT_COSINE,
+                  f"int8 {kind} B={b}: artifact against live {cos}")
+            out["int8"][f"{kind}_b{b}"] = {"cosine": cos, "ms": ms}
+            print(f"phase 14b: artifacts, {kind} B={b}: cosine {cos}, ms "
+                  f"(CUDA events) {ms}", flush=True)
+    out["part_s"]["b"] = time.perf_counter() - t0
+
+    # (c) the two new hosts over HTTP
+    out["serve"] = {}
+    for name, make in (
+            ("exported", lambda: ServingHost.from_exported(
+                os.path.join(exp, "fp32"), device="cuda", max_batch=16,
+                max_wait_ms=20.0)),
+            ("int8", lambda: ServingHost.from_config(
+                cfg, device="cuda", int8=True, max_batch=16,
+                max_wait_ms=20.0))):
+        host = make()
+        check(host.meta["input_resolution"] == 224, f"{host.meta}")
+        out["serve"][name] = _serve_requests(host, rng)
+        print(f"phase 14c: serve {name}: {out['serve'][name]}", flush=True)
+    del model, arts, live, inputs
+    torch.cuda.empty_cache()
+    out["launches"] = read_launches()  # main path ends
+    out["part_s"]["c"] = time.perf_counter() - t0
+    print(f"phase 14c: launches {out['launches']}; seconds since 11b "
+          f"{out['part_s']}", flush=True)
+    return out
+
+
 def _path_sums(rows, cases, dtype_name, prefix=""):
     """Each time summed over the path's shapes in one dtype; the path is
     bound by what bounds its largest bound."""
@@ -5622,7 +6151,7 @@ def _li_entries(li_rows, li_paths, k3_eval):
 def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                  train_result, filip_result, declip_result, solver_result,
                  fast_result, methods_result, solver_methods_result,
-                 last_result, ssl_result):
+                 last_result, ssl_result, tools_result):
     """One entry per kernel. K1 is on every path: its launches are the sum
     over the paths, each counted from 0 around it; its times are the
     serving path's (the sum over its two shapes, image L=50 and text L=77
@@ -5637,7 +6166,9 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
     input path; phase 10's DeFILIP and SLIP-R50; phase 12's SigLIP and
     DeCLIP-88M recipes, its fp32 loss-kind steps and its bf16 steps with
     and without GradCache; phase 13's MoCo, SimCLR and CLSA ViT-B/32
-    steps) add to the launches."""
+    steps) add to the launches, and so does phase 14's serving tools (the
+    artifacts, int8, the two hosts, inference with saliency, the profiled
+    solver run)."""
     serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
     k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
     k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
@@ -5664,9 +6195,11 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                 for name, r in ssl_result["train"].items()}}
     k1_paths = {"serve": slice_result["launches"],
                 "train": train_result["launches"],
-                **{p: n["K1"] for p, n in paths.items()}}
+                **{p: n["K1"] for p, n in paths.items()},
+                "serving_tools": tools_result["launches"]["K1"]}
     k2_paths = {"train": train_result["bwd_launches"],
-                **{p: n["K2"] for p, n in paths.items()}}
+                **{p: n["K2"] for p, n in paths.items()},
+                "serving_tools": tools_result["launches"]["K2"]}
     li_paths = {p: n for p, n in paths.items()
                 if any(n[k] for k in ("K3", "K4", "K5"))}
     return {"kernels": [{
@@ -5730,6 +6263,7 @@ def main():
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_solver_")
+    exports = None
     try:
         card, corpus, pending = timed("build", phase_card_and_build, tmp)
         rows = timed("kernels", phase_kernel_vs_plain)
@@ -5742,6 +6276,11 @@ def main():
         train_result = timed("train", phase_train)
         filip_result = timed("train_filip", phase_train_filip)
         declip_result = timed("train_declip", phase_train_declip)
+        # phase 14 runs here, early: late in a full run the profiler once
+        # saw no device events (PERF.md), and its trace check needs them
+        tools_result = timed("serving_tools", phase_serving_tools, tmp,
+                             corpus, slice_result, train_result,
+                             declip_result)
         solver_result = timed("solver", phase_solver, declip_result,
                               tmp, corpus)
         fast_result = timed("fast_input", phase_fast_input,
@@ -5754,17 +6293,25 @@ def main():
                                       phase_solver_methods, tmp, corpus)
         probe["after_phase_10"] = profiler_sees_device()
         print(f"the profiler sees device events: {probe}", flush=True)
-        dp_result = timed("data_parallel", phase_data_parallel,
-                          solver_result, tmp, corpus)
+        dp_result, exports = timed("data_parallel", phase_data_parallel,
+                                   solver_result, tmp, corpus, tools_result)
+        late = timed("serving_exports", phase_serving_exports,
+                     tools_result, exports, slice_result)
+        exports = None
+        tools_result = {"first": tools_result, "exports": late,
+                        "launches": {k: v + late["launches"][k] for k, v
+                                     in tools_result["launches"].items()}}
         last_result = timed("last_configs", phase_last_configs, tmp, corpus,
                             train_result)
         ssl_result = timed("ssl", phase_ssl, tmp, corpus)
     finally:
+        stop_serving_exports(exports)
         shutil.rmtree(tmp, ignore_errors=True)
     line = kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                         train_result, filip_result, declip_result,
                         solver_result, fast_result, methods_result,
-                        solver_methods_result, last_result, ssl_result)
+                        solver_methods_result, last_result, ssl_result,
+                        tools_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "hmma": hmma,
@@ -5779,6 +6326,7 @@ def main():
                    "solver_methods": solver_methods_result,
                    "data_parallel": dp_result,
                    "last_configs": last_result, "ssl": ssl_result,
+                   "serving_tools": tools_result,
                    "kernels": line["kernels"], "phase_s": PHASE_S,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")
@@ -5790,7 +6338,220 @@ def main():
     return 0
 
 
+def time_train_step(argv):
+    """``python3 chip_smoke.py --time-step [--root DIR] [--tag T]``: phase
+    4's training step alone (CLIP ViT-B/32, bf16, B=128; built by
+    :func:`build_clip` and :func:`clip_train_step`) with the
+    ``declip_tpu_torch`` of the checkout ``--root`` (default: this one),
+    so that two trees are compared in turns, one process each, on one
+    card. 3 warm-up steps, then 5 rounds of 20 steps: each round's ms a
+    step by CUDA events, by the host's clock (the round ends in a
+    synchronise) and in the process's CPU time (all its threads: less
+    moved than the clock by other work on a shared host), and the time
+    the host spent in Python's garbage collector, by generation; then 3 steps under ``torch.profiler`` with
+    CPU activity alone, whose 25 largest operators by self CPU time are
+    printed; then the host's cost of one ``flash_attention`` call without
+    a gradient at [1, 1, 16, 64] bf16 (a few microseconds of kernel),
+    over 2000 calls; then the serving path's one-row latency, each fp32
+    tower of the same model called alone (p50 and p95 of 50 calls). In a
+    tree whose K1 and K2 are registered operators (``ops/_oplib.py``), the
+    step (8 rounds of 10) and the one-row image tower (8 rounds of 20) are
+    also timed in this one process through the operators and through
+    direct calls of their CUDA implementations, rounds alternated. The
+    last line is one JSON object."""
+    import argparse
+    import gc
+
+    import numpy as np
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --time-step")
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose declip_tpu_torch is timed")
+    ap.add_argument("--tag", default="", help="a label for the JSON line")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    import declip_tpu_torch
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.ops.flash_attention import flash_attention
+
+    pkg = os.path.dirname(os.path.abspath(declip_tpu_torch.__file__))
+    check(os.path.dirname(pkg) == root,
+          f"declip_tpu_torch came from {pkg}, not from {root}")
+    check(torch.cuda.is_available(), "--time-step times the card's step")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cfg = parse_config(TRAIN_CONFIG)
+    model = build_clip(cfg, cfg.precision.dtype)
+    _, state, step, batch = clip_train_step(cfg, model)
+
+    def run(n):
+        out = [step(state, batch)[1]["loss"] for _ in range(n)]
+        return float(out[-1])
+
+    gc_ms = {0: 0.0, 1: 0.0, 2: 0.0}
+    gc_n = {0: 0, 1: 0, 2: 0}
+    gc_t = {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t["t"] = time.perf_counter()
+        elif "t" in gc_t:
+            gc_ms[info["generation"]] += (time.perf_counter()
+                                          - gc_t.pop("t")) * 1e3
+            gc_n[info["generation"]] += 1
+
+    run(3)
+    torch.cuda.synchronize()
+    gc.callbacks.append(on_gc)
+    rounds = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0, c0 = time.perf_counter(), time.process_time()
+        start.record()
+        loss = run(20)
+        end.record()
+        end.synchronize()
+        rounds.append({"step_ms": start.elapsed_time(end) / 20,
+                       "host_ms": (time.perf_counter() - t0) * 1e3 / 20,
+                       "cpu_ms": (time.process_time() - c0) * 1e3 / 20,
+                       "loss": loss})
+        print(f"{args.tag} B={TRAIN_BATCH}: {rounds[-1]['step_ms']:.3f} "
+              f"ms/step (CUDA events), host {rounds[-1]['host_ms']:.3f}, "
+              f"CPU time {rounds[-1]['cpu_ms']:.3f}", flush=True)
+    gc.callbacks.remove(on_gc)
+    gc_info = {"ms_a_step": {g: v / 100 for g, v in gc_ms.items()},
+               "collections": gc_n, "tracked_objects": len(gc.get_objects()),
+               "modules": len(sys.modules),
+               "torch_dynamo_imported": "torch._dynamo" in sys.modules}
+    print(f"{args.tag}: garbage collection over the 100 steps {gc_info}",
+          flush=True)
+    fa_mod = sys.modules["declip_tpu_torch.ops.flash_attention"]
+    # a tree whose K1/K2 are registered operators: each call through the
+    # operator against a direct call of its CUDA implementation (the
+    # launch alone, as before the registration), in this one process,
+    # rounds alternated, so the host's drift between processes drops out
+    registered = hasattr(fa_mod, "_fwd_cuda")
+    routes = {"op": (fa_mod.flash_attn_fwd_op, fa_mod.flash_attn_bwd_op),
+              "direct": (fa_mod._fwd_cuda, fa_mod._bwd_cuda)} \
+        if registered else {}
+
+    def route(name):
+        fa_mod.flash_attn_fwd_op, fa_mod.flash_attn_bwd_op = routes[name]
+
+    def alternated(fn, rounds):
+        """-> {route: [fn()'s value each round]}, op/direct in ABBA order,
+        the operator route restored at the end."""
+        out = {"op": [], "direct": []}
+        for i in range(rounds):
+            order = ("op", "direct") if i % 2 == 0 else ("direct", "op")
+            for name in order:
+                route(name)
+                out[name].append(fn())
+        route("op")
+        return out
+
+    def step_round():
+        run(2)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(10)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 10
+
+    step_ab = alternated(step_round, 8) if registered else None
+    if step_ab:
+        print(f"{args.tag}: in one process, ms a step through the "
+              f"operators {[round(t, 2) for t in step_ab['op']]}, through "
+              f"direct calls {[round(t, 2) for t in step_ab['direct']]}",
+              flush=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run(3)
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                 reverse=True)[:25]
+    host_ops = [{"name": e.key, "calls": e.count,
+                 "self_cpu_ms_a_step": e.self_cpu_time_total / 3e3,
+                 "cpu_ms_a_step": e.cpu_time_total / 3e3} for e in top]
+    print(f"{args.tag}: host profile, 3 steps, by self CPU time a step:")
+    for op in host_ops:
+        print(f"  {op['self_cpu_ms_a_step']:8.3f} ms self "
+              f"{op['cpu_ms_a_step']:8.3f} total {op['calls'] // 3:5d} "
+              f"calls  {op['name'][:90]}")
+    q = torch.randn(1, 1, 16, 64, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        for _ in range(100):
+            flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            flash_attention(q, q, q)
+        torch.cuda.synchronize()
+    call_us = (time.perf_counter() - t0) * 1e6 / 2000
+    print(f"{args.tag}: flash_attention without a gradient, [1, 1, 16, 64] "
+          f"bf16: {call_us:.2f} us a call on the host", flush=True)
+    del state, step, model
+    torch.cuda.empty_cache()
+    # the serving path's one-row latency: each tower of the same model in
+    # fp32 (phase 3's towers), one call at a time, each synchronised
+    model = build_clip(cfg, "float32").eval()
+    rng = np.random.default_rng(SEED)
+    one_row = {"image": (model.encode_image, torch.from_numpy(rng.normal(
+                   size=(1, 224, 224, 3)).astype(np.float32)).cuda()),
+               "text": (model.encode_text,
+                        torch.from_numpy(_tokens(rng, 1)).cuda())}
+    tower_ms = {}
+    with torch.no_grad():
+        for kind, (tower, x) in one_row.items():
+            times = []
+            for i in range(60):
+                t0 = time.perf_counter()
+                tower(x)
+                torch.cuda.synchronize()
+                if i >= 10:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            tower_ms[kind] = {"p50_ms": float(np.percentile(times, 50)),
+                              "p95_ms": float(np.percentile(times, 95))}
+    print(f"{args.tag}: one-row fp32 tower call, host wall: {tower_ms}",
+          flush=True)
+
+    def one_row_round():
+        tower, x = one_row["image"]
+        t0 = time.perf_counter()
+        for _ in range(20):
+            tower(x)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 20
+
+    with torch.no_grad():
+        row_ab = alternated(one_row_round, 8) if registered else None
+    if row_ab:
+        print(f"{args.tag}: in one process, one-row fp32 image tower ms a "
+              f"call through the operators "
+              f"{[round(t, 3) for t in row_ab['op']]}, through direct "
+              f"calls {[round(t, 3) for t in row_ab['direct']]}",
+              flush=True)
+    print(card)
+    print(json.dumps({"tag": args.tag, "root": root, "card": card,
+                      "batch": TRAIN_BATCH, "steps": 20, "rounds": rounds,
+                      "gc": gc_info, "host_ops": host_ops,
+                      "k1_call_us": call_us, "one_row_ms": tower_ms,
+                      "step_ms_op_vs_direct": step_ab,
+                      "one_row_image_ms_op_vs_direct": row_ab}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-step"]:
+        sys.exit(time_train_step(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase-11a-rank"]:
         sys.exit(dp_launcher_rank(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--phase-11b-rank"]:

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from declip_tpu_torch.ops import quant
 from declip_tpu_torch.ops.attention import (
     dot_product_attention,
     merge_heads,
@@ -88,7 +89,12 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
 def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to the
-    compute dtype, the product in that dtype (fp32 accumulation)."""
+    compute dtype, the product in that dtype (fp32 accumulation). Inside
+    ``ops.quant.int8_inference`` the product runs in int8 where both
+    widths reach its ``min_dim``, as every Dense of the JAX package does
+    under its interceptor."""
+    if quant.routes(x, weight.shape[0]):
+        return quant.int8_dense(x, weight, bias, dtype)
     return F.linear(x.to(dtype), weight.to(dtype),
                     None if bias is None else bias.to(dtype))
 

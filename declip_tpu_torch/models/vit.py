@@ -25,6 +25,7 @@ from declip_tpu_torch.models.layers import (
     as_dtype,
     lecun_normal_,
 )
+from declip_tpu_torch.ops import quant
 
 
 class PatchEmbed(nn.Module):
@@ -32,7 +33,9 @@ class PatchEmbed(nn.Module):
     space-to-depth reshape plus one matmul, as the JAX package does it
     (vit.py:74-84). Identical to the strided conv for kernel == stride, and
     a plain matmul in the compute dtype (fp32 stays fp32, where a cuDNN
-    ``Conv2d`` would run in TF32 by default on Hopper)."""
+    ``Conv2d`` would run in TF32 by default on Hopper). It is an
+    ``nn.Dense`` in the JAX package, so ``ops.quant.int8_inference`` routes
+    it through int8 too."""
 
     def __init__(self, width: int, patch_size: int, device=None):
         super().__init__()
@@ -51,8 +54,16 @@ class PatchEmbed(nn.Module):
         gh, gw = h // p, w // p
         x = x.reshape(b, gh, p, gw, p, 3).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, gh * gw, p * p * 3)
+        if quant.routes(x, self.weight.shape[0]):
+            return quant.int8_dense(x, self.weight, None, x.dtype,
+                                    matrix=self._kernel_t)
         kernel = self.weight.permute(2, 3, 1, 0).reshape(p * p * 3, -1)
         return x @ kernel.to(x.dtype)
+
+    def _kernel_t(self, weight: torch.Tensor) -> torch.Tensor:
+        """The conv-layout weight as the Dense's ``[width, p*p*3]``
+        matrix, rows of (py, px, channel) as the patches are flattened."""
+        return weight.permute(0, 2, 3, 1).reshape(weight.shape[0], -1)
 
 
 def resize_pos_grid(grid: torch.Tensor, gh: int, gw: int) -> torch.Tensor:

@@ -36,6 +36,20 @@ autograd gives d(scale) (filip_pallas.py:263). Through
   the kernels do not take (dtype, N2 > 128, D > 256, layout, and for K3
   a bf16 tensor that does not start on a 16-byte boundary). There is no
   fallback.
+
+The three kernels are registered operators, ``torch.ops.declip_tpu_torch.
+late_interaction_fwd``, ``late_interaction_bwd_d1`` and
+``late_interaction_bwd_d2`` (``ops/_oplib.py``): the CUDA
+implementation is the launch (:func:`late_interaction_fwd`,
+:func:`late_interaction_bwd_d1`, :func:`late_interaction_bwd_d2`, with
+their checks and launch counts), the CPU implementation the plain version,
+and each has a fake and a FLOP formula, which counts a multiply-add as two
+operations: K3 forms every similarity, 2*B*GB*N1*N2*D; K4 and K5 gather
+and scatter over the winners, one winner for each query token and key
+item (ties, which real-valued features meet with probability zero, are
+not counted), 2*B*N1*GB*D each. The plain versions of K4 and K5 multiply
+by a dense weight over all N2 key tokens, so a count through them would
+be N2 times higher: the formula counts what the kernel does.
 """
 
 from __future__ import annotations
@@ -47,7 +61,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from declip_tpu_torch.ops import _build
+from declip_tpu_torch.ops import _build, _oplib
 from declip_tpu_torch.ops.flash_attention import check_aligned
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -307,19 +321,58 @@ def late_interaction_bwd_d2(winners: torch.Tensor, d1: torch.Tensor,
     return out
 
 
+def _fwd_cpu(d1, d2):
+    return (late_interaction_raw_plain(d1, d2),
+            late_interaction_winners_plain(d1, d2))
+
+
+def _fwd_fake(d1, d2):
+    b, n1, gb, n2, _ = _dims(d1, d2)
+    return (d1.new_empty(b, gb, dtype=torch.float32),
+            d1.new_empty(b * n1, gb, _words(n2), dtype=torch.int32))
+
+
+def _fwd_flops(d1_shape, d2_shape, *args, **kwargs) -> int:
+    (b, n1, d), (gb, n2, _) = d1_shape, d2_shape
+    return 2 * b * gb * n1 * n2 * d
+
+
+def _bwd_flops(winners_shape, x_shape, g_shape, *args, **kwargs) -> int:
+    # one winner for each (query row, key item): B*N1*GB rows of D
+    return 2 * winners_shape[0] * g_shape[1] * x_shape[-1]
+
+
+# K3 -> (raw, winners)
+li_fwd_op = _oplib.define(
+    "late_interaction_fwd(Tensor d1, Tensor d2) -> (Tensor, Tensor)",
+    cuda=late_interaction_fwd, cpu=_fwd_cpu, fake=_fwd_fake,
+    flops=_fwd_flops)
+# K4 -> dd1
+li_bwd_d1_op = _oplib.define(
+    "late_interaction_bwd_d1(Tensor winners, Tensor d2, Tensor g) -> Tensor",
+    cuda=late_interaction_bwd_d1, cpu=late_interaction_bwd_d1_plain,
+    fake=lambda winners, d2, g: d2.new_empty(
+        g.shape[0], winners.shape[0] // g.shape[0], d2.shape[2]),
+    flops=_bwd_flops)
+# K5 -> dd2
+li_bwd_d2_op = _oplib.define(
+    "late_interaction_bwd_d2(Tensor winners, Tensor d1, Tensor g, int n2) "
+    "-> Tensor",
+    cuda=late_interaction_bwd_d2, cpu=late_interaction_bwd_d2_plain,
+    fake=lambda winners, d1, g, n2: d1.new_empty(g.shape[1], n2,
+                                                 d1.shape[2]),
+    flops=_bwd_flops)
+
+
 class _LateInteraction(torch.autograd.Function):
-    """The raw logits with their gradient: K3, K4 and K5 on CUDA tensors,
-    the plain versions of the same dataflow on CPU tensors
-    (filip_pallas.py:149-221's custom_vjp). The forward saves K3's winners;
-    the backward forms no similarity."""
+    """The raw logits with their gradient through the three operators: K3,
+    K4 and K5 on CUDA tensors, the plain versions of the same dataflow on
+    CPU tensors (filip_pallas.py:149-221's custom_vjp). The forward saves
+    K3's winners; the backward forms no similarity."""
 
     @staticmethod
     def forward(ctx, d1, d2):
-        if d1.device.type == "cpu":
-            raw = late_interaction_raw_plain(d1, d2)
-            winners = late_interaction_winners_plain(d1, d2)
-        else:
-            raw, winners = late_interaction_fwd(d1, d2)
+        raw, winners = li_fwd_op(d1, d2)
         ctx.save_for_backward(d1, d2, winners)
         return raw
 
@@ -329,13 +382,9 @@ class _LateInteraction(torch.autograd.Function):
         d1, d2, winners = ctx.saved_tensors
         g = g.float().contiguous()
         need_d1, need_d2 = ctx.needs_input_grad
-        if d1.device.type == "cpu":
-            bwd_d1, bwd_d2 = (late_interaction_bwd_d1_plain,
-                              late_interaction_bwd_d2_plain)
-        else:
-            bwd_d1, bwd_d2 = late_interaction_bwd_d1, late_interaction_bwd_d2
-        return (bwd_d1(winners, d2, g) if need_d1 else None,
-                bwd_d2(winners, d1, g, d2.shape[1]) if need_d2 else None)
+        return (li_bwd_d1_op(winners, d2, g) if need_d1 else None,
+                li_bwd_d2_op(winners, d1, g, d2.shape[1]) if need_d2
+                else None)
 
 
 def late_interaction_logits_kernel(d1: torch.Tensor, d2: torch.Tensor,

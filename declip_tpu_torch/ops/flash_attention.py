@@ -31,6 +31,19 @@ Where autograd needs a gradient, the call goes through ``_FlashAttention``
 (the ``jax.custom_vjp`` of the JAX package): the forward also keeps each
 row's log-sum-exp, and the backward is K2 on the card. Without a gradient
 (serving) K1 runs alone and writes no log-sum-exp.
+
+Both kernels are registered operators, ``torch.ops.declip_tpu_torch.
+flash_attn_fwd`` and ``flash_attn_bwd`` (``ops/_oplib.py``):
+the CUDA implementation is the launch (:func:`_forward_kernel`,
+:func:`flash_attention_bwd`, with their checks and launch counts), the
+CPU implementation the plain version, and each has a fake (shapes and
+dtypes) and a FLOP formula. So ``torch.export`` keeps K1 in a graph as one
+node, and ``torch.utils.flop_counter.FlopCounterMode`` counts each call
+by its formula, on the card and on the CPU alike. The formulas count a
+multiply-add as two operations and a masked (causal) product in full, as
+the plain version's matmuls are counted: K1 is two products of
+``B*H*L*L*Dh`` multiply-adds (QK^T, PV), 4*B*H*L^2*Dh; K2 is five (the
+recomputed scores, dV, dP, dQ, dK), 10*B*H*L^2*Dh, 2.5 times K1.
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from declip_tpu_torch.ops import _build
+from declip_tpu_torch.ops import _build, _oplib
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
@@ -66,6 +79,19 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(~_causal_keep(*s.shape[-2:], s.device), -1e30)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                        causal: bool = False,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """fp32 ``[B, H, Lq]``: each row's log-sum-exp of the masked fp32
+    scores, what K1 writes beside its output for K2."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_keep(*s.shape[-2:], s.device), -1e30)
+    return torch.logsumexp(s, dim=-1)
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -214,16 +240,73 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty(0, dtype=torch.float32)
+
+
+def _fwd_cuda(q, k, v, causal, scale, with_lse):
+    o, lse = _forward_kernel(q, k, v, causal, scale, with_lse)
+    return o, (lse if with_lse else _no_lse(q))
+
+
+def _fwd_cpu(q, k, v, causal, scale, with_lse):
+    o = attention_plain(q, k, v, causal, scale)
+    return o, (attention_lse_plain(q, k, causal, scale) if with_lse
+               else _no_lse(q))
+
+
+def _fwd_fake(q, k, v, causal, scale, with_lse):
+    return torch.empty_like(q), (q.new_empty(q.shape[:-1],
+                                             dtype=torch.float32)
+                                 if with_lse else _no_lse(q))
+
+
+def _bwd_cuda(q, k, v, o, lse, do, causal, scale):
+    return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                               scale=scale)
+
+
+def _bwd_cpu(q, k, v, o, lse, do, causal, scale):
+    # the plain version recomputes P from q and k: it reads neither o nor
+    # lse
+    return attention_bwd_plain(q, k, v, do, causal, scale)
+
+
+def _bwd_fake(q, k, v, o, lse, do, causal, scale):
+    return torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+
+
+def _attention_flops(q_shape) -> int:
+    """Multiply-adds times two of one ``[B, H, L, L] x Dh`` product."""
+    b, h, length, dh = q_shape
+    return 2 * b * h * length * length * dh
+
+
+# K1 -> (o, lse): lse fp32 [B, H, L] with with_lse, else an empty fp32
+# tensor
+flash_attn_fwd_op = _oplib.define(
+    "flash_attn_fwd(Tensor q, Tensor k, Tensor v, bool causal, float scale, "
+    "bool with_lse) -> (Tensor, Tensor)",
+    cuda=_fwd_cuda, cpu=_fwd_cpu, fake=_fwd_fake,
+    flops=lambda q_shape, *a, **kw: 2 * _attention_flops(q_shape))
+# K2 -> (dq, dk, dv)
+flash_attn_bwd_op = _oplib.define(
+    "flash_attn_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+    "Tensor do, bool causal, float scale) -> (Tensor, Tensor, Tensor)",
+    cuda=_bwd_cuda, cpu=_bwd_cpu, fake=_bwd_fake,
+    flops=lambda q_shape, *a, **kw: 5 * _attention_flops(q_shape))
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Self-attention with its gradient: K1 and K2 on CUDA tensors, the plain
-    versions on CPU tensors (flash_attention.py:141-193's custom_vjp)."""
+    """Self-attention with its gradient through the two operators: K1 and
+    K2 on CUDA tensors, the plain versions on CPU tensors
+    (flash_attention.py:141-193's custom_vjp). The CPU forward keeps no
+    log-sum-exp: the plain backward does not read it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        if q.device.type == "cpu":
-            o, lse = attention_plain(q, k, v, causal, scale), None
-        else:
-            o, lse = _forward_kernel(q, k, v, causal, scale, with_lse=True)
+        o, lse = flash_attn_fwd_op(q, k, v, causal, scale,
+                                   q.device.type != "cpu")
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -233,12 +316,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         # merge_heads transposes, so the incoming gradient is a strided view
-        do = do.contiguous()
-        if q.device.type == "cpu":
-            grads = attention_bwd_plain(q, k, v, do, ctx.causal, ctx.scale)
-        else:
-            grads = flash_attention_bwd(q, k, v, o, lse, do,
-                                        causal=ctx.causal, scale=ctx.scale)
+        grads = flash_attn_bwd_op(q, k, v, o, lse, do.contiguous(),
+                                  ctx.causal, ctx.scale)
         return (*grads, None, None)
 
 
@@ -254,9 +333,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, scale)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal, scale)
-    return _forward_kernel(q, k, v, causal, scale, with_lse=False)[0]
+    return flash_attn_fwd_op(q, k, v, causal, scale, False)[0]
 
 
 # launches of each CUDA kernel in this process (CPU calls do not count); one

@@ -52,8 +52,19 @@ SSL eval either).
 Not in the port yet, each raising when the Solver is built:
 ``parallelism`` (TP/PP/EP/FSDP/SP, multi-slice; ROADMAP.md item 1.10),
 and the orbax backend and ``gs://`` saves (TPU/pod-only in the JAX
-package). The JAX package's compile cache and profiler hook have no
-counterpart here.
+package). The JAX package's compile cache has no counterpart here.
+
+The ``profile`` key (``enable``, ``start_step`` 10, ``num_steps`` 5) traces
+on rank 0 with ``torch.profiler`` (the CPU, and CUDA where the solver runs
+on the card) into ``<event_path>/profile`` through
+``tensorboard_trace_handler``, in the window of the JAX package's
+``jax.profiler`` trace (declip_tpu/solver/__init__.py:618-649): from the
+step that takes the step count to ``start_step`` through the one that
+takes it to ``start_step + num_steps``, the card synchronised before the
+trace stops. One difference: where the loop ends inside the window
+(``max_iter``, a preemption, or a rollback that moves the step), the port
+stops the profiler and writes what it has, where the JAX package leaves
+its trace running.
 """
 
 from __future__ import annotations
@@ -534,6 +545,12 @@ class Solver:
         save_freq = int(saver.get("save_freq", 0) or 0)
         save_many = bool(saver.get("save_many", True))
 
+        prof = dict(self.config.get("profile") or {})
+        prof_start = int(prof.get("start_step", 10))
+        prof_steps = int(prof.get("num_steps", 5))
+        prof_on = bool(prof.get("enable", False)) and self.rank == 0
+        profiler = None
+
         spike_window = AverageMeter(length=100)
         it = self._device_prefetch(iter(self._train_loader(
             self.start_step - 1)))
@@ -550,10 +567,16 @@ class Solver:
                 except StopIteration:
                     break
                 data_time += time.perf_counter() - t_wait
+                if prof_on and step + 1 == prof_start:
+                    profiler = self._start_profiler()
                 self.state, metrics = self._train_step(self.state, batch)
                 # the step is host-predictable; only a rollback resyncs it
                 step += 1
                 window += 1
+                if profiler is not None and \
+                        step == prof_start + prof_steps:
+                    self._stop_profiler(profiler)
+                    profiler, prof_on = None, False
 
                 if step % print_freq == 0 or step == self.max_iter:
                     metrics = {k: float(v) for k, v in metrics.items()}
@@ -561,6 +584,9 @@ class Solver:
                     # loss-spike / NaN rollback (declip_solver.py:548-619)
                     if self._spike(loss, spike_window) and \
                             self._rollback(step):
+                        if profiler is not None:
+                            self._stop_profiler(profiler)
+                            profiler, prof_on = None, False
                         step = int(self.state.step)
                         it.close()
                         it = self._device_prefetch(iter(
@@ -629,6 +655,8 @@ class Solver:
                     break
         finally:
             it.close()
+            if profiler is not None:  # the loop ended inside the window
+                self._stop_profiler(profiler)
 
         if self.rank == 0:
             # drain in-flight async writes BEFORE the final synchronous
@@ -646,6 +674,26 @@ class Solver:
         if not stop:
             self.validate(step)
         self.writer.close()
+
+    def _start_profiler(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                osp.join(self.path.event_path, "profile")))
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler: torch.profiler.profile) -> None:
+        """Stop ``profiler`` once the card has finished the traced steps;
+        its trace handler writes the trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        self.logger.info(
+            f"profile trace written to {self.path.event_path}/profile")
 
     def _any_rank(self, flag: bool) -> bool:
         """Whether ``flag`` is set on any rank (a signal may reach some

@@ -13,11 +13,17 @@ towers runs through the Hopper kernel (ops/flash_attention.py) on CUDA.
   thread;
 - **model source**: a live experiment config, from its newest
   ``checkpoints/ckpt*.pth.tar`` or, if there is none, from seeded random
-  weights. Inference computes in float32.
-
-Not ported yet (ROADMAP.md item 1.9): ``--stablehlo`` artifact serving
-(its replacement is a ``torch.export`` artifact) and the ``--int8`` Dense
-path (``ops/quant.py``).
+  weights (``--config``); or the ``torch.export`` artifacts of
+  ``python -m declip_tpu_torch.tools.convert --export-serving``
+  (``--exported DIR``), the counterpart of the JAX package's
+  ``--stablehlo``. An artifact calls K1's registered operator, so serving
+  it launches K1 on the card too, and it runs on the device it was
+  exported on. Inference computes in float32;
+- **int8**: ``--int8`` serves the live model with every Dense product in
+  int8 (``ops/quant.py``). An artifact is quantized when it is exported
+  (``convert --export-serving --quantize int8``), so ``--int8`` with
+  ``--exported`` is an error, as ``--int8`` with ``--stablehlo`` is in the
+  JAX package. ``--stablehlo`` is refused: the port cannot run StableHLO.
 
 Endpoints (JSON over HTTP, stdlib server — no framework dependency):
 
@@ -31,6 +37,8 @@ Endpoints (JSON over HTTP, stdlib server — no framework dependency):
 Usage::
 
     python -m declip_tpu_torch.tools.serve --config experiments/.../config.yaml
+    python -m declip_tpu_torch.tools.serve --config ... --int8
+    python -m declip_tpu_torch.tools.serve --exported <dir from convert>
     python -m declip_tpu_torch.tools.serve --config ... --device cpu
 """
 
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import io
 import json
 import os
@@ -49,6 +58,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from declip_tpu_torch.ops.quant import int8_inference
 
 __all__ = ["Batcher", "ServingHost", "main"]
 
@@ -216,18 +227,21 @@ class ServingHost:
 
     @classmethod
     def from_config(cls, config_path: str, device: str = "cuda",
-                    bpe_path: Optional[str] = None, **kw) -> "ServingHost":
+                    bpe_path: Optional[str] = None, int8: bool = False,
+                    **kw) -> "ServingHost":
         """Serve the experiment's model (newest checkpoint, else seeded
-        random weights) on ``device``."""
-        from declip_tpu_torch.data.transforms import build_common_augmentation
-        from declip_tpu_torch.tokenizer import get_tokenizer
+        random weights) on ``device``; with ``int8`` every Dense product
+        runs in int8 (ops/quant.py)."""
         from declip_tpu_torch.tools._common import load_eval_model, resolve_device
 
         device = resolve_device(device)
         model = load_eval_model(config_path, device)
+        # the int8 context holds on the thread that enters it: the compute
+        # thread enters it at each call
+        quant = int8_inference if int8 else contextlib.nullcontext
 
         def run(tower, rows: np.ndarray) -> np.ndarray:
-            with torch.inference_mode():
+            with torch.inference_mode(), quant():
                 out = tower(torch.from_numpy(rows).to(device))
             return out.float().cpu().numpy()
 
@@ -237,16 +251,71 @@ class ServingHost:
             "text": lambda rows: run(model.encode_text,
                                      rows.astype(np.int64)),
         }
-        res = model.visual.input_resolution
+        return cls._host(runners, model.visual.input_resolution, bpe_path,
+                         {"source": config_path, "device": str(device),
+                          "int8": int8}, model=model, **kw)
+
+    @classmethod
+    def from_exported(cls, artifact_dir: str, device: str = "cuda",
+                      bpe_path: Optional[str] = None,
+                      **kw) -> "ServingHost":
+        """Serve the ``torch.export`` artifacts in ``artifact_dir``
+        (``encode_image.pt2``, ``encode_text.pt2``; either may be absent)
+        on ``device``, the device they were exported on. The input
+        resolution is read from the image artifact's input spec."""
+        from declip_tpu_torch.tools._common import resolve_device
+        from declip_tpu_torch.tools.convert import ARTIFACTS
+
+        device = resolve_device(device)
+        runners: Dict[str, Callable] = {}
+        res = 224
+        for kind, fname in ARTIFACTS.items():
+            path = os.path.join(artifact_dir, fname)
+            if not os.path.exists(path):
+                continue
+            program = torch.export.load(path)
+            (spec,) = [n.meta["val"] for n in program.graph.find_nodes(
+                op="placeholder") if n.name in
+                program.graph_signature.user_inputs]
+            if spec.device.type != device.type:
+                raise ValueError(
+                    f"{path} was exported on {spec.device.type}; serve it "
+                    f"there, or export again with --device {device.type}")
+            if kind == "image":
+                res = int(spec.shape[1])
+            module = program.module()
+            dtype = np.float32 if kind == "image" else np.int64
+
+            def run(rows: np.ndarray, module=module,
+                    dtype=dtype) -> np.ndarray:
+                with torch.no_grad():
+                    out = module(torch.from_numpy(rows.astype(dtype))
+                                 .to(device))
+                return out.float().cpu().numpy()
+
+            runners[kind] = run
+        if not runners:
+            raise FileNotFoundError(
+                f"no {' or '.join(ARTIFACTS.values())} under "
+                f"{artifact_dir!r} (write them with python -m "
+                f"declip_tpu_torch.tools.convert --export-serving)")
+        return cls._host(runners, res, bpe_path,
+                         {"source": artifact_dir, "device": str(device)},
+                         **kw)
+
+    @classmethod
+    def _host(cls, runners, res: int, bpe_path: Optional[str], meta: dict,
+              **kw) -> "ServingHost":
+        from declip_tpu_torch.data.transforms import build_common_augmentation
+        from declip_tpu_torch.tokenizer import get_tokenizer
+
         onecrop = {224: "ONECROP", 256: "ONECROP256",
                    384: "ONECROP384"}.get(res)
         preprocess = (build_common_augmentation(onecrop)
                       if onecrop else None)
         return cls(runners, tokenizer=get_tokenizer(bpe_path),
                    preprocess=preprocess,
-                   meta={"source": config_path, "device": str(device),
-                         "input_resolution": res},
-                   model=model, **kw)
+                   meta={**meta, "input_resolution": res}, **kw)
 
     # ---- request handling (called from HTTP handler threads) ----
 
@@ -383,28 +452,41 @@ def _make_handler(hostobj: ServingHost):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", required=True,
-                    help="experiment config (live model)")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--config", help="experiment config (live model)")
+    src.add_argument("--exported",
+                     help="directory from python -m "
+                          "declip_tpu_torch.tools.convert --export-serving")
+    src.add_argument("--stablehlo",
+                     help="refused: the port serves torch.export artifacts "
+                          "(--exported)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; never falls back)")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-batch", type=int, default=64)
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 Dense products (ops/quant.py; live model "
+                         "only). Slower than fp32 on an H100 today: "
+                         "1.5-4.0x its wall time a call")
     ap.add_argument("--bpe", default=os.environ.get("DECLIP_BPE_PATH"),
                     help="BPE merges for server-side tokenization")
-    ap.add_argument("--stablehlo", help="not ported (see module docstring)")
-    ap.add_argument("--int8", action="store_true",
-                    help="not ported (see module docstring)")
     args = ap.parse_args(argv)
-    if args.stablehlo or args.int8:
-        ap.error("--stablehlo and --int8 are not ported to the PyTorch "
-                 "package yet (ROADMAP.md item 1.9: torch.export artifacts "
-                 "and ops/quant.py)")
+    if args.stablehlo:
+        ap.error("--stablehlo: the PyTorch port cannot run StableHLO; "
+                 "export with python -m declip_tpu_torch.tools.convert "
+                 "--export-serving and serve with --exported DIR")
 
-    host = ServingHost.from_config(
-        args.config, device=args.device, bpe_path=args.bpe,
-        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
+    kw = {"device": args.device, "bpe_path": args.bpe,
+          "max_batch": args.max_batch, "max_wait_ms": args.max_wait_ms}
+    if args.config:
+        host = ServingHost.from_config(args.config, int8=args.int8, **kw)
+    else:
+        if args.int8:
+            ap.error("--int8 applies to --config; quantized artifacts come "
+                     "from convert --export-serving --quantize int8")
+        host = ServingHost.from_exported(args.exported, **kw)
     port = host.start_http(args.host, args.port)
     print(f"serving on {args.host}:{port} ({host.meta['device']}, "
           f"kinds: {sorted(host.batcher.runners)})", flush=True)

@@ -7,6 +7,7 @@ XLA path, on the same numpy inputs, in fp32. Tolerance rtol 2e-5 / atol
 at about 5e-7 at L=77 causal).
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ sides, and a value on a rounding boundary may round the other way after an
 fp32 sum in another order).
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ LayerNorms (flax takes the variance as E[x^2]-E[x]^2, torch in two passes)
 and softmaxes summed in different orders, each off by ~1e-7 relative.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ agree exactly on the same seeds and inputs: same indices, same items, the
 same image arrays bit for bit, the same token rows, the same metrics.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import io
 import json
 import random

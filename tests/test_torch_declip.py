@@ -32,6 +32,7 @@ packages' fp32 rounding about 50-fold (1.3e-6 on the image embedding,
 1.5e-4 on the projector's output) where distinct images do not.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

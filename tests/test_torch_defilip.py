@@ -28,6 +28,7 @@ interaction (on CPU tensors the plain versions of K3-K5), JAX its chunked
 XLA path.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

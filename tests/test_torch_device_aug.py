@@ -10,6 +10,7 @@ a few fp32 ulps of values in [-2.2, 2.7]). The port's own draws are held to
 the preset's gate probabilities and ranges, and to (seed, step) keying.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import pickle
 import random
 

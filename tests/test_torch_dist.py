@@ -48,6 +48,7 @@ workers) it loses most of its time to the scheduler, and the parent's own
 JAX threads would add to that.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import concurrent.futures
 import os
 import shutil

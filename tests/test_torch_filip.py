@@ -18,6 +18,7 @@ the plain versions of K3, K4 and K5); JAX its default on the CPU (the
 chunked XLA path).
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import numpy as np
 import pytest

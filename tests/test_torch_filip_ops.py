@@ -11,6 +11,7 @@ atol 2e-5 (fp32, summation order over the winners' contractions); bf16
 inputs against fp32 at 2e-2 (the inputs' rounding).
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ takes no MLM head, whose labels are integers),
   (a ResNet tower; DeCLIP's SimSiam heads), MoE towers, the SSL methods.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ discovery, the ``.pth.tar`` reader and the model registry are checked on
 their own.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import gzip
 import os
 

@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import single_thread_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "declip_tpu_torch"
@@ -28,13 +29,43 @@ def test_importing_every_module_loads_no_jax():
         "print('FORBIDDEN', bad)\n"
         "print('MODULES', sum(m.startswith('declip_tpu_torch.') for m in sys.modules))\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = single_thread_env(PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "FORBIDDEN []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
     assert n >= len(list(PORT.rglob("*.py"))) - 1  # every module, bar __init__
+
+
+def test_operator_calls_import_no_dynamo():
+    """Calling the registered kernels (``ops/_oplib.py``; on CPU tensors
+    their plain versions), forward and backward, imports neither
+    ``torch._dynamo`` nor sympy: the registration adds no Python
+    dispatch layers to a call, and a training process keeps its import
+    set (``torch.library.custom_op`` imported both at its first call)."""
+    code = (
+        "import sys, torch\n"
+        "from declip_tpu_torch.ops.flash_attention import flash_attention\n"
+        "from declip_tpu_torch.ops.filip_late_interaction import (\n"
+        "    late_interaction_logits_kernel)\n"
+        "q = torch.randn(2, 2, 9, 16, requires_grad=True)\n"
+        "flash_attention(q, q, q, causal=True).sum().backward()\n"
+        "with torch.no_grad():\n"
+        "    flash_attention(q, q, q)\n"
+        "d1 = torch.randn(2, 5, 8, requires_grad=True)\n"
+        "d2 = torch.randn(3, 4, 8, requires_grad=True)\n"
+        "late_interaction_logits_kernel(d1, d2, torch.tensor(2.0))"
+        ".sum().backward()\n"
+        "assert q.grad is not None and d2.grad is not None\n"
+        "print('LOADED', sorted(m for m in ('torch._dynamo', 'sympy')\n"
+        "                       if m in sys.modules))\n"
+    )
+    env = single_thread_env(PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -69,19 +100,25 @@ def test_serve_main_refuses_absent_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--int8"], ["--stablehlo", "dir"]])
 def test_serve_main_rejects_unported_flags(tmp_path, flag, capsys):
+    """``--stablehlo`` is refused, naming ``--exported``: the port cannot
+    run StableHLO. ``--int8`` with an artifact is refused, naming
+    ``--quantize int8``, as in the JAX package (an artifact is quantized
+    when it is exported)."""
     from declip_tpu_torch.tools import serve
 
+    src = ["--exported", str(tmp_path)] if flag == ["--int8"] else []
     with pytest.raises(SystemExit) as e:
-        serve.main(["--config", str(tmp_path / "c.yaml"), "--device", "cpu",
-                    *flag])
+        serve.main([*src, "--device", "cpu", *flag])
     assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("--quantize int8" if flag == ["--int8"] else
+            "--exported DIR") in err
 
 
 def test_chip_smoke_fails_without_cuda():
     """With no card visible the smoke script exits non-zero and prints no
     result line."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env = single_thread_env(CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
@@ -102,7 +139,7 @@ def test_data_path_imports_no_torch():
         "print('LOADED', sorted(m for m in sys.modules\n"
         "                       if m.split('.')[0] in ('torch', 'jax')))\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = single_thread_env(PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -127,7 +164,7 @@ def test_solver_cli_refuses_absent_cuda(tmp_path):
 
     shutil.copy(REPO / "experiments" / "unit" / "tiny_clip" / "config.yaml",
                 tmp_path / "config.yaml")
-    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    env = single_thread_env(PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
     out = subprocess.run(
         [sys.executable, "-m", "declip_tpu_torch.solver", "--config",
          str(tmp_path / "config.yaml")], cwd=tmp_path, env=env,

@@ -4,6 +4,7 @@ output and its tolerance rule. The kernels themselves are held to their
 plain versions on the card (tests/test_torch_kernel_cuda.py,
 chip_smoke.py)."""
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import importlib.util
 import pathlib
 

@@ -31,6 +31,7 @@ versions find the same max winners (with continuous inputs a near tie may
 go either way when the two sum in other orders).
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import importlib.util
 import pathlib
 
@@ -627,3 +628,82 @@ def test_augment_views_on_the_card_matches_the_cpu(card):
         cast.abs().clamp_min(2.0 ** -100))) - 7)
     assert half.dtype == torch.bfloat16
     assert bool(((half.float().cpu() - cast).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_registered_ops_equal_their_launches(card, dtype):
+    """Each ``declip_tpu_torch::`` operator on CUDA tensors gives what its
+    launch gives, bit for bit, and counts one launch: K1 with and without
+    its log-sum-exp, K2, K3, K4 and K5 (the kernels are deterministic)."""
+    ops = torch.ops.declip_tpu_torch
+    q, k, v, do = _qkv(card, 77, 64, dtype, 5, n=4, bh=(3, 8))
+    scale = 64 ** -0.5
+    for with_lse in (False, True):
+        want = _forward_kernel(q, k, v, True, scale, with_lse)
+        before = flash_attention.launches
+        got = ops.flash_attn_fwd(q, k, v, True, scale, with_lse)
+        assert flash_attention.launches == before + 1
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1]) if with_lse \
+            else got[1].numel() == 0
+    o, lse = want
+    before = flash_attention_bwd.launches
+    got = ops.flash_attn_bwd(q, k, v, o, lse, do, True, scale)
+    assert flash_attention_bwd.launches == before + 1
+    for a, b in zip(got, flash_attention_bwd(q, k, v, o, lse, do,
+                                             causal=True, scale=scale)):
+        assert torch.equal(a, b)
+
+    g = torch.Generator(device=card).manual_seed(6)
+    d1 = (torch.randint(-64, 65, (5, 49, 64), generator=g, device=card)
+          / 64).to(dtype)
+    d2 = (torch.randint(-64, 65, (9, 77, 64), generator=g, device=card)
+          / 64).to(dtype)
+    grad = torch.randn(5, 9, generator=g, device=card)
+    counts = (fli.late_interaction_fwd.launches,
+              fli.late_interaction_bwd_d1.launches,
+              fli.late_interaction_bwd_d2.launches)
+    raw, winners = ops.late_interaction_fwd(d1, d2)
+    dd1 = ops.late_interaction_bwd_d1(winners, d2, grad)
+    dd2 = ops.late_interaction_bwd_d2(winners, d1, grad, 77)
+    assert (fli.late_interaction_fwd.launches,
+            fli.late_interaction_bwd_d1.launches,
+            fli.late_interaction_bwd_d2.launches) == tuple(
+                c + 1 for c in counts)
+    want_raw, want_winners = fli.late_interaction_fwd(d1, d2)
+    assert torch.equal(raw, want_raw) and torch.equal(winners, want_winners)
+    assert torch.equal(dd1, fli.late_interaction_bwd_d1(winners, d2, grad))
+    assert torch.equal(dd2, fli.late_interaction_bwd_d2(winners, d1, grad,
+                                                        77))
+
+
+def test_exported_tower_keeps_k1_on_the_card(card, tmp_path):
+    """``torch.export`` of a one-layer ViT tower on the card keeps K1's
+    operator as a node of the graph, and running the saved and loaded
+    artifact launches K1 once a call, on any batch of the symbolic dim."""
+    from declip_tpu_torch.models.vit import VisualTransformer
+
+    tower = VisualTransformer(input_resolution=64, patch_size=32, width=128,
+                              layers=1, heads=2, embed_dim=32)
+    tower.init_weights(torch.Generator().manual_seed(0))
+    tower = tower.to(card).eval()
+    x = torch.randn(2, 64, 64, 3, device=card)
+    with torch.no_grad():
+        program = torch.export.export(
+            tower, (x,),
+            dynamic_shapes={"x": {0: torch.export.Dim("batch", min=1)}})
+    targets = [n.target for n in program.graph.nodes
+               if n.op == "call_function"]
+    assert torch.ops.declip_tpu_torch.flash_attn_fwd.default in targets
+    torch.export.save(program, tmp_path / "tower.pt2")
+    module = torch.export.load(tmp_path / "tower.pt2").module()
+    for b in (1, 3):
+        xb = torch.randn(b, 64, 64, 3, device=card)
+        before = flash_attention.launches
+        with torch.no_grad():
+            got = module(xb)
+            want = tower(xb)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 2
+        assert torch.equal(got, want)

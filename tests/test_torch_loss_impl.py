@@ -19,6 +19,7 @@ tests/test_torch_dist.py.
   bias and puts it among its outputs.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -29,6 +29,7 @@ checkpoint in the layout the port wrote before its other rules existed
 (``optimizer: {count, sched_count, mu, nu}``) resumes as it did.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -30,6 +30,7 @@ Tolerances: rtol 1e-4, atol 1e-5 on outputs and gradients; 1e-6 relative on
 the statistics.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,8 +6,17 @@ One tiny CLIP experiment directory serves both: the JAX host reads
 ``python -m declip_tpu.tools.convert --to_pth``. Both compute in fp32;
 embeddings agree at rtol 1e-4 / atol 1e-5 (summation order only, as in
 tests/test_torch_clip.py).
+
+The serving tools on the same directory (each tolerance stated in its
+test): the int8 towers against the JAX package's ``int8_jit``, the
+``torch.export`` artifacts (fp32, int8, a pinned batch) and their hosts
+(``from_exported``, ``from_config(int8=True)``), ``tools.inference``
+against the JAX package's with saliency maps, and the parameter census
+against ``declip_tpu.utils.flops``.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
+import contextlib
 import json
 import os
 import threading
@@ -219,3 +228,262 @@ def test_load_eval_model_reads_converted_pth(hosts):
     assert set(got) == set(want)
     for k, v in want.items():
         assert torch.equal(got[k], v), k
+
+
+# ------------------------------------------------------------ serving tools
+# int8, the torch.export artifacts, tools/inference.py and the parameter
+# census, on the same experiment directory (no new JAX model is built: the
+# JAX side loads the fixture's msgpack)
+
+def _cos(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                              * np.linalg.norm(b, axis=-1))
+
+
+def _inputs(n, seed=5):
+    rng = np.random.default_rng(seed)
+    return {"image": rng.normal(size=(n, RES, RES, 3)).astype(np.float32),
+            "text": rng.integers(0, 514, size=(n, 77)).astype(np.int64)}
+
+
+def _live(model, kind, rows):
+    import torch
+
+    tower = model.encode_image if kind == "image" else model.encode_text
+    with torch.no_grad():
+        return tower(torch.from_numpy(rows)).numpy()
+
+
+@pytest.fixture(scope="module")
+def jax_eval(hosts):
+    """The JAX package's ``(model, variables)`` from the fixture's msgpack."""
+    from declip_tpu.tools._common import load_eval_model
+
+    return load_eval_model(hosts[3].meta["source"])
+
+
+@pytest.fixture(scope="module")
+def exported(hosts, tmp_path_factory):
+    """``convert --export-serving`` on the CPU with a symbolic batch, fp32
+    and int8 -> {"fp32": dir, "int8": dir}."""
+    from declip_tpu_torch.tools import convert
+
+    root = tmp_path_factory.mktemp("exported")
+    cfg = hosts[3].meta["source"]
+    for name, extra in (("fp32", []), ("int8", ["--quantize", "int8"])):
+        written = convert.main(["--export-serving", "--config", cfg, "--out",
+                                str(root / name), "--device", "cpu",
+                                *extra])
+        assert sorted(map(os.path.basename, written)) == [
+            "encode_image.pt2", "encode_text.pt2"]
+    return {name: str(root / name) for name in ("fp32", "int8")}
+
+
+@pytest.mark.parametrize("kind", ["image", "text"])
+def test_int8_towers_match_jax_int8_jit(hosts, jax_eval, kind):
+    """Under ``int8_inference(min_dim=32)`` (every Dense of the 64-wide
+    towers) the port's towers agree with JAX's ``int8_jit`` per row with a
+    cosine >= 0.9999 (the two quantize activations that differ by fp32
+    rounding, so a code may flip), and with their own fp32 forward above
+    0.995 (the JAX test's bound) without equalling it."""
+    import jax.numpy as jnp
+
+    from declip_tpu.ops.quant import int8_jit
+    from declip_tpu_torch.ops.quant import int8_inference
+
+    model, variables = jax_eval
+    rows = _inputs(4)[kind]
+    method = "encode_image" if kind == "image" else "encode_text"
+    kw = {"train": False} if kind == "image" else {}
+    want = np.asarray(int8_jit(
+        lambda v, x: model.apply(v, x, method=method, **kw),
+        min_dim=32)(variables, jnp.asarray(rows)))
+    with int8_inference(min_dim=32):
+        got = _live(hosts[3].model, kind, rows)
+    fp32 = _live(hosts[3].model, kind, rows)
+    assert _cos(got, want).min() >= 0.9999
+    assert _cos(got, fp32).min() > 0.995
+    assert not np.allclose(got, fp32, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["image", "text"])
+def test_int8_min_dim_above_every_width_changes_nothing(hosts, kind):
+    from declip_tpu_torch.ops.quant import int8_inference
+
+    rows = _inputs(2)[kind]
+    with int8_inference(min_dim=10_000):
+        gated = _live(hosts[3].model, kind, rows)
+    np.testing.assert_array_equal(gated, _live(hosts[3].model, kind, rows))
+
+
+@pytest.mark.parametrize("kind", ["image", "text"])
+def test_exported_artifacts_match_live_model(hosts, exported, kind):
+    """One artifact with a symbolic batch serves B = 1 and B = 3 within
+    1e-6 of each row's norm. On the CPU it agrees bit for bit: the graph
+    runs the live model's own kernels in the same order."""
+    import torch
+
+    from declip_tpu_torch.tools.convert import ARTIFACTS
+
+    module = torch.export.load(
+        os.path.join(exported["fp32"], ARTIFACTS[kind])).module()
+    rows = _inputs(3)[kind]
+    for b in (1, 3):
+        with torch.no_grad():
+            got = module(torch.from_numpy(rows[:b])).numpy()
+        want = _live(hosts[3].model, kind, rows[:b])
+        assert got.shape == want.shape == (b, 32)
+        err = np.abs(got - want).max(-1)
+        assert (err <= 1e-6 * np.linalg.norm(want, axis=-1)).all()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["image", "text"])
+def test_int8_artifact_is_quantized(hosts, exported, kind):
+    import torch
+
+    from declip_tpu_torch.ops.quant import int8_inference
+    from declip_tpu_torch.tools.convert import ARTIFACTS
+
+    program = torch.export.load(os.path.join(exported["int8"],
+                                             ARTIFACTS[kind]))
+    assert any(n.target == torch.ops.aten._int_mm.default
+               for n in program.graph.nodes)
+    rows = _inputs(3)[kind]
+    with torch.no_grad():
+        got = program.module()(torch.from_numpy(rows)).numpy()
+    fp32 = _live(hosts[3].model, kind, rows)
+    assert _cos(got, fp32).min() > 0.995
+    assert not np.allclose(got, fp32, rtol=1e-5, atol=1e-6)
+    with int8_inference():  # the export's min_dim, 64
+        np.testing.assert_array_equal(got, _live(hosts[3].model, kind, rows))
+
+
+def test_serving_batch_pins_the_batch(hosts, tmp_path):
+    """``--serving-batch 2`` exports a fixed batch of 2: the artifacts take
+    2 rows and no other count."""
+    import torch
+
+    from declip_tpu_torch.tools import convert
+
+    written = convert.main(["--export-serving", "--config",
+                            hosts[3].meta["source"], "--out", str(tmp_path),
+                            "--serving-batch", "2", "--device", "cpu"])
+    rows = _inputs(3)
+    for path, kind in zip(written, ("image", "text")):
+        module = torch.export.load(path).module()
+        with torch.no_grad():
+            got = module(torch.from_numpy(rows[kind][:2])).numpy()
+            np.testing.assert_array_equal(
+                got, _live(hosts[3].model, kind, rows[kind][:2]))
+            with pytest.raises(AssertionError, match=r"size\(\)\[0\] == 2"):
+                module(torch.from_numpy(rows[kind]))
+
+
+def test_from_exported_refuses_an_empty_dir(tmp_path):
+    from declip_tpu_torch.tools.serve import ServingHost
+
+    with pytest.raises(FileNotFoundError, match="encode_image.pt2"):
+        ServingHost.from_exported(str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("source", ["exported", "int8"])
+def test_exported_and_int8_hosts_serve(hosts, exported, source):
+    """``serve --exported`` and ``serve --int8`` hosts answer a one-row
+    and a batched request over HTTP with what their models compute."""
+    from declip_tpu_torch.ops.quant import int8_inference
+    from declip_tpu_torch.tools.serve import ServingHost
+
+    cfg = hosts[3].meta["source"]
+    kw = {"device": "cpu", "max_batch": 8, "max_wait_ms": 30.0}
+    host = (ServingHost.from_exported(exported["fp32"], **kw)
+            if source == "exported" else
+            ServingHost.from_config(cfg, int8=True, **kw))
+    assert host.meta["input_resolution"] == RES
+    url, stop, t = _start(host)
+    try:
+        rows = _inputs(3)
+        for n in (1, 3):
+            status, out = _post(url, "/v1/encode_image",
+                                {"arrays": rows["image"][:n].tolist()})
+            assert status == 200, out
+            status, txt = _post(url, "/v1/encode_text",
+                                {"tokens": rows["text"][:n].tolist()})
+            assert status == 200, txt
+            with (int8_inference() if source == "int8"
+                  else contextlib.nullcontext()):
+                want_img = _live(hosts[3].model, "image", rows["image"][:n])
+                want_txt = _live(hosts[3].model, "text", rows["text"][:n])
+            np.testing.assert_allclose(out["embeddings"], want_img,
+                                       rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(txt["embeddings"], want_txt,
+                                       rtol=1e-5, atol=1e-6)
+    finally:
+        stop.set()
+        host.shutdown()
+        t.join(timeout=10)
+        assert not t.is_alive()
+
+
+def test_inference_matches_jax(hosts, tmp_path):
+    """JAX's ``inference.main`` and the port's (``--device cpu``) on one
+    checkpoint and three seeded PNGs write the same predictions, the
+    probabilities within 1e-5 and the saliency maps within 1e-4 of their
+    max (the 224-pixel ONECROP crops run the 32-pixel ViT on a resized
+    positional grid, 785 tokens, on both sides)."""
+    from PIL import Image
+
+    from declip_tpu.tools import inference as jax_inference
+    from declip_tpu_torch.tools import inference
+
+    cfg = hosts[3].meta["source"]
+    rng = np.random.default_rng(6)
+    dirs = {side: tmp_path / side for side in ("jax", "port")}
+    for i, size in enumerate([(48, 40), (64, 64), (30, 90)]):
+        img = Image.fromarray(rng.integers(0, 256, size=(*size, 3),
+                                           dtype=np.uint8))
+        for d in dirs.values():
+            d.mkdir(exist_ok=True)
+            img.save(d / f"img{i}.png")
+    classes = "cat,dog,red square"
+    outs = {side: str(tmp_path / f"{side}.jsonl") for side in dirs}
+    jax_inference.main(["--config", cfg, "--image_dir", str(dirs["jax"]),
+                        "--classes", classes, "--out", outs["jax"],
+                        "--saliency"])
+    inference.main(["--config", cfg, "--image_dir", str(dirs["port"]),
+                    "--classes", classes, "--out", outs["port"],
+                    "--saliency", "--device", "cpu"])
+    recs = {side: [json.loads(line) for line in open(path)]
+            for side, path in outs.items()}
+    assert len(recs["port"]) == len(recs["jax"]) == 3
+    for got, want in zip(recs["port"], recs["jax"]):
+        assert set(got) == set(want)
+        assert got["filename"] == want["filename"]
+        assert got["prediction"] == want["prediction"]
+        assert list(got["probs"]) == list(want["probs"])
+        np.testing.assert_allclose(list(got["probs"].values()),
+                                   list(want["probs"].values()), atol=1e-5)
+        sal, ref = np.load(got["saliency"]), np.load(want["saliency"])
+        assert sal.shape == ref.shape == (224, 224)
+        assert sal.dtype == np.float32 and ref.max() > 0
+        assert np.abs(sal - ref).max() <= 1e-4 * ref.max()
+
+
+def test_count_params_match_jax(hosts, jax_eval):
+    """The census of the converted tiny CLIP equals JAX's over ``params``;
+    by top module through the name map (the port's ``encode_text`` is
+    JAX's ``text``). ``tensors`` differs by design: JAX stacks each
+    tower's residual blocks into one leaf a kind."""
+    from declip_tpu.utils import flops as jax_flops
+    from declip_tpu_torch.utils import flops
+
+    names = {"encode_text": "text", "visual": "visual",
+             "logit_scale": "logit_scale"}
+    params = jax_eval[1]["params"]
+    got, want = (flops.count_params(hosts[3].model),
+                 jax_flops.count_params(params))
+    assert (got["total"], got["total_M"]) == (want["total"], want["total_M"])
+    by_top = flops.count_params_by_top_module(hosts[3].model)
+    assert {names[k]: v for k, v in by_top.items()} == \
+        jax_flops.count_params_by_top_module(params)

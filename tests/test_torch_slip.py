@@ -30,6 +30,7 @@ the three views is noise around a colour of its own. The trajectory's
 parameters: see ``_assert_state_close``.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

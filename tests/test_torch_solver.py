@@ -25,6 +25,7 @@ that holds a copy, and the refusals: a JAX-only or model-only checkpoint directo
 another topology, an absent CUDA, and the parts not ported yet.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import json
 import os
 import shutil
@@ -791,3 +792,39 @@ def test_reference_config_builds_a_solver(tmp_path, exp):
     assert cfg.get("loss_impl", {"type": "full"})["type"] == loss_impl
     if "siglip" in exp:
         assert float(solver.state.params["logit_bias"][0]) == -10.0
+
+@pytest.mark.parametrize("start,num,max_iter,traced",
+                         [(2, 2, 4, 3), (3, 5, 4, 2)],
+                         ids=["inside", "past_max_iter"])
+def test_profile_key_writes_a_trace(tmp_path, start, num, max_iter, traced):
+    """``profile: {enable, start_step, num_steps}`` traces the steps that
+    take the step count to ``start`` through ``start + num`` (num + 1
+    steps, the JAX package's window) into ``events/profile`` (one
+    tensorboard trace file); where the window runs past ``max_iter`` the
+    port stops the profiler at the loop's end and still writes what it
+    traced."""
+    from declip_tpu_torch.solver import main
+
+    shutil.copy(TINY_CLIP, tmp_path / "config.yaml")
+    main(["--config", str(tmp_path / "config.yaml"), "--device", "cpu",
+          "--set", f"lr_scheduler.kwargs.max_iter={max_iter}",
+          "saver.save_freq=0", "data.test=[]",
+          "profile=" + json.dumps({"enable": True, "start_step": start,
+                                   "num_steps": num})])
+    traces = list((tmp_path / "events" / "profile").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    trace = json.loads(traces[0].read_text())
+    # K1's operator once a layer of each tower a traced step (K2 is an
+    # operator of its own)
+    kwargs = _cfg("declip_tpu_torch", tmp_path / "c", TINY_CLIP,
+                  {}).model.kwargs
+    layers = (kwargs.image_encode.layers
+              + kwargs.text_encode.transformer_layers)
+    k1 = [e for e in trace["traceEvents"] if e.get("cat") == "cpu_op"
+          and e.get("name") == "declip_tpu_torch::flash_attn_fwd"]
+    assert len(k1) == traced * layers
+
+
+def test_no_profile_key_writes_no_trace(pair_run):
+    assert (pair_run["port"] / "events").is_dir()
+    assert not (pair_run["port"] / "events" / "profile").exists()

@@ -32,6 +32,7 @@ One JAX compile a method: the train step, which also returns the feature
 dict its loss took, called once a step; the four compile side by side.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import pickle
 import random
 import shutil

@@ -25,6 +25,7 @@ instead (|step| <= lr while 1 - b1 < sqrt(1 - b2), Kingma & Ba 2015, 2.1),
 and their gradient to the noise level.
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ primitives equal the JAX package's bit for bit on seeded JPEGs. Needs a
 C++ compiler and libjpeg's headers (both are here).
 """
 
+import torch_threads  # noqa: F401  (one torch thread: see the module)
 import io
 import json
 import os

@@ -19,6 +19,7 @@ import traceback
 
 import numpy as np
 import torch
+from torch_threads import SINGLE_THREAD
 
 from declip_tpu_torch.parallel import data_group, init_distributed
 
@@ -394,9 +395,11 @@ def free_port() -> int:
 
 
 def _rank_main(rank, world, port, fn, args, results):
+    # the rank's own environment: what it starts inherits the thread caps
     os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
                        "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
-                       "MASTER_PORT": str(port)})
+                       "MASTER_PORT": str(port), **SINGLE_THREAD})
+    torch.set_num_threads(1)
     try:
         # by value: a tensor sent as shared memory would not outlive its
         # rank
@@ -411,7 +414,8 @@ def _rank_main(rank, world, port, fn, args, results):
 
 def spawn(fn, world, args=(), *, timeout_s):
     """``fn(rank, *args)`` on ``world`` spawned ranks, each with torchrun's
-    variables set -> their return values in rank order. A rank that
+    variables and the thread caps of ``torch_threads`` set in its own
+    entry -> their return values in rank order. A rank that
     raises, dies or outlives ``timeout_s`` fails the launch, and every
     rank still running is killed."""
     ctx = multiprocessing.get_context("spawn")
