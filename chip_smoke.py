@@ -15,14 +15,17 @@ Phases (any failed check raises, and the script exits non-zero):
    in any other kernel that takes bf16;
 2. K1 vs plain: the forward kernel's wrapper against its plain PyTorch
    version on the card, at the shapes the serving path gives it (fp32 at
-   B = 1, 8 and 16) and at longer sequences, in fp32 and bf16; times for
+   B = 1, 8 and 16), at the learnability eval's (phase 15a: 512 images at
+   L = 17 and 16 prompts at L = 77, heads of 32) and at longer sequences,
+   in fp32 and bf16; times for
    the kernel, the plain version and one PyTorch library call (with the
    library's kernels, which name its backend), beside the least time the
    card could take; and at the serving shapes, the plain version on
    TF32-rounded inputs must miss the fp32 limit, which shows that the limit
    would fail a kernel that dropped the split;
 2b. K2 vs plain: the backward kernel against ``attention_bwd_plain`` at the
-   training path's shapes (B=128) and at longer sequences, in fp32 and bf16,
+   training path's shapes (B=128), at the learnability run's (B=128, heads
+   of 32, L = 17 and 77 causal) and at longer sequences, in fp32 and bf16,
    dq, dk and dv each within tolerance; the same four times, K2's time by
    kernel, and K1's times as the training forward runs it (with its
    log-sum-exp output);
@@ -240,7 +243,26 @@ Phases (any failed check raises, and the script exits non-zero):
    dense bf16 peak (NVIDIA's datasheet); (f) the yfcc15m_vit_siglip
    recipe through ``main`` for 5 steps with ``profile: {enable: true,
    start_step: 3, num_steps: 2}``: one trace under
-   ``<event_path>/profile`` whose device kernels include K1's.
+   ``<event_path>/profile`` whose device kernels include K1's;
+15. the last single-card modules, after phase 13: (a) ``python -m
+   declip_tpu_torch.tools.learnability``'s ``main`` as the JAX script's
+   defaults run it (DeCLIP with two views, MLM, SimSiam and the NN bank,
+   bf16, 600 steps at B=128 on fresh colored shapes; towers 64 wide, 2
+   layers, heads of 32 at L = 17 and 77 causal): zero-shot top-1 above
+   0.40, the first and last loss and steps/s, 8 K1 and 8 K2 a step and 4
+   K1 for the eval, no plain-version call (phases 2 and 2b hold K1 and K2
+   against their plain versions at these shapes); (b) ``linear_probe.main`` on
+   phase 3's CLIP ViT-B/32 from a config through ``load_eval_model``,
+   on 512 + 128 ``--read-from synthetic`` rows: 12 K1 an embedding
+   batch, one batch against the plain attention path within phase 3's
+   tolerance, the top-1 and the embedding's time; (c)
+   ``text_visualize.main`` on that model: the JSON, a symmetric cosine
+   matrix with a unit diagonal within 1e-5, 12 K1; (d) where
+   ``transformers`` imports, ``declip_vitb32`` with a BERT-base text
+   tower from ``BertConfig()`` with seeded weights saved under the run's
+   temporary directory, 3 bf16 steps at B=128: finite losses, 24 K1 and
+   24 K2 a step, the image tower's only; where it does not, one line
+   says so.
 
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
@@ -322,6 +344,8 @@ ATTN_CASES = [
     (4, 16, 257, 64, False),  # ViT-L/14, 224 px
     (2, 16, 577, 64, False),  # ViT-L/14, 336 px
     (8, 8, 77, 32, True),     # head dim 32 (the tiny unit widths)
+    (512, 2, 17, 32, False),  # learnability eval: 512 renderings, 32 px
+    (16, 2, 77, 32, True),    # learnability eval: the 16 class prompts
 ]
 MAIN_PATH_CASES = ATTN_CASES[:2]
 # the serving batcher's other buckets that phase 3 times (1 and 16 rows), at
@@ -344,6 +368,8 @@ BWD_CASES = [
     (4, 16, 257, 64, False),           # ViT-L/14, 224 px
     (2, 16, 577, 64, False),           # ViT-L/14, 336 px
     (8, 8, 77, 32, True),              # head dim 32
+    (TRAIN_BATCH, 2, 17, 32, False),   # learnability image tower, 32 px
+    (TRAIN_BATCH, 2, 77, 32, True),    # learnability text tower
 ]
 TRAIN_CASES = BWD_CASES[:2]
 TRAIN_WARMUP_STEPS = 3
@@ -737,6 +763,25 @@ SSL_SOLVER_STEPS, CLSA_SOLVER_STEPS = 3, 2
 # --ssl-loader-rates: the batches each of 13c-d's loaders builds alone,
 # three rounds of its 7 workers (the rate is read over the last two)
 SSL_LOADER_BATCHES = 21
+
+# phase 15: the last single-card modules. (a) the learnability run, the
+# JAX script's defaults: DeCLIP, bf16, 600 steps at B=128, no pool; a step
+# runs 2 image views and 2 text passes (the MLM and EDA captions) through
+# towers of 2 layers, and the zero-shot eval the 16 prompts and the 512
+# renderings once each
+LEARN_STEPS, LEARN_BATCH, LEARN_TOP1 = 600, 128, 0.40
+LEARN_PER_STEP = {"K1": 8, "K2": 8, "K3": 0, "K4": 0, "K5": 0}
+LEARN_EVAL_K1 = 4
+# (b) the linear probe on phase 3's model: synthetic ImageNet-layout metas
+# over PROBE_CLASSES labels, 128 images an embedding batch (12 K1 each)
+PROBE_TRAIN, PROBE_VAL, PROBE_CLASSES, PROBE_EPOCHS = 512, 128, 10, 10
+PROBE_TEXTS = ("a photo of a cat,a photo of a dog,a red square,"
+               "a blue circle,a photo of a car,a diagram")
+# (d) declip_vitb32 with a BERT-base text tower (BertConfig()'s defaults,
+# seeded weights saved under the run's temporary directory) for HF_STEPS
+# bf16 steps: K1 and K2 from the image tower's 12 layers and 2 views only
+HF_STEPS = 3
+HF_PER_STEP = {"K1": 24, "K2": 24, "K3": 0, "K4": 0, "K5": 0}
 
 
 def check(cond, msg):
@@ -2512,22 +2557,33 @@ def phase_train_filip():
             "fp32_zero_grad_params": zero}
 
 
-def _declip_batch(rng):
+def _declip_batch(rng, tok=None):
     """B=128 seeded two-view images [B, 224, 224, 6], each view noise around
     a colour of its own image (pure noise gives a random tower nearly equal
     embeddings, whose BatchNorm in the SimSiam heads then divides by a tiny
     batch deviation), the captions, a second draw standing in for their EDA
-    versions, and the MLM masking of the captions."""
+    versions, and the MLM masking of the captions. With a tokenizer
+    ``tok``, the captions are colored-shapes captions in its vocabulary
+    and their "a photo of a ..." versions in place of the random ids."""
     import numpy as np
     import torch
 
+    from declip_tpu_torch.data.synthetic_shapes import captions
     from declip_tpu_torch.tokenizer.mlm import mask_tokens
 
-    tokens, tokens_aug = _tokens(rng, TRAIN_BATCH), _tokens(rng, TRAIN_BATCH)
+    if tok is None:
+        tokens = _tokens(rng, TRAIN_BATCH)
+        tokens_aug = _tokens(rng, TRAIN_BATCH)
+        mask, vocab, special = MASK, VOCAB, (SOT, EOT)
+    else:
+        idx = rng.integers(0, 16, TRAIN_BATCH)
+        tokens = tok.tokenize(captions(idx))
+        tokens_aug = tok.tokenize(captions(idx, "a photo of a {} {}"))
+        mask, vocab = tok.mask_id, tok.vocab_size
+        special = (tok.sot_id, tok.eot_id, tok.mask_id)
     mlm_tokens, mlm_labels = mask_tokens(
-        tokens, mask_id=MASK, vocab_size=VOCAB, special_ids=(SOT, EOT),
-        rng=rng)
-    check((mlm_tokens == MASK).any() and (mlm_labels != -100).any(),
+        tokens, mask_id=mask, vocab_size=vocab, special_ids=special, rng=rng)
+    check((mlm_tokens == mask).any() and (mlm_labels != -100).any(),
           "MLM masking selected nothing")
     images = (rng.standard_normal((TRAIN_BATCH, 224, 224, 6), np.float32)
               + rng.standard_normal((TRAIN_BATCH, 1, 1, 6), np.float32))
@@ -6086,6 +6142,228 @@ def phase_serving_exports(tools, pending, slice_result):
     return out
 
 
+def _phase15_learnability(card):
+    """15a: ``python -m declip_tpu_torch.tools.learnability``'s ``main``
+    as a user runs it (DeCLIP, bf16, LEARN_STEPS at LEARN_BATCH, no pool):
+    zero-shot top-1 above LEARN_TOP1, K1 and K2 launches exactly the
+    towers' count, no plain-version call."""
+    from declip_tpu_torch.tools import learnability
+
+    reset_launches()  # main path starts
+    with _CallCounter() as plain:
+        res = learnability.main(["--steps", str(LEARN_STEPS), "--batch",
+                                 str(LEARN_BATCH), "--recipe", "declip"])
+    launches = read_launches()  # main path ends
+    want = {k: LEARN_STEPS * n for k, n in LEARN_PER_STEP.items()}
+    want["K1"] += LEARN_EVAL_K1
+    check(launches == want, f"learnability launches {launches}, want {want}")
+    check(plain.calls == 0 and plain.cross == 0,
+          f"learnability: {plain.calls} plain-version calls")
+    check(res["backend"].startswith("cuda"), f"backend {res['backend']}")
+    check(res["zero_shot_top1"] > LEARN_TOP1,
+          f"zero-shot top-1 {res['zero_shot_top1']} <= {LEARN_TOP1}")
+    print(f"phase 15a learnability (DeCLIP, bf16, {LEARN_STEPS} steps, "
+          f"B={LEARN_BATCH}) on {card}: loss {res['first_loss']} -> "
+          f"{res['last_loss']}, zero-shot top-1 {res['zero_shot_top1']} "
+          f"(chance 0.0625), {res['train_steps_per_s']} steps/s; "
+          f"launches {launches}", flush=True)
+    return {**res, "launches": launches}
+
+
+def _phase15_probe_and_text(tmp, card):
+    """15b and 15c on phase 3's CLIP ViT-B/32 (full width, seeded, fp32)
+    from a config through ``load_eval_model``: (b) ``linear_probe.main`` on
+    ``--read-from synthetic`` metas, 12 K1 an embedding batch; one batch's
+    embeddings through K1 against the plain attention path within phase
+    3's TOWER_TOLERANCE, and the embedding's time; (c)
+    ``text_visualize.main``: the JSON written, its cosine matrix
+    symmetric with a unit diagonal within 1e-5, 12 K1."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch.data.dataset import ImageNetDataset
+    from declip_tpu_torch.data.transforms import build_common_augmentation
+    from declip_tpu_torch.models.layers import MultiHeadAttention
+    from declip_tpu_torch.tools import linear_probe, text_visualize
+    from declip_tpu_torch.tools._common import load_eval_model
+
+    exp = os.path.join(tmp, "exp_probe")
+    os.makedirs(exp)
+    cfg = os.path.join(exp, "config.yaml")
+    with open(cfg, "w") as f:
+        f.write(CONFIG)
+    rng = np.random.default_rng(SEED)
+    metas = {}
+    for name, n in (("train", PROBE_TRAIN), ("val", PROBE_VAL)):
+        metas[name] = os.path.join(exp, f"{name}.txt")
+        with open(metas[name], "w") as f:
+            for i in range(n):
+                f.write(f"synthetic_{i}.png "
+                        f"{int(rng.integers(0, PROBE_CLASSES))}\n")
+    out = {}
+    batches = -(-PROBE_TRAIN // 128) - (-PROBE_VAL // 128)
+    reset_launches()  # main path starts
+    t0 = time.perf_counter()
+    res = linear_probe.main([
+        "--config", cfg, "--meta", metas["train"], "--val-meta",
+        metas["val"], "--read-from", "synthetic", "--epochs",
+        str(PROBE_EPOCHS)])
+    probe_s = time.perf_counter() - t0
+    launches = read_launches()  # main path ends
+    want = {"K1": 12 * batches, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    check(launches == want, f"linear probe launches {launches}, want {want}")
+    check((res["n_train"], res["n_val"]) == (PROBE_TRAIN, PROBE_VAL),
+          f"linear probe rows {res}")
+    out["probe"] = {**res, "launches": launches, "main_s": probe_s}
+
+    # one batch (the validation set) through K1 and through the plain path
+    model = load_eval_model(cfg, "cuda")
+    val = ImageNetDataset("", metas["val"], read_from="synthetic",
+                          transform=build_common_augmentation("ONECROP"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats, _ = linear_probe.embed_dataset(model, val)
+    embed_s = time.perf_counter() - t0
+    mhas = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
+    for m in mhas:
+        m.attn_impl = "xla"
+    plain, _ = linear_probe.embed_dataset(model, val)
+    for m in mhas:
+        m.attn_impl = "auto"
+    rtol, atol = TOWER_TOLERANCE
+    err = np.abs(feats - plain)
+    check(feats.shape == (PROBE_VAL, 512) and np.isfinite(feats).all(),
+          f"probe embeddings {feats.shape}")
+    check((err <= atol + rtol * np.abs(plain)).all(),
+          f"probe embeddings: K1 vs plain path max abs err {err.max():.3g} "
+          f"beyond rtol {rtol} atol {atol}")
+    out["probe"].update(embed_batch_s=embed_s,
+                        embed_max_abs_err=float(err.max()))
+    print(f"phase 15b linear probe (clip_vitb32, fp32, {PROBE_TRAIN} + "
+          f"{PROBE_VAL} synthetic rows, {PROBE_EPOCHS} epochs) on {card}: "
+          f"top-1 {res['linear_probe_top1']}%, main {probe_s:.2f} s, one "
+          f"{PROBE_VAL}-row batch read and embedded in {embed_s:.3f} s; "
+          f"K1 vs plain max abs err {err.max():.3g}; launches {launches}",
+          flush=True)
+
+    viz = os.path.join(exp, "text_viz.json")
+    reset_launches()  # main path starts
+    res = text_visualize.main(["--config", cfg, "--texts", PROBE_TEXTS,
+                               "--out", viz])
+    launches = read_launches()  # main path ends
+    want = {"K1": 12, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    check(launches == want, f"text_visualize launches {launches}")
+    with open(viz) as f:
+        written = json.load(f)
+    sim = np.asarray(written["cosine_similarity"])
+    n = len(PROBE_TEXTS.split(","))
+    check(written == res and sim.shape == (n, n)
+          and np.asarray(written["pca_2d"]).shape == (n, 2),
+          "text_visualize JSON")
+    check(np.abs(sim - sim.T).max() <= 1e-5
+          and np.abs(np.diag(sim) - 1).max() <= 1e-5,
+          f"cosine matrix not symmetric with a unit diagonal: {sim}")
+    out["text_visualize"] = {"launches": launches,
+                             "cosine_similarity": written[
+                                 "cosine_similarity"]}
+    return out
+
+
+def _phase15_hf(tmp, card):
+    """15d: a BERT-base text tower (``BertConfig()``'s defaults, seeded
+    weights saved under ``tmp``; nothing is downloaded) in
+    ``declip_vitb32`` with the DeCLIP recipe, HF_STEPS bf16 steps at
+    B=128: finite losses, K1 and K2 from the image tower only. Where
+    ``transformers`` does not import, one line says so and nothing runs."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    if importlib.util.find_spec("transformers") is None:
+        print("phase 15d: transformers is not installed on this host; the "
+              "HF text tower was not run", flush=True)
+        return {"transformers": None}
+    import transformers
+    from transformers import BertConfig, BertModel
+
+    from declip_tpu_torch.config import parse_config
+    from declip_tpu_torch.models.hf_text import HFTextEncoder
+    from declip_tpu_torch.optim import optim_entry, scheduler_entry
+    from declip_tpu_torch.tokenizer import get_tokenizer
+    from declip_tpu_torch.train import make_train_step, new_train_state
+
+    t0 = time.perf_counter()
+    bert_dir = os.path.join(tmp, "bert_base")
+    torch.manual_seed(SEED)
+    BertModel(BertConfig()).save_pretrained(bert_dir)
+    cfg = parse_config(DECLIP_CONFIG)
+    cfg.model.type = "declip_vitb32"
+    cfg.model.kwargs.text_encode = {
+        "text_encode_type": "Bert", "embed_dim": 1024,
+        "text_model_utils": {"pretrained_path": bert_dir}}
+    model = _method_build(cfg, cfg.precision.dtype)
+    txt = model.encode_text
+    check(isinstance(txt, HFTextEncoder) and txt.width == 768
+          and txt.vocab_size == 30522
+          and len(txt.backbone.encoder.layer) == 12
+          and model.text_label_predictor.out_features == 30522,
+          "the text tower is not BERT-base")
+    build_s = time.perf_counter() - t0
+    sched = scheduler_entry(cfg.lr_scheduler,
+                            max_iter=int(cfg.lr_scheduler.kwargs.max_iter))
+    named = dict(model.named_parameters())
+    tx = optim_entry(cfg.optimizer, model, sched,
+                     pconfig=cfg.optimizer.pconfig,
+                     grad_clip=dict(cfg.grad_clip))
+    state = new_train_state(model=model, opt_state=tx.init(named),
+                            bank_text=_seeded_method_bank(model))
+    step = make_train_step(model, tx, cfg, sched)
+    # captions in the byte-level vocabulary (ids < 515, inside BERT's)
+    batch = _declip_batch(np.random.default_rng(SEED), get_tokenizer(None))
+    losses = []
+    reset_launches()  # main path starts
+    with _CallCounter() as plain:
+        for _ in range(HF_STEPS):
+            state, metrics = step(state, batch)
+            losses.append({k: float(v) for k, v in metrics.items()
+                           if "loss" in k})
+    launches = read_launches()  # main path ends
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0 - build_s
+    check(all(np.isfinite(list(m.values())).all() for m in losses),
+          f"HF DeCLIP losses not finite: {losses}")
+    want = {k: HF_STEPS * n for k, n in HF_PER_STEP.items()}
+    check(launches == want, f"HF DeCLIP launches {launches}, want {want}")
+    check(plain.calls == 0, f"HF DeCLIP: {plain.calls} plain-version calls")
+    print(f"phase 15d declip_vitb32 + BERT-base text tower (transformers "
+          f"{transformers.__version__}), bf16, B={TRAIN_BATCH}, on {card}: "
+          f"losses {[round(m['loss'], 4) for m in losses]}; launches "
+          f"{launches} (image tower only); built and saved in "
+          f"{build_s:.1f} s, {HF_STEPS} steps in {steps_s:.1f} s",
+          flush=True)
+    return {"transformers": transformers.__version__, "losses": losses,
+            "launches": launches, "build_s": build_s, "steps_s": steps_s}
+
+
+def phase_last_modules(tmp, card):
+    """Phase 15, the last single-card modules: (a) the learnability run,
+    (b) the linear probe, (c) text visualisation, (d) the HF text tower.
+    -> each part's result, with its launches and seconds."""
+    t0 = time.perf_counter()
+    out = {"learnability": _phase15_learnability(card)}
+    part_s = {"learnability": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out.update(_phase15_probe_and_text(tmp, card))
+    part_s["probe_and_text"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["hf_text"] = _phase15_hf(tmp, card)
+    part_s["hf_text"] = time.perf_counter() - t0
+    out["part_s"] = part_s
+    print(f"phase 15 parts (s): {part_s}", flush=True)
+    return out
+
+
 def _path_sums(rows, cases, dtype_name, prefix=""):
     """Each time summed over the path's shapes in one dtype; the path is
     bound by what bounds its largest bound."""
@@ -6151,7 +6429,7 @@ def _li_entries(li_rows, li_paths, k3_eval):
 def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                  train_result, filip_result, declip_result, solver_result,
                  fast_result, methods_result, solver_methods_result,
-                 last_result, ssl_result, tools_result):
+                 last_result, ssl_result, tools_result, modules_result):
     """One entry per kernel. K1 is on every path: its launches are the sum
     over the paths, each counted from 0 around it; its times are the
     serving path's (the sum over its two shapes, image L=50 and text L=77
@@ -6168,7 +6446,8 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
     and without GradCache; phase 13's MoCo, SimCLR and CLSA ViT-B/32
     steps) add to the launches, and so does phase 14's serving tools (the
     artifacts, int8, the two hosts, inference with saliency, the profiled
-    solver run)."""
+    solver run), and phase 15's learnability run, linear probe, text
+    visualisation and HF-tower DeCLIP steps."""
     serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
     k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
     k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
@@ -6192,7 +6471,14 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                 last_result["loss_impl"]["bf16"].items()
                 if isinstance(v, dict)},
              **{f"train_{name}": r["launches"]
-                for name, r in ssl_result["train"].items()}}
+                for name, r in ssl_result["train"].items()},
+             "learnability": modules_result["learnability"]["launches"],
+             "linear_probe": modules_result["probe"]["launches"],
+             "text_visualize":
+                 modules_result["text_visualize"]["launches"]}
+    if modules_result["hf_text"].get("launches"):
+        paths["train_declip_hf_text"] = modules_result["hf_text"][
+            "launches"]
     k1_paths = {"serve": slice_result["launches"],
                 "train": train_result["launches"],
                 **{p: n["K1"] for p, n in paths.items()},
@@ -6304,6 +6590,8 @@ def main():
         last_result = timed("last_configs", phase_last_configs, tmp, corpus,
                             train_result)
         ssl_result = timed("ssl", phase_ssl, tmp, corpus)
+        modules_result = timed("last_modules", phase_last_modules, tmp,
+                               card)
     finally:
         stop_serving_exports(exports)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6311,7 +6599,7 @@ def main():
                         train_result, filip_result, declip_result,
                         solver_result, fast_result, methods_result,
                         solver_methods_result, last_result, ssl_result,
-                        tools_result)
+                        tools_result, modules_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "hmma": hmma,
@@ -6327,6 +6615,7 @@ def main():
                    "data_parallel": dp_result,
                    "last_configs": last_result, "ssl": ssl_result,
                    "serving_tools": tools_result,
+                   "last_modules": modules_result,
                    "kernels": line["kernels"], "phase_s": PHASE_S,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")

@@ -10,7 +10,8 @@
   grouped-statistics layout alike, both under ``BatchNorm_0``; and the
   method heads, which need no renaming: FILIP's and DeFILIP's mappings and
   shape-``()`` ``logit_scale_dense``, the SimSiam heads, SLIP's
-  ``predictor_sim``).
+  ``predictor_sim``); an HF text tower's ``text/backbone`` subtree from
+  the Flax HF names to transformers' torch names (:func:`_hf_entry`).
 - :func:`bank_from_jax` makes the port's ``BankState`` from a JAX
   ``BankState``'s arrays, so that both packages start from one bank, and
   :func:`ssl_from_jax` the port's ``MoCoState`` from a JAX ``MoCoState``
@@ -66,6 +67,20 @@ def _torch_key(path: str, collection: str) -> str:
     return path.replace(".token_embedding.embedding", ".token_embedding.weight")
 
 
+def _hf_entry(key: str, arr: np.ndarray):
+    """One Flax HF backbone leaf -> (torch name, array): a ``kernel``
+    becomes ``weight``, transposed; an ``embedding`` and a LayerNorm's
+    ``scale`` become ``weight``. The transpose holds for GPT2's ``Conv1D``
+    too, whose Flax kernel is [out, in] and whose torch weight is
+    [in, out] (tests/test_torch_hf_text.py holds it on square ones)."""
+    stem, leaf = key.rsplit(".", 1)
+    if leaf == "kernel":
+        return f"{stem}.weight", arr.T
+    if leaf in ("embedding", "scale"):
+        return f"{stem}.weight", arr
+    return key, arr
+
+
 def state_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Flatten a JAX model's variables tree into reference-named tensors
     (scan-stacked ``transformer.layers`` unstacked into ``resblocks.{i}``,
@@ -83,6 +98,9 @@ def state_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                 walk(sub, path, collection)
                 continue
             arr = np.asarray(sub)
+            if path.startswith("text.backbone."):
+                emit(*_hf_entry("encode_text." + path[len("text."):], arr))
+                continue
             key = _torch_key(path, collection)
             if key.endswith(".patch_embed.kernel"):
                 # dense [p*p*3, W] -> conv [W, 3, p, p]

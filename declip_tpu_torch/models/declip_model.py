@@ -102,7 +102,7 @@ class DECLIP(nn.Module):
         self.predictor = PredictionMLP(1024, dtype=dtype, device=device)
         if text_mask_type is not None:
             self.text_label_predictor = linear(
-                text.ln_final.normalized_shape[0], text.vocab_size, device)
+                text.width, text.vocab_size, device)
         if return_simsiam_nn_text:
             self.projector_nn_text = ProjectionMLP(text_dim, dtype=dtype,
                                                    device=device)

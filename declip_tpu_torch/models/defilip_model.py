@@ -68,8 +68,7 @@ class DEFILIP(DECLIP):
                 torch.empty((), device=device))
             self.image_mapping = linear(visual.dense_width, dense_embed_dim,
                                         device)
-            self.text_mapping = linear(text.ln_final.normalized_shape[0],
-                                       dense_embed_dim, device)
+            self.text_mapping = linear(text.width, dense_embed_dim, device)
 
     def init_weights(self, generator: torch.Generator) -> None:
         super().init_weights(generator)

@@ -121,7 +121,7 @@ class FILIP(nn.Module):
         self.logit_bias_init = logit_bias_init
         self.logit_bias = (nn.Parameter(torch.empty(1, device=device))
                            if logit_bias_init is not None else None)
-        text_width = text.ln_final.normalized_shape[0]
+        text_width = text.width
         if return_dense:
             self.logit_scale_dense = nn.Parameter(torch.empty((),
                                                               device=device))

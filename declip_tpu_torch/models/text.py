@@ -41,6 +41,7 @@ class TextTransformer(nn.Module):
                  dtype=None, attn_impl: str = "auto", device=None):
         super().__init__()
         self.vocab_size = vocab_size
+        self.width = transformer_width  # the token features' width
         self.dtype = dtype = as_dtype(dtype)
         self.eot_id = eot_id if eot_id is not None else vocab_size - 1
         self.token_embedding = uninitialised(
@@ -89,16 +90,21 @@ class TextTransformer(nn.Module):
 def text_transformers(**kwargs) -> TextTransformer:
     """Factory matching the reference defaults (text_transformer.py:273-288).
 
-    Only the 'Transformer' text tower is ported; the HuggingFace
-    Bert/Roberta/GPT2 backends are not."""
+    Dispatches on ``text_encode_type``: 'Transformer' (the default) builds
+    the CLIP tower; Bert/Bert_large/Roberta/Roberta_large/GPT2 build the
+    HuggingFace tower (models/hf_text.py) from the local weights under
+    ``text_model_utils.pretrained_path``."""
     kwargs = dict(kwargs)
     encode_type = kwargs.pop("text_encode_type", None) or "Transformer"
     kwargs.pop("bpe_path", None)
-    kwargs.pop("text_model_utils", None)
+    utils = kwargs.pop("text_model_utils", None) or {}
     if encode_type != "Transformer":
-        raise NotImplementedError(
-            f"text_encode_type {encode_type!r}: the HuggingFace text towers "
-            f"are not ported yet (ROADMAP.md item 1.9)")
+        from declip_tpu_torch.models.hf_text import build_hf_text
+
+        return build_hf_text(
+            encode_type, embed_dim=kwargs.get("embed_dim", 1024),
+            pretrained_path=utils.get("pretrained_path"),
+            dtype=kwargs.get("dtype"), device=kwargs.get("device"))
     defaults = dict(
         context_length=77,
         transformer_width=512,

@@ -1,8 +1,8 @@
 """Byte-level BPE tokenizer (CLIP-compatible) with an added ``<|mask|>`` token.
 
 The port's own copy of declip_tpu/tokenizer/bpe.py (the two packages must
-produce the same ids for the same text; tests/test_torch_host.py checks it).
-Only what serving reaches is copied: ``tokenize`` and what it needs.
+produce the same ids for the same text, and the same text for the same ids;
+tests/test_torch_host.py and tests/test_torch_tools_extra.py check it).
 
 Implements the public CLIP BPE scheme the reference uses
 (prototype/model/utils/text_utils/simple_tokenizer.py): a reversible
@@ -30,7 +30,7 @@ import gzip
 import html
 import os
 from functools import lru_cache
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -110,6 +110,7 @@ class BpeTokenizer:
         if merges_path is None:
             merges_path = default_merges_path()
         self.byte_encoder = byte_unicode_table()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
 
         merges: List[Tuple[str, str]] = []
         if merges_path is not None:
@@ -130,6 +131,7 @@ class BpeTokenizer:
         vocab += ["<|mask|>", "<|startoftext|>", "<|endoftext|>"]
 
         self.encoder = {tok: i for i, tok in enumerate(vocab)}
+        self.decoder = {i: tok for tok, i in self.encoder.items()}
         self.bpe_ranks = {m: i for i, m in enumerate(merges)}
         self._cache = {
             "<|startoftext|>": "<|startoftext|>",
@@ -201,6 +203,17 @@ class BpeTokenizer:
             btok = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
             ids.extend(self.encoder[piece] for piece in self._bpe(btok).split(" "))
         return ids
+
+    def decode(self, ids: Iterable[int]) -> str:
+        """Text of ``ids``: the pieces joined and mapped back to bytes, the
+        bytes decoded as UTF-8 with invalid sequences replaced, each
+        ``</w>`` made a space. A special token comes out as its name
+        (``<|endoftext|>``), as in the JAX package."""
+        text = "".join(self.decoder[i] for i in ids)
+        raw = bytearray(self.byte_decoder[c] for c in text
+                        if c in self.byte_decoder)
+        return raw.decode("utf-8", errors="replace").replace(
+            "</w>", " ").strip()
 
     # --- batch tokenization ----------------------------------------------
     def tokenize(

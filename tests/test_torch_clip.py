@@ -160,8 +160,12 @@ def test_seeded_init_matches_jax_scheme():
     assert conv.abs().max().item() <= 2 * lecun + 1e-6
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="HuggingFace"):
+def test_unported_options_raise(monkeypatch):
+    """A Bert text tower is ported (models/hf_text.py) and needs local
+    weights: without them it raises as the JAX package's does. A dtype
+    that is no floating type raises."""
+    monkeypatch.delenv("DECLIP_HF_TEXT_PATH", raising=False)
+    with pytest.raises(FileNotFoundError, match="needs local pretrained"):
         torch_model_entry({"type": "clip_vitb32", "kwargs": {
             "text_encode": {"text_encode_type": "Bert", "vocab_size": 10}}})
     with pytest.raises(ValueError, match="not a floating dtype"):

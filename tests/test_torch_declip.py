@@ -576,10 +576,14 @@ def _unported(kind):
     model_entry(cfg)
 
 
-@pytest.mark.parametrize("kind,item", [
-    ("hf_text", "1.9"), ("moe", "1.10")])
-def test_unported_variants_raise(kind, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
+@pytest.mark.parametrize("kind,error,match", [
+    ("hf_text", FileNotFoundError, "needs local pretrained files"),
+    ("moe", NotImplementedError, "ROADMAP.md item 1.10")])
+def test_unported_variants_raise(kind, error, match, monkeypatch):
+    """MoE towers are not ported; a Bert text tower is (models/hf_text.py),
+    and without local weights it raises as the JAX package's does."""
+    monkeypatch.delenv("DECLIP_HF_TEXT_PATH", raising=False)
+    with pytest.raises(error, match=match):
         _unported(kind)
 
 

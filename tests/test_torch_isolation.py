@@ -12,6 +12,16 @@ from torch_threads import single_thread_env
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "declip_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "declip_tpu")
+# the modules of the last single-card slice; hf_text imports transformers
+# only when a tower is built
+SLICE_MODULES = ("declip_tpu_torch.models.hf_text",
+                 "declip_tpu_torch.tools.text_visualize",
+                 "declip_tpu_torch.tools.linear_probe",
+                 "declip_tpu_torch.tools.learnability",
+                 "declip_tpu_torch.data.synthetic_shapes",
+                 "declip_tpu_torch.data.shapes_batches",
+                 "declip_tpu_torch.utils.mixup",
+                 "declip_tpu_torch.utils.debug")
 
 
 def _port_sources():
@@ -28,6 +38,8 @@ def test_importing_every_module_loads_no_jax():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print('FORBIDDEN', bad)\n"
         "print('MODULES', sum(m.startswith('declip_tpu_torch.') for m in sys.modules))\n"
+        f"print('SLICE', [m for m in {SLICE_MODULES!r} if m not in sys.modules])\n"
+        "print('TRANSFORMERS', 'transformers' in sys.modules)\n"
     )
     env = single_thread_env(PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -36,6 +48,8 @@ def test_importing_every_module_loads_no_jax():
     assert "FORBIDDEN []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
     assert n >= len(list(PORT.rglob("*.py"))) - 1  # every module, bar __init__
+    assert "SLICE []" in out.stdout, out.stdout
+    assert "TRANSFORMERS False" in out.stdout, out.stdout
 
 
 def test_operator_calls_import_no_dynamo():
@@ -126,8 +140,9 @@ def test_chip_smoke_fails_without_cuda():
 
 
 def test_data_path_imports_no_torch():
-    """The host data path (what ``worker_type: process`` workers import)
-    loads neither torch nor JAX: a spawned worker never touches CUDA."""
+    """The host data path (what ``worker_type: process`` workers and the
+    learnability run's batch worker import) loads neither torch nor JAX:
+    a spawned worker never touches CUDA."""
     code = (
         "import sys\n"
         "import declip_tpu_torch.data.dataloader, declip_tpu_torch.data.dataset\n"
@@ -135,6 +150,8 @@ def test_data_path_imports_no_torch():
         "import declip_tpu_torch.data.transforms, declip_tpu_torch.tokenizer\n"
         "import declip_tpu_torch.data.wds, declip_tpu_torch.data.native\n"
         "import declip_tpu_torch.data.imagenet\n"
+        "import declip_tpu_torch.data.synthetic_shapes\n"
+        "import declip_tpu_torch.data.shapes_batches\n"
         "import declip_tpu_torch.tools.make_wds\n"
         "print('LOADED', sorted(m for m in sys.modules\n"
         "                       if m.split('.')[0] in ('torch', 'jax')))\n"
