@@ -264,6 +264,26 @@ Phases (any failed check raises, and the script exits non-zero):
    24 K2 a step, the image tower's only; where it does not, one line
    says so.
 
+16. MoE towers, after phase 15: ``main`` trains CLIP ViT-B/32 at full
+   width with both towers MoE (8 experts, top-2, capacity factor 1.25,
+   aux weight 0.01; 24 MoE blocks, about 0.8 B parameters) on the YFCC15M
+   CLIP recipe as its file has it (bf16, B=128, AdamW) on phase 7's
+   corpus for MOE_STEPS steps, saved at the end, with its zero-shot eval:
+   losses finite, no skipped update, ``moe_aux_loss`` logged and above 0,
+   a router's and an expert's weights moved, 24 K1 and 24 K2 a step and
+   K1 for the eval, no plain version; the share of token choices the
+   capacity dropped, each block and step; steps 4-6, the device's busy
+   time and idle share over repeated-batch steps, the index kernels that
+   dispatch and combine, peak memory; then one fp32 step through K1/K2
+   against the plain attention path (the loss within 1e-4, each
+   gradient's ||g_k - g_p|| <= 1e-4 ||g_p||), the plain path routed as
+   the kernels' path routed, with the count of routing choices its own
+   routers would have made otherwise. Phase 11b also runs
+   two new cases on its two gloo ranks: CLIP ViT-B/32 fp32 under
+   ``parallelism: {fsdp: true}`` (with an EMA; each rank's resident
+   parameter, slot and EMA bytes printed) and a MoE CLIP under ``{ep:
+   2}`` at a capacity that drops tokens, each against one process.
+
 The three last lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object with every kernel's numbers, and the ok/device
 JSON object. Full results also go to chiprun_out/chip_smoke.json.
@@ -695,6 +715,19 @@ DECLIP88M_RECIPE = os.path.join(
     "declip88m_vitb32_declip", "config.yaml")
 SIGLIP_STEPS, DECLIP88M_STEPS = 6, 4
 CLIP_PER_STEP = {"K1": 24, "K2": 24, "K3": 0, "K4": 0, "K5": 0}
+# phase 16: CLIP ViT-B/32 with both towers MoE, through the solver on
+# the YFCC15M CLIP recipe (bf16, B=128)
+CLIP_RECIPE = os.path.join(
+    "experiments", "clip_experiments", "yfcc15m", "yfcc15m_vit_clip",
+    "config.yaml")
+MOE = {"num_experts": 8, "top_k": 2, "capacity_factor": 1.25,
+       "aux_weight": 0.01}
+MOE_STEPS = 6
+MOE_TIMED_STEPS = 3
+# 11b's expert-parallel case: the MoE CLIP cut to DP_EP_LAYERS layers a
+# tower, at a capacity of 0.5 that drops tokens
+DP_EP_MOE = dict(MOE, capacity_factor=0.5)
+DP_EP_LAYERS = 4
 DECLIP_VIT_PER_STEP = {"K1": 48, "K2": 48, "K3": 0, "K4": 0, "K5": 0}
 # 12c: one fp32 step of CLIP ViT-B/32 at B=128 under each loss kind against
 # its full kind, and GradCache's step against the unchunked one: the loss
@@ -4461,19 +4494,29 @@ def phase_dp_launcher(solver_result, tmp, corpus):
 
 def _dp_case(name, world):
     """Phase 11b's case ``name`` ("declip", "declip_per_rank_bn",
-    "filip", and phase 12d's "ring" and "sigmoid_ring") for a world of
-    ``world``: (config text, image_encode overrides, batch builder). The
-    per-rank BatchNorm's one-process counterpart is the same batch in two
-    BatchNorm groups."""
+    "filip", phase 12d's "ring" and "sigmoid_ring", and phase 16's
+    "fsdp" and "ep") for a world of ``world``: (config text, overrides by
+    tower, batch builder). The per-rank BatchNorm's one-process
+    counterpart is the same batch in two BatchNorm groups; "ep" is the
+    MoE CLIP at DP_EP_LAYERS layers a tower and a capacity that drops
+    tokens."""
     if name == "filip":
         return FILIP_CONFIG, {}, _filip_batch
     if name in DP_RING_CASES:
         return clip_loss_config(name), {}, _clip_batch
+    if name == "fsdp":
+        return TRAIN_CONFIG, {}, _clip_batch
+    if name == "ep":
+        moe = {"moe": DP_EP_MOE}
+        return TRAIN_CONFIG, {
+            "image_encode": {"layers": DP_EP_LAYERS, **moe},
+            "text_encode": {"transformer_layers": DP_EP_LAYERS, **moe}}, \
+            _clip_batch
     extra = {}
     if name == "declip_per_rank_bn":
         extra = ({"use_sync_bn": False} if world > 1
                  else {"bn_stats_groups": DP_WORLD})
-    return DECLIP_CONFIG, extra, _declip_batch
+    return DECLIP_CONFIG, {"image_encode": extra}, _declip_batch
 
 
 def dp_step(name, group):
@@ -4492,14 +4535,26 @@ def dp_step(name, group):
         path_prefix_mask,
         scheduler_entry,
     )
-    from declip_tpu_torch.train import make_train_step, new_train_state
+    from declip_tpu_torch.parallel.fsdp import (
+        ShardPlan,
+        make_plan,
+        shard_train_state,
+    )
+    from declip_tpu_torch.parallel.mesh import bind_experts, make_mesh
+    from declip_tpu_torch.train import (
+        EmaConfig,
+        init_ema,
+        make_train_step,
+        new_train_state,
+    )
 
     world = 1 if group is None else group.size
-    text, extra, make_batch = _dp_case(name, world)
+    text, towers, make_batch = _dp_case(name, world)
     cfg = parse_config(text)
     kwargs = dict(cfg.model.kwargs)
     kwargs["dtype"] = "float32"
-    kwargs["image_encode"] = {**kwargs["image_encode"], **extra}
+    for tower, extra in towers.items():
+        kwargs[tower] = {**kwargs[tower], **extra}
     mcfg = {"type": cfg.model.type, "kwargs": kwargs}
     model = model_entry(mcfg, data_group=group)
     model.init_weights(torch.Generator().manual_seed(SEED))
@@ -4516,15 +4571,30 @@ def dp_step(name, group):
     update = tx.update_
 
     def capture(grads, *args, **kwargs):
-        norms.update({n: torch.linalg.vector_norm(g.float()).item()
+        # a shard's norm over its group (every rank, in one order)
+        plan = state.shards
+        norms.update({n: (plan.global_norm({n: g}) if plan and n in
+                          plan.shards else torch.linalg.vector_norm(
+                              g.float())).item()
                       for n, g in grads.items()})
         return update(grads, *args, **kwargs)
 
     tx.update_ = capture
+    # the FSDP case keeps an EMA, which FSDP shards too
+    ema_cfg = EmaConfig(decay=0.999) if name == "fsdp" else None
     state = new_train_state(model=model, opt_state=tx.init(named),
+                            ema_params=(init_ema(named, ema_cfg)
+                                        if ema_cfg else None),
                             bank_text=_seeded_method_bank(model))
+    if name in ("fsdp", "ep") and group is not None:
+        mesh = make_mesh(group, group.size if name == "ep" else 1)
+        bind_experts(model, mesh)
+        shard_train_state(state, make_plan(
+            model, group, fsdp=name == "fsdp", mesh=mesh), tx)
+    held = (state.shards.resident_bytes(state) if state.shards
+            else ShardPlan(model, {}).resident_bytes(state))
     step = make_train_step(model, tx, cfg, sched, total_steps=max_iter,
-                           axis_name=group)
+                           axis_name=group, ema_cfg=ema_cfg)
     batch = make_batch(np.random.default_rng(SEED))
     if group is not None:
         b = TRAIN_BATCH // group.size
@@ -4541,6 +4611,8 @@ def dp_step(name, group):
     written = 2 * TRAIN_BATCH
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
            "grad_norms": norms, "launches": launches, "step_ms": step_ms,
+           "held": held, "kept": [[int(x) for x in m.kept.tolist()]
+                                  for _, m in _moe_blocks(model)],
            "bn": {k: v.cpu().numpy() for k, v in model.state_dict().items()
                   if k.endswith(("running_mean", "running_var"))},
            "bank": None if ptr is None else
@@ -4626,7 +4698,7 @@ def _dp_compare(name, ranks, whole):
     return worst
 
 
-def phase_dp_two_ranks(tmp, backend="gloo"):
+def phase_dp_two_ranks(tmp, backend="gloo", cases=None):
     """Phase 11b (gloo, two ranks sharing the one card) or 11c (NCCL, one
     card a rank): DeCLIP-R50 at full width in fp32 with BatchNorm over the
     global batch and, ``use_sync_bn: false``, over each rank's rows, then
@@ -4639,7 +4711,8 @@ def phase_dp_two_ranks(tmp, backend="gloo"):
     keyed by the rank)."""
     import torch
 
-    cases = ("declip", "declip_per_rank_bn", "filip", *DP_RING_CASES)
+    cases = cases or ("declip", "declip_per_rank_bn", "filip",
+                      *DP_RING_CASES, "fsdp", "ep")
     # the one-process references run here while the ranks run
     ranks, wall, wholes = run_ranks(
         DP_WORLD, "--phase-11b-rank",
@@ -4658,7 +4731,8 @@ def phase_dp_two_ranks(tmp, backend="gloo"):
             failed.append(str(e))
             worst = {"failed": str(e)}
         per_step = {"declip": 24, "declip_per_rank_bn": 24, "filip": 24,
-                    "ring": 24, "sigmoid_ring": 24}
+                    "ring": 24, "sigmoid_ring": 24, "fsdp": 24,
+                    "ep": 2 * DP_EP_LAYERS}
         li = 2 if name == "filip" else 0
         want = {"K1": per_step[name], "K2": per_step[name], "K3": li,
                 "K4": li, "K5": li}
@@ -4672,6 +4746,39 @@ def phase_dp_two_ranks(tmp, backend="gloo"):
                      "loss": rows[0]["metrics"]["loss"],
                      "one_process_loss": whole["metrics"]["loss"],
                      "worst_share": worst}
+        if name in ("fsdp", "ep"):
+            out[name]["held_by_rank"] = [r["held"] for r in rows]
+            out[name]["held_one_process"] = whole["held"]
+            share = {k: [r["held"][k] / max(whole["held"][k], 1)
+                         for r in rows] for k in whole["held"]}
+            out[name]["held_share"] = share
+            print(f"phase 11 ({backend}) {name}: bytes each rank holds "
+                  f"(params, parameter slots, Adafactor's leaf slots, EMA) "
+                  f"{[r['held'] for r in rows]} against one process's "
+                  f"{whole['held']}: shares {share}", flush=True)
+            if name == "fsdp":
+                check(all(0.45 < x < 0.75 for k in ("params", "slots",
+                                                    "ema")
+                          for x in share[k]),
+                      f"phase 11 fsdp: each rank should hold about half: "
+                      f"{share}")
+        if name == "ep":
+            # every rank counts the global batch's choices; one process's
+            # may differ by a near tie in a router (printed)
+            kept = rows[0]["kept"]
+            check(all(r["kept"] == kept for r in rows),
+                  f"phase 11 ep: kept choices by rank "
+                  f"{[r['kept'] for r in rows]}")
+            out[name]["kept_one_process"] = whole["kept"]
+            tokens = [TRAIN_BATCH * (50 if i < DP_EP_LAYERS else 77)
+                      for i in range(len(kept))]
+            drops = [_dropped_share(k, n, MOE["top_k"])
+                     for k, n in zip(kept, tokens)]
+            out[name]["dropped_share"] = drops
+            check(max(drops) > 0, f"phase 11 ep: no token dropped {drops}")
+            print(f"phase 11 ({backend}) ep: dropped share by block "
+                  f"{[round(d, 4) for d in drops]}; kept choices by block "
+                  f"{kept}, one process {whole['kept']}", flush=True)
         print(f"phase 11 ({backend}, {DP_WORLD} ranks) {name}: loss "
               f"{rows[0]['metrics']['loss']:.6f} vs one process "
               f"{whole['metrics']['loss']:.6f}; the worst share of each "
@@ -6364,6 +6471,293 @@ def phase_last_modules(tmp, card):
     return out
 
 
+def _moe_sets():
+    """The --set arguments that make phase 16's recipe MoE on both
+    towers."""
+    return [f"model.kwargs.{tower}.moe={json.dumps(MOE)}"
+            for tower in ("image_encode", "text_encode")]
+
+
+def _moe_blocks(model):
+    from declip_tpu_torch.models.layers import MoeMlpBlock
+
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, MoeMlpBlock)]
+
+
+def _dropped_share(kept, n_tokens, k):
+    """The share of a block's k * n choices that its capacity dropped."""
+    return 1.0 - sum(kept) / (k * n_tokens)
+
+
+class _RouterReplay:
+    """``torch.argmax`` as the MoE blocks call it (models/layers.py): the
+    first ``calls`` calls (one forward: k passes a block) are recorded,
+    and the next ones return the recorded choices, so that a second
+    forward routes every token as the first did; ``differ`` counts the
+    (token, pass) choices the second forward's own router would have made
+    otherwise (a near tie that the other path's rounding flips), of
+    ``choices``."""
+
+    def __init__(self, calls):
+        self.calls = calls
+        self.record = []
+        self.differ = self.choices = 0
+
+    def __enter__(self):
+        import torch
+
+        self.argmax = real = torch.argmax
+
+        def argmax(input, *args, **kwargs):
+            out = real(input, *args, **kwargs)
+            caller = sys._getframe(1).f_globals.get("__name__")
+            if caller != "declip_tpu_torch.models.layers":
+                return out
+            if len(self.record) < self.calls:
+                self.record.append(out)
+                return out
+            want = self.record[self.replayed % self.calls]
+            self.replayed += 1
+            self.differ += int((want != out).sum())
+            self.choices += out.numel()
+            return want
+
+        self.replayed = 0
+        torch.argmax = argmax
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.argmax = self.argmax
+
+
+def _moe_fp32_check(cfg, batch):
+    """Phase 16's fp32 step: one loss and gradient of the MoE CLIP at full
+    width through K1/K2 against the plain attention path, from the same
+    seeded weights and batch, the plain path routed as the kernels' path
+    routed (``_RouterReplay``: the kernels are what is held, and a near
+    tie in a router that the paths' rounding flips would move a token to
+    another expert); the choices its own router would have made
+    otherwise are counted and printed."""
+    import torch
+
+    from declip_tpu_torch.train import make_loss_fn
+
+    model = build_clip(cfg, "float32")
+    calls = MOE["top_k"] * len(_moe_blocks(model))
+    with _RouterReplay(calls) as replay:
+        totals, grads = step_kernels_vs_plain(model, make_loss_fn(cfg),
+                                              batch)
+    check(replay.replayed == calls, f"phase 16: {replay.replayed} routing "
+                                    f"passes replayed, want {calls}")
+    flips, total_choices = replay.differ, replay.choices
+    loss_err = abs(totals["auto"] - totals["xla"]) / abs(totals["xla"])
+    rel = {}
+    for (name, _), a, b in zip(model.named_parameters(), grads["auto"],
+                               grads["xla"]):
+        norm = torch.linalg.vector_norm(b).item()
+        diff = torch.linalg.vector_norm(a - b).item()
+        rel[name] = diff / norm if norm > 0 else (0.0 if diff == 0
+                                                   else float("inf"))
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    out = {"loss": totals, "loss_rel_err": loss_err,
+           "max_grad_rel_norm_err": worst[0][1], "largest": worst,
+           "choices_that_differ": flips, "choices": total_choices}
+    print(f"phase 16 fp32 step, kernels vs plain attention: loss "
+          f"{totals['auto']:.6f} vs {totals['xla']:.6f} (rel err "
+          f"{loss_err:.2e}, limit {STEP_LOSS_RTOL}); max relative gradient "
+          f"norm err {worst[0][1]:.3g} (limit {STEP_GRAD_REL_NORM}; "
+          f"largest {[(n, f'{r:.3g}') for n, r in worst]}; the plain "
+          f"path routed as the kernels' path); routing choices (token, "
+          f"pass) that differ between the two paths' own routers: "
+          f"{flips} of {total_choices}"
+          + (" (a near tie in a router flipped them)" if flips else ""),
+          flush=True)
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"phase 16 fp32 loss kernels {totals['auto']} vs plain "
+          f"{totals['xla']}")
+    check(worst[0][1] <= STEP_GRAD_REL_NORM,
+          f"phase 16 fp32 gradients: ||kernels - plain|| / ||plain|| "
+          f"over the limit {STEP_GRAD_REL_NORM}: {worst}")
+    del model, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(tmp, corpus):
+    """Phase 16: CLIP ViT-B/32 at full width with both towers MoE (8
+    experts, top-2, capacity 1.25, aux 0.01) through the solver's
+    ``main`` on phase 7's corpus (bf16, B=128, the YFCC15M CLIP recipe as
+    its file has it, the data paths and frequencies set), MOE_STEPS
+    steps, saved once at the end, with its zero-shot eval: losses finite, no
+    update skipped, ``moe_aux_loss`` logged and above 0, a router's and
+    an expert's weights moved, the exact K1/K2 launches; the share of
+    token choices the capacity dropped; steps 4-6, the device's busy
+    time and idle share over repeated-batch steps, the index kernels
+    that dispatch and combine, peak memory; then one fp32 step against
+    the plain attention path (``_moe_fp32_check``)."""
+    import numpy as np
+    import torch
+
+    from declip_tpu_torch import solver as solver_mod
+    from declip_tpu_torch.config import override, parse_config
+
+    # no periodic save: the one at the end is about 8 GiB (the weights
+    # and Adam's two slots of 0.7 B parameters)
+    cfg_path, sets = solver_experiment(tmp, "exp_moe", corpus, CLIP_RECIPE,
+                                       save_freq=0)
+    sets += _moe_sets() + [f"lr_scheduler.kwargs.max_iter={MOE_STEPS}"]
+    exp = os.path.dirname(cfg_path)
+    watch = ("visual.transformer.resblocks.0.moe.router",
+             "visual.transformer.resblocks.0.moe.wi",
+             "encode_text.transformer.resblocks.11.moe.router",
+             "encode_text.transformer.resblocks.11.moe.wo")
+    rec = {"kept": []}
+    real_train = solver_mod.Solver.train
+
+    def recording_train(self):
+        named = dict(self.model.named_parameters())
+        rec["before"] = {n: named[n].detach().clone() for n in watch}
+        inner = self._train_step
+        blocks = _moe_blocks(self.model)
+
+        def step(state, batch):
+            out = inner(state, batch)
+            rec["kept"].append([m.kept for _, m in blocks])
+            return out
+
+        self._train_step = step
+        return real_train(self)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    solver_mod.Solver.train = recording_train
+    try:
+        with _CallCounter() as plain:
+            reset_launches()  # a main path starts
+            t = time.perf_counter()
+            solver = solver_mod.main(["--config", cfg_path, "--device",
+                                      "cuda", "--set", *sets])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
+            launches = read_launches()  # ... and ends
+    finally:
+        solver_mod.Solver.train = real_train
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(plain.calls == 0, f"phase 16: {plain.calls} plain calls")
+    model = solver.model
+    vis, txt = model.visual, model.encode_text
+    blocks = _moe_blocks(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    check((solver.method, vis.width, len(vis.transformer.resblocks),
+           txt.width, len(txt.transformer.resblocks), vis.dtype,
+           solver.global_batch, len(blocks),
+           {(m.num_experts, m.top_k, m.capacity_factor) for _, m in blocks})
+          == ("clip", 768, 12, 512, 12, torch.bfloat16, TRAIN_BATCH, 24,
+              {(MOE["num_experts"], MOE["top_k"],
+                MOE["capacity_factor"])}),
+          "phase 16: not the MoE CLIP ViT-B/32 at full width")
+    eval_batches = -(-SOLVER_CLASSES * SOLVER_PER_CLASS // TRAIN_BATCH)
+    scalars, top = _solver_checks("phase 16", solver, exp, MOE_STEPS,
+                                  CLIP_PER_STEP, eval_batches, launches)
+    aux = [v for _, v in scalars.get("moe_aux_loss", [])]
+    check(len(aux) == MOE_STEPS and min(aux) > 0,
+          f"phase 16: moe_aux_loss {aux}")
+    named = dict(model.named_parameters())
+    moved = {n: float((named[n].detach() - b).abs().max())
+             for n, b in rec["before"].items()}
+    check(all(v > 0 for v in moved.values()),
+          f"phase 16: weights did not move: {moved}")
+    tokens = {"visual": TRAIN_BATCH * 50, "encode_text": TRAIN_BATCH * 77}
+    dropped = []
+    for kept in rec["kept"]:
+        shares = [_dropped_share([int(x) for x in k.tolist()],
+                                 tokens[n.split(".")[0]], MOE["top_k"])
+                  for (n, _), k in zip(blocks, kept)]
+        dropped.append(shares)
+    drops = np.asarray(dropped)
+    window = solver_window(solver.timings, *SOLVER_TIMED, TRAIN_BATCH)
+    step_ms = window["step_s_without_saves"] * 1e3
+
+    # the device's busy time over repeated-batch steps on the solver's
+    # state; the captions in the recipe's own (byte-level) vocabulary
+    from declip_tpu_torch.tokenizer import get_tokenizer
+
+    rng = np.random.default_rng(SEED)
+    ids = get_tokenizer().tokenize(
+        [f"a photo of shape {i} in colour {i % 7}"
+         for i in range(TRAIN_BATCH)])
+    check(int(np.max(ids)) < txt.vocab_size,
+          f"phase 16: token ids beyond the vocab of {txt.vocab_size}")
+    batch = {"images": torch.from_numpy(rng.normal(
+                 size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda(),
+             "tokens": torch.from_numpy(np.asarray(ids)).long().cuda()}
+    step = solver._train_step
+    for _ in range(2):
+        step(solver.state, batch)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(MOE_TIMED_STEPS):
+        step(solver.state, batch)
+    end.record()
+    end.synchronize()
+    repeated_ms = start.elapsed_time(end) / MOE_TIMED_STEPS
+    dev = device_events(lambda: step(solver.state, batch), MOE_TIMED_STEPS)
+    check(dev, "phase 16: the profiler saw no device time")
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3 / MOE_TIMED_STEPS
+    busy = sum(by_name.values())
+    index_ms = sum(v for n, v in by_name.items()
+                   if any(t in n.lower() for t in ("index", "gather",
+                                                    "scatter")))
+    expert_gemm = {n[:90]: round(v, 3) for n, v in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:6]}
+    del solver, step, model, named, rec, vis, txt, blocks
+    torch.cuda.empty_cache()
+
+    cfg = parse_config(cfg_path)
+    for kv in _moe_sets():
+        key, _, value = kv.partition("=")
+        cfg = override(cfg, key, json.loads(value))
+    fp32 = _moe_fp32_check(cfg, batch)
+    out = {"launches": launches, "wall_s": wall_s, "params": n_params,
+           "losses": [v for _, v in scalars["loss"]], "moe_aux_loss": aux,
+           "top1": top["top1"], "top5": top["top5"], "moved": moved,
+           "dropped_share": dropped,
+           "dropped_share_mean": float(drops.mean()),
+           "dropped_share_max": float(drops.max()), "window": window,
+           "peak_device_mib": peak_mib, "repeated_step_ms": repeated_ms,
+           "busy_ms": busy, "idle_share": 1 - busy / repeated_ms,
+           "index_kernels_ms": index_ms, "top_kernels_ms": expert_gemm,
+           "fp32": fp32}
+    print(f"phase 16: MoE CLIP ViT-B/32 ({n_params / 1e6:.1f} M fp32 "
+          f"params; {MOE}) through main: {MOE_STEPS} steps in "
+          f"{wall_s:.1f} s with the eval; losses "
+          f"{[round(x, 4) for x in out['losses']]}; moe_aux_loss "
+          f"{[round(x, 5) for x in aux]}; zero-shot top1 {top['top1']:.2f} "
+          f"top5 {top['top5']:.2f}; the capacity dropped "
+          f"{drops.mean():.2%} of the token choices on average (the worst "
+          f"block and step {drops.max():.2%}; by step, the mean "
+          f"{[round(float(x), 4) for x in drops.mean(1)]}); steps "
+          f"{SOLVER_TIMED[0]}-{SOLVER_TIMED[1]}: {step_ms:.2f} ms/step "
+          f"without the save ({window['data_s'] * 1e3:.2f} waiting for "
+          f"data); repeated-batch step {repeated_ms:.2f} ms (CUDA events), "
+          f"device busy {busy:.2f} ms, idle share {out['idle_share']:.1%}; "
+          f"index/gather/scatter kernels (MoE dispatch and combine and "
+          f"their backward, with the embedding and EOT lookups) "
+          f"{index_ms:.2f} ms a step; peak device memory {peak_mib:.0f} "
+          f"MiB; kernel calls {launches}", flush=True)
+    for n, v in expert_gemm.items():
+        print(f"  {v:8.3f} ms  {n}")
+    return out
+
+
 def _path_sums(rows, cases, dtype_name, prefix=""):
     """Each time summed over the path's shapes in one dtype; the path is
     bound by what bounds its largest bound."""
@@ -6429,7 +6823,8 @@ def _li_entries(li_rows, li_paths, k3_eval):
 def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
                  train_result, filip_result, declip_result, solver_result,
                  fast_result, methods_result, solver_methods_result,
-                 last_result, ssl_result, tools_result, modules_result):
+                 last_result, ssl_result, tools_result, modules_result,
+                 moe_result):
     """One entry per kernel. K1 is on every path: its launches are the sum
     over the paths, each counted from 0 around it; its times are the
     serving path's (the sum over its two shapes, image L=50 and text L=77
@@ -6446,8 +6841,9 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
     and without GradCache; phase 13's MoCo, SimCLR and CLSA ViT-B/32
     steps) add to the launches, and so does phase 14's serving tools (the
     artifacts, int8, the two hosts, inference with saliency, the profiled
-    solver run), and phase 15's learnability run, linear probe, text
-    visualisation and HF-tower DeCLIP steps."""
+    solver run), phase 15's learnability run, linear probe, text
+    visualisation and HF-tower DeCLIP steps, and phase 16's MoE CLIP
+    through the solver, eval included."""
     serve = _path_sums(rows, MAIN_PATH_CASES, "float32")
     k1_train = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16", prefix="fwd_")
     k2 = _path_sums(bwd_rows, TRAIN_CASES, "bfloat16")
@@ -6475,7 +6871,8 @@ def kernels_line(rows, bwd_rows, li_rows, k3_eval, slice_result,
              "learnability": modules_result["learnability"]["launches"],
              "linear_probe": modules_result["probe"]["launches"],
              "text_visualize":
-                 modules_result["text_visualize"]["launches"]}
+                 modules_result["text_visualize"]["launches"],
+             "solver_moe": moe_result["launches"]}
     if modules_result["hf_text"].get("launches"):
         paths["train_declip_hf_text"] = modules_result["hf_text"][
             "launches"]
@@ -6592,6 +6989,7 @@ def main():
         ssl_result = timed("ssl", phase_ssl, tmp, corpus)
         modules_result = timed("last_modules", phase_last_modules, tmp,
                                card)
+        moe_result = timed("moe", phase_moe, tmp, corpus)
     finally:
         stop_serving_exports(exports)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6599,7 +6997,7 @@ def main():
                         train_result, filip_result, declip_result,
                         solver_result, fast_result, methods_result,
                         solver_methods_result, last_result, ssl_result,
-                        tools_result, modules_result)
+                        tools_result, modules_result, moe_result)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "hmma": hmma,
@@ -6615,7 +7013,7 @@ def main():
                    "data_parallel": dp_result,
                    "last_configs": last_result, "ssl": ssl_result,
                    "serving_tools": tools_result,
-                   "last_modules": modules_result,
+                   "last_modules": modules_result, "moe": moe_result,
                    "kernels": line["kernels"], "phase_s": PHASE_S,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s")

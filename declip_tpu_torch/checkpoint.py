@@ -25,7 +25,10 @@ Format: the reference's ``ckpt.pth.tar`` / ``ckpt_<iter>.pth.tar``, a
 - ``ssl``: MoCo's and CLSA's key encoder (its parameters and BatchNorm
   statistics, as a state dict), the queue and its pointer, or None;
 
-beside a ``ckpt_meta.json`` sidecar with the saving run's topology. Writes
+beside a ``ckpt_meta.json`` sidecar with the saving run's topology. Under
+FSDP or expert parallelism each save gathers the shards whole and each
+restore cuts this rank's parts, so the file is the same at any world.
+Writes
 go to a temporary file and are renamed into place, so a reader never sees a
 partial file. In a data-parallel run rank 0 writes, every rank restores the
 same file, and ``broadcast_state`` gives every rank rank 0's state at the
@@ -88,27 +91,42 @@ def _host_copy(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.detach().to("cpu", copy=True)
 
 
+def _whole(plan, slot: Optional[str] = None):
+    """``(name, tensor) -> the whole tensor``: the gather of a shard of
+    ``plan`` (a parameter-keyed slot's, or the EMA's), else the tensor."""
+    from declip_tpu_torch.parallel.fsdp import LEAF_SLOTS
+
+    if not plan or slot in LEAF_SLOTS:
+        return lambda name, t: t
+    return plan.full
+
+
 def state_to_host(state) -> Dict:
     """The checkpoint dict of a ``TrainState``, every tensor copied to the
     host now, so that a writer thread may serialise it while training
-    goes on."""
+    goes on. Under FSDP or expert parallelism (``state.shards``) the
+    shards are gathered whole, the world-1 format, so every rank of the
+    run calls it."""
     opt = state.opt_state
     bank = state.bank_text
+    plan = getattr(state, "shards", None)
+    whole = _whole(plan)
     guard = None
     if state.logit_ema_buffer is not None:
         guard = {"ema_buffer": _host_copy(state.logit_ema_buffer),
                  "clip_count": _host_copy(state.logit_clip_count)}
     return {
-        "model": {k: _host_copy(v)
+        "model": {k: _host_copy(whole(k, v))
                   for k, v in state.model.state_dict().items()},
         "last_iter": int(state.step),
         "optimizer": None if opt is None else {
             "count": int(opt.count),
             "sched_count": int(opt.sched_count),
-            **{slot: {k: _host_copy(v) for k, v in tensors.items()}
+            **{slot: {k: _host_copy(_whole(plan, slot)(k, v))
+                      for k, v in tensors.items()}
                for slot, tensors in opt.slots.items()}},
         "ema": None if state.ema_params is None else {
-            k: _host_copy(v) for k, v in state.ema_params.items()},
+            k: _host_copy(whole(k, v)) for k, v in state.ema_params.items()},
         "logit_guard": guard,
         "bank": None if bank is None else {"bank": _host_copy(bank.bank),
                                            "ptr": int(bank.ptr)},
@@ -147,18 +165,21 @@ def load_checkpoint_meta(ckpt_dir: str) -> dict:
 def save_checkpoint(ckpt_dir: str, state, *, save_many: bool = False,
                     k_times_dir: Optional[str] = None,
                     async_write: bool = False,
-                    meta: Optional[dict] = None) -> str:
+                    meta: Optional[dict] = None, write: bool = True) -> str:
     """Host-side save. Returns the written path.
 
     ``async_write=True`` overlaps the serialisation and the file write with
     training on a single writer thread; the copy to the host happens here,
     synchronously, so the step's in-place updates cannot reach what the
-    writer holds."""
-    _ensure_dir(ckpt_dir)
+    writer holds. A sharded state (``state.shards``) is gathered by every
+    rank: each calls this, and only the one with ``write`` writes."""
     step = int(state.step)
     host = state_to_host(state)
     name = f"ckpt_{step}.pth.tar" if save_many else "ckpt.pth.tar"
     path = os.path.join(ckpt_dir, name)
+    if not write:
+        return path
+    _ensure_dir(ckpt_dir)
     if async_write:
         _pending.append(_get_writer().submit(
             _write_state, host, step, path, ckpt_dir, k_times_dir, meta))
@@ -210,7 +231,8 @@ def _into(dst: torch.Tensor, src: torch.Tensor) -> None:
 def restore_checkpoint(path: str, state):
     """Restore a checkpoint into ``state`` in place (the model's weights
     and buffers, the optimizer state, EMA, guard and bank keep their
-    devices and dtypes) and return it.
+    devices and dtypes) and return it. A sharded state takes this
+    rank's part of each whole tensor.
 
     A file without optimizer state, such as the model-only file that
     ``declip_tpu.tools.convert --to_pth`` writes, raises: resuming it would
@@ -223,7 +245,10 @@ def restore_checkpoint(path: str, state):
             f"'declip_tpu.tools.convert --to_pth' writes); it cannot be "
             f"resumed. Start from its weights with saver.pretrain.path: "
             f"{path} (and move it out of the checkpoints directory)")
-    state.model.load_state_dict(ckpt["model"], strict=True)
+    plan = getattr(state, "shards", None)
+    local = plan.local if plan else (lambda name, t: t)
+    state.model.load_state_dict(
+        {k: local(k, v) for k, v in ckpt["model"].items()}, strict=True)
     discard_bn_stats(state.model)
     opt = ckpt["optimizer"]
     st = state.opt_state
@@ -234,16 +259,19 @@ def restore_checkpoint(path: str, state):
             f"{path}: optimizer state slots {sorted(saved)} differ from "
             f"this run's rule ({sorted(st.slots)}) or its names from the "
             f"model's parameters")
+    from declip_tpu_torch.parallel.fsdp import LEAF_SLOTS
+
     for slot, tensors in st.slots.items():
         for n, t in tensors.items():
-            _into(t, opt[slot][n])
+            src = opt[slot][n]
+            _into(t, src if slot in LEAF_SLOTS else local(n, src))
     st.count = int(opt["count"])
     st.sched_count = int(opt.get("sched_count", opt["count"]))
     if state.ema_params is not None:
         if ckpt.get("ema") is None:
             raise ValueError(f"{path} holds no EMA, which this run keeps")
         for n, t in state.ema_params.items():
-            _into(t, ckpt["ema"][n])
+            _into(t, local(n, ckpt["ema"][n]))
     if state.logit_ema_buffer is not None:
         guard = ckpt.get("logit_guard")
         if guard is None:

@@ -17,7 +17,12 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from declip_tpu_torch.models.layers import BatchNorm, BnAxis, as_dtype
+from declip_tpu_torch.models.layers import (
+    BatchNorm,
+    BnAxis,
+    MoeMlpBlock,
+    as_dtype,
+)
 from declip_tpu_torch.models.resnet import (
     modified_resnet_R50,
     modified_resnet_R101,
@@ -137,7 +142,9 @@ def bind_data_group(model: nn.Module, group, *, use_sync_bn: bool = True,
     (``comms.group_split``); the heads' (SimSiam, SLIP's predictor) take
     the global moments, as they do on the JAX solver's global batch. The
     running statistics take the global moments everywhere. Every rank
-    makes every subgroup, in the same order (torch's rule). An SSL model's
+    makes every subgroup, in the same order (torch's rule). MoE blocks
+    route over the group's global batch (``MoeMlpBlock.group``). An SSL
+    model's
     key encoder (``ssl_builders.init_moco_state``, a copy of the model made
     after this binding) shares its BatchNorms' groups."""
     from declip_tpu_torch.parallel import comms
@@ -160,7 +167,25 @@ def bind_data_group(model: nn.Module, group, *, use_sync_bn: bool = True,
     for name, m in model.named_modules():
         if isinstance(m, BatchNorm):
             m.axis_name = tower if name.startswith("visual.") else heads
+        elif isinstance(m, MoeMlpBlock):
+            m.group = group  # MoE routes over the global batch
     return model
+
+
+def expand_moe(tower: dict) -> dict:
+    """A tower's ``moe: {num_experts, top_k, capacity_factor, aux_weight}``
+    as its ``moe_*`` kwargs, in place (clip_model.py:171-179 of the JAX
+    package). Transformer towers take them; a ResNet tower refuses them
+    (an unknown kwarg), as in the JAX package."""
+    moe = tower.pop("moe", None)
+    if moe:
+        tower["moe_experts"] = int(moe.get("num_experts", 0))
+        for src, dst in (("top_k", "moe_top_k"),
+                         ("capacity_factor", "moe_capacity_factor"),
+                         ("aux_weight", "moe_aux_weight")):
+            if src in moe:
+                tower[dst] = moe[src]
+    return tower
 
 
 def build_towers(kwargs: dict, image_factory, device=None):
@@ -178,10 +203,7 @@ def build_towers(kwargs: dict, image_factory, device=None):
     image_kwargs = dict(kwargs.get("image_encode") or {})
     text_kwargs = dict(kwargs.get("text_encode") or {})
     for tower in (image_kwargs, text_kwargs):
-        if "moe" in tower or any(k.startswith("moe_") for k in tower):
-            raise NotImplementedError(
-                "MoE towers (moe / moe_* kwargs) are not ported yet "
-                "(ROADMAP.md item 1.10)")
+        expand_moe(tower)
     image_kwargs.setdefault("dtype", dtype)
     text_kwargs.setdefault("dtype", dtype)
     encode_type = text_kwargs.get("text_encode_type") or "Transformer"

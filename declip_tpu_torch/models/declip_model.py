@@ -56,7 +56,9 @@ class DECLIP(nn.Module):
     and ``EDA`` tells its loader to make EDA captions (the bank itself is
     train state). ``fuse_views`` runs the two text passes, and under
     a ViT the two image views, as one batch each; never a ResNet's views,
-    whose BatchNorm statistics are per view (declip.py:225-232). The heads
+    whose BatchNorm statistics are per view (declip.py:225-232), nor a MoE
+    tower's, whose capacity couples the batch (declip_model.py:124, 169
+    of the JAX package). The heads
     take the towers' embedding widths."""
 
     def __init__(self, visual: nn.Module, text: nn.Module,
@@ -135,7 +137,8 @@ class DECLIP(nn.Module):
                    return_dense: bool):
         """The text tower on two token batches: (embed, embed of second)
         and, with ``return_dense``, the first's token features."""
-        if self.fuse_views and isinstance(self.encode_text, TextTransformer):
+        if self.fuse_views and isinstance(self.encode_text, TextTransformer) \
+                and not getattr(self.encode_text, "moe_experts", 0):
             b = first.shape[0]
             out = self.encode_text(torch.cat([first, second]),
                                    return_dense=return_dense)
@@ -162,7 +165,8 @@ class DECLIP(nn.Module):
                     return_dense: bool = False):
         """The image tower on both views: (out 1, out 2), each the tower's
         output (a tuple with ``return_dense``)."""
-        if self.fuse_views and isinstance(self.visual, VisualTransformer):
+        if self.fuse_views and isinstance(self.visual, VisualTransformer) \
+                and not getattr(self.visual, "moe_experts", 0):
             b = img1.shape[0]
             both = self.visual(torch.cat([img1, img2]),
                                return_dense=return_dense)

@@ -88,7 +88,8 @@ class DEFILIP(DECLIP):
                          first_dense: bool):
         """The text tower on both token batches: (embed, embed of second,
         the first's token features or None, the second's)."""
-        if self.fuse_views and isinstance(self.encode_text, TextTransformer):
+        if self.fuse_views and isinstance(self.encode_text, TextTransformer) \
+                and not getattr(self.encode_text, "moe_experts", 0):
             b = first.shape[0]
             both, words = self.encode_text(torch.cat([first, second]),
                                            return_dense=True)

@@ -19,6 +19,7 @@ init scheme (layers.py:258-260).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
@@ -370,12 +371,206 @@ class MlpBlock(nn.Module):
         return dense(h, self.c_proj.weight, self.c_proj.bias, self.dtype)
 
 
+def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in fp32 at full precision (``Precision.HIGHEST``): on
+    CUDA with TF32 switched off for the call."""
+    a, b = a.float(), b.float()
+    if not (a.is_cuda and torch.backends.cuda.matmul.allow_tf32):
+        return a @ b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+
+class MoeMlpBlock(nn.Module):
+    """Mixture-of-Experts replacement for :class:`MlpBlock` (the JAX
+    package's ``MoeMlpBlock``, layers.py:130-227): token-choice top-k
+    routing with a static per-expert capacity.
+
+    Per token: router logits in fp32 at full precision, softmax, then k
+    passes in the JAX package's order, each placing every token's next
+    choice: a token's slot in its expert's buffer is the count of earlier
+    tokens that chose that expert in this pass plus the slots earlier
+    passes took (``cumsum(onehot) - onehot + taken``), and a token whose
+    slot reaches ``cap = min(n, max(1, ceil(k n cf / E)))`` is dropped
+    from that expert (the residual still carries it). The kept gates are
+    renormalised per token. Each expert is ``quick_gelu`` FFN with
+    biases. The Switch aux loss is ``E * sum_e f_e P_e``, f from the first
+    choices, P the mean router probability.
+
+    Dispatch and combine are index operations, not the JAX package's
+    [n, E, C] one-hot einsums (the same numbers: a slot holds one token,
+    a token at most k slots): the kept tokens' rows are copied into an
+    [E, C, d] buffer, the experts run as two batched products, and each
+    token gathers its k slots back, weighted by its gates.
+
+    Global routing (``group``, the data group, in training): the JAX
+    solver routes one GSPMD program over the global batch, so ``n``,
+    ``cap``, the slot counts and the aux loss's means are the global
+    batch's, its tokens in rank order. Each rank holds its own rows:
+    one all-gather of the [k, E] per-pass counts gives each pass's
+    offset of this rank's tokens (an exclusive prefix sum over the
+    ranks) and the slots every pass takes; ``P_e`` is summed over the
+    ranks by a gather whose backward sums the gradient, ``f_e`` from the
+    gathered counts. A rank's buffer holds its own kept tokens only,
+    ``min(cap, n_local)`` slots an expert (a token takes an expert at
+    most once).
+
+    Expert parallelism (``expert_group``, ``parallelism: {ep: N}``,
+    parallel/mesh.py): this rank holds only its expert group's share of
+    ``wi``/``bi``/``wo``/``bo`` (E/ep experts, ``parallel.fsdp``'s
+    expert shards); in training the buffer's chunks travel to their
+    experts' owners and back by a differentiable all-to-all. Eval mode
+    routes over the batch it is given, with every expert local.
+
+    ``forward(x)`` -> (y, aux), aux None outside training; ``kept`` is
+    then the [k] count of the choices each pass kept over the routed
+    batch (of its k * n: the rest were dropped)."""
+
+    def __init__(self, width: int, num_experts: int, top_k: int = 2,
+                 capacity_factor: float = 1.25,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        e, h = num_experts, 4 * width
+        self.num_experts = num_experts
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.dtype = dtype
+        self.group = None  # the routing group (models.clip_model)
+        self.expert_group = None  # EP (parallel.mesh.bind_experts)
+        self.kept: Optional[torch.Tensor] = None
+        self.router = nn.Parameter(torch.empty(width, e, device=device))
+        self.wi = nn.Parameter(torch.empty(e, width, h, device=device))
+        self.bi = nn.Parameter(torch.empty(e, h, device=device))
+        self.wo = nn.Parameter(torch.empty(e, h, width, device=device))
+        self.bo = nn.Parameter(torch.empty(e, width, device=device))
+
+    def init_weights(self, generator: torch.Generator, fc_std: float,
+                     proj_std: float) -> None:
+        width = self.router.shape[0]
+        nn.init.normal_(self.router, std=width ** -0.5, generator=generator)
+        nn.init.normal_(self.wi, std=fc_std, generator=generator)
+        nn.init.zeros_(self.bi)
+        nn.init.normal_(self.wo, std=proj_std, generator=generator)
+        nn.init.zeros_(self.bo)
+
+    def forward(self, x: torch.Tensor):
+        b, t, d = x.shape
+        e = self.num_experts
+        k = min(self.top_k, e)
+        group = self.group if self.training else None
+        world = 1 if group is None else group.size
+        n_loc = b * t
+        n = n_loc * world
+        cap = min(n, max(1, math.ceil(k * n * self.capacity_factor / e)))
+        slots = min(cap, n_loc)  # this rank's buffer, an expert
+        xf = x.reshape(n_loc, d)
+        probs = torch.softmax(fp32_matmul(xf, self.router), dim=-1)
+
+        # the k choices (JAX's argmax: the first maximum)
+        idx, gates, ranks, counts = [], [], [], []
+        remaining = probs
+        for j in range(k):
+            i = torch.argmax(remaining, dim=-1)
+            idx.append(i)
+            gates.append(probs.gather(1, i[:, None])[:, 0])
+            # a token's place among this pass's local tokens of its
+            # expert, scanned along the tokens of an [E, n] one-hot (a
+            # scan along dim 0 of [n, E] runs slowly on the card)
+            onehot = F.one_hot(i, e).t().contiguous()
+            ranks.append((torch.cumsum(onehot, 1) - onehot).gather(
+                0, i[None])[0])
+            counts.append(onehot.sum(1))
+            if j + 1 < k:
+                remaining = remaining.scatter(1, i[:, None], 0.0)
+        counts = torch.stack(counts)  # [k, E]
+        if group is not None:
+            every = comms.all_gather(counts[None], group)  # [W, k, E]
+            before = every[:group.rank].sum(0)
+            total = every.sum(0)
+        else:
+            before, total = torch.zeros_like(counts), counts
+
+        taken = torch.zeros(e, dtype=counts.dtype, device=x.device)
+        base = torch.zeros_like(taken)
+        keeps, dests, kept = [], [], []
+        trash = e * slots
+        for j in range(k):
+            i = idx[j]
+            keep = (taken + before[j])[i] + ranks[j] < cap
+            keeps.append(keep)
+            dests.append(torch.where(keep, i * slots + base[i] + ranks[j],
+                                     trash))
+            base = base + torch.clamp(cap - taken - before[j], min=0
+                                      ).minimum(counts[j])
+            kept.append(torch.clamp(cap - taken, min=0).minimum(total[j]))
+            taken = taken + kept[-1]
+        # the global batch's kept choices by pass (drop statistics)
+        self.kept = torch.stack(kept).sum(1)
+        gate_sum = sum(g * kp for g, kp in zip(gates, keeps))
+        norm = torch.clamp(gate_sum, min=1e-9)
+        weights = [g * kp / norm for g, kp in zip(gates, keeps)]
+
+        # dispatch: each kept choice's row copied into its slot (an empty
+        # slot stays a zero row; a dropped one goes to the trash row),
+        # whose backward is a gather: no accumulation into shared rows
+        buf = xf.new_zeros(trash + 1, d).index_copy(
+            0, torch.cat(dests), xf.repeat(k, 1))
+        out = self._experts(buf[:trash].view(e, slots, d))
+        # combine: each token's kept slots, its gates cast to the compute
+        # dtype as JAX casts the combine tensor
+        out = torch.cat([out.reshape(trash, d), out.new_zeros(1, d)])
+        y = sum(w.to(self.dtype).float()[:, None]
+                * out.index_select(0, dst).float()
+                for w, dst in zip(weights, dests))
+        y = y.to(self.dtype).view(b, t, d)
+
+        aux = None
+        if self.training:
+            frac = total[0].float() / n
+            mean_p = probs.sum(0, keepdim=True)
+            if group is not None:
+                mean_p = gather_features(mean_p, group).sum(0)
+            aux = e * torch.sum(frac * mean_p.reshape(e) / n)
+        return y, aux
+
+    def _experts(self, xin: torch.Tensor) -> torch.Tensor:
+        """The expert FFNs on the [E, C, d] buffer; where this rank holds
+        only its share of the experts (expert parallelism in training),
+        on the owners of the experts."""
+        if self.wi.shape[0] == self.num_experts:
+            return self._ffn(xin)
+        e, c, d = xin.shape
+        group = self.expert_group
+        ep, own = group.size, e // group.size
+        # chunk r (experts r*own .. r*own+own-1) to rank r of the group
+        recv = comms.AllToAll.apply(xin.reshape(e * c, d), group)
+        recv = recv.view(ep, own, c, d).transpose(0, 1).reshape(
+            own, ep * c, d)
+        out = self._ffn(recv)
+        out = out.view(own, ep, c, d).transpose(0, 1).reshape(e * c, d)
+        return comms.AllToAll.apply(out, group).view(e, c, d)
+
+    def _ffn(self, xin: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        hid = torch.bmm(xin.to(dt), self.wi.to(dt)) + self.bi[:, None].to(dt)
+        return torch.bmm(quick_gelu(hid), self.wo.to(dt)) + \
+            self.bo[:, None].to(dt)
+
+
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN transformer block (base_transformer.py:29-53), dense MLP."""
+    """Pre-LN transformer block (base_transformer.py:29-53): the dense
+    MLP, or with ``moe_experts`` a :class:`MoeMlpBlock` named ``moe``
+    (layers.py:246-249, 270-276 of the JAX package). Its forward returns
+    (x, the MoE aux loss or None)."""
 
     def __init__(self, width: int, num_heads: int, total_layers: int,
                  causal: bool = False, attn_impl: str = "auto",
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         self.total_layers = total_layers
         self.causal = causal
@@ -383,11 +578,16 @@ class ResidualAttentionBlock(nn.Module):
         self.attn = MultiHeadAttention(width, num_heads, attn_impl, dtype,
                                        device)
         self.ln_2 = LayerNorm(width, dtype=dtype, device=device)
-        self.mlp = MlpBlock(width, dtype, device)
+        if moe_experts:
+            self.moe = MoeMlpBlock(width, moe_experts, moe_top_k,
+                                   moe_capacity_factor, dtype, device)
+        else:
+            self.mlp = MlpBlock(width, dtype, device)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Reference scheme (text_transformer.py:120-129): qkv ~ N(0, w^-0.5),
-        out/c_proj ~ N(0, w^-0.5 (2L)^-0.5), c_fc ~ N(0, (2w)^-0.5)."""
+        out/c_proj ~ N(0, w^-0.5 (2L)^-0.5), c_fc ~ N(0, (2w)^-0.5); the
+        experts' ``wi``/``wo`` as c_fc/c_proj, the router N(0, w^-0.5)."""
         width = self.ln_1.normalized_shape[0]
         attn_std = width ** -0.5
         proj_std = (width ** -0.5) * ((2 * self.total_layers) ** -0.5)
@@ -396,14 +596,20 @@ class ResidualAttentionBlock(nn.Module):
                         generator=generator)
         nn.init.zeros_(self.attn.in_proj_bias)
         init_linear(self.attn.out_proj, proj_std, generator)
-        init_linear(self.mlp.c_fc, fc_std, generator)
-        init_linear(self.mlp.c_proj, proj_std, generator)
+        if hasattr(self, "moe"):
+            self.moe.init_weights(generator, fc_std, proj_std)
+        else:
+            init_linear(self.mlp.c_fc, fc_std, generator)
+            init_linear(self.mlp.c_proj, proj_std, generator)
         for ln in (self.ln_1, self.ln_2):
             ln.reset_parameters()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         x = x + self.attn(self.ln_1(x), causal=self.causal)
-        return x + self.mlp(self.ln_2(x))
+        if hasattr(self, "moe"):
+            y, aux = self.moe(self.ln_2(x))
+            return x + y, aux
+        return x + self.mlp(self.ln_2(x)), None
 
 
 class Transformer(nn.Module):
@@ -416,20 +622,32 @@ class Transformer(nn.Module):
     rest, its attention forward kernel included, in the backward.
     ``remat_policy`` is an XLA memory knob of the JAX package (see
     REMAT_POLICIES); it is checked so that its configs build, and changes
-    no result here."""
+    no result here.
+
+    MoE (``moe_experts`` > 0, every layer; layers.py:318-324, 388-418 of
+    the JAX package): a training forward appends ``moe_aux_weight`` times
+    the depth-summed aux loss to ``moe_aux``, as JAX sows it into its
+    ``moe`` collection; the train step takes the model's sum
+    (:func:`pop_moe_aux`). An eval forward adds nothing."""
 
     def __init__(self, width: int, layers: int, heads: int,
                  causal: bool = False, attn_impl: str = "auto",
                  dtype: torch.dtype = torch.float32, checkpoint: bool = False,
-                 remat_policy: str = "policy", device=None):
+                 remat_policy: str = "policy", device=None,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 moe_aux_weight: float = 0.01):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 f"remat_policy {remat_policy!r} not in {REMAT_POLICIES}")
         self.checkpoint = checkpoint
+        self.moe_aux_weight = moe_aux_weight
+        self.moe_aux: list = []
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, layers, causal, attn_impl,
-                                   dtype, device)
+                                   dtype, device, moe_experts, moe_top_k,
+                                   moe_capacity_factor)
             for _ in range(layers))
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -438,10 +656,27 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         remat = self.checkpoint and torch.is_grad_enabled()
+        auxes = []
         for block in self.resblocks:
             if remat:
-                x = torch.utils.checkpoint.checkpoint(block, x,
-                                                      use_reentrant=False)
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    block, x, use_reentrant=False)
             else:
-                x = block(x)
+                x, aux = block(x)
+            if aux is not None:
+                auxes.append(aux)
+        if auxes:
+            self.moe_aux.append(self.moe_aux_weight * torch.stack(auxes).sum())
         return x
+
+
+def pop_moe_aux(model: nn.Module) -> Optional[torch.Tensor]:
+    """The sum of the MoE aux losses that ``model``'s towers added since the
+    last call, which it clears; None where no MoE tower ran in training."""
+    out = None
+    for m in model.modules():
+        if isinstance(m, Transformer) and m.moe_aux:
+            total = torch.stack(m.moe_aux).sum()
+            out = total if out is None else out + total
+            m.moe_aux = []
+    return out

@@ -30,7 +30,9 @@ from declip_tpu_torch.models.layers import (
 
 class TextTransformer(nn.Module):
     """``scan_unroll`` is the JAX package's ``lax.scan`` unroll over depth,
-    an XLA scheduling knob: accepted so that its configs build, unused."""
+    an XLA scheduling knob: accepted so that its configs build, unused.
+    ``moe_*`` (text.py:48-53 of the JAX package): every block's MLP a
+    :class:`~declip_tpu_torch.models.layers.MoeMlpBlock` (0: dense)."""
 
     def __init__(self, vocab_size: int, embed_dim: int = 1024,
                  context_length: int = 77, transformer_width: int = 512,
@@ -38,11 +40,15 @@ class TextTransformer(nn.Module):
                  positional_embedding_flag: bool = True,
                  checkpoint: bool = False, remat_policy: str = "policy",
                  scan_unroll: int = -1, eot_id: Optional[int] = None,
-                 dtype=None, attn_impl: str = "auto", device=None):
+                 dtype=None, attn_impl: str = "auto", device=None,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 moe_aux_weight: float = 0.01):
         super().__init__()
         self.vocab_size = vocab_size
         self.width = transformer_width  # the token features' width
         self.dtype = dtype = as_dtype(dtype)
+        self.moe_experts = moe_experts
         self.eot_id = eot_id if eot_id is not None else vocab_size - 1
         self.token_embedding = uninitialised(
             nn.Embedding, vocab_size, transformer_width, device=device)
@@ -53,7 +59,10 @@ class TextTransformer(nn.Module):
         self.transformer = Transformer(
             transformer_width, transformer_layers, transformer_heads,
             causal=True, attn_impl=attn_impl, dtype=dtype,
-            checkpoint=checkpoint, remat_policy=remat_policy, device=device)
+            checkpoint=checkpoint, remat_policy=remat_policy, device=device,
+            moe_experts=moe_experts, moe_top_k=moe_top_k,
+            moe_capacity_factor=moe_capacity_factor,
+            moe_aux_weight=moe_aux_weight)
         self.ln_final = LayerNorm(transformer_width, dtype=dtype,
                                   device=device)
         self.text_projection = linear(transformer_width, embed_dim, device)

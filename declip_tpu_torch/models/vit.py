@@ -80,14 +80,20 @@ def resize_pos_grid(grid: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
 
 class VisualTransformer(nn.Module):
     """``scan_unroll`` is the JAX package's ``lax.scan`` unroll over depth,
-    an XLA scheduling knob: accepted so that its configs build, unused."""
+    an XLA scheduling knob: accepted so that its configs build, unused.
+    ``moe_*`` (vit.py:44-49 of the JAX package): every block's MLP a
+    :class:`~declip_tpu_torch.models.layers.MoeMlpBlock` of
+    ``moe_experts`` experts (0: dense)."""
 
     def __init__(self, input_resolution: int = 224, patch_size: int = 32,
                  width: int = 768, layers: int = 12, heads: int = 12,
                  embed_dim: int = 512, checkpoint: bool = False,
                  remat_policy: str = "policy", scan_unroll: int = -1,
                  freeze_conv1: bool = True, dtype=None,
-                 attn_impl: str = "auto", device=None):
+                 attn_impl: str = "auto", device=None,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 moe_aux_weight: float = 0.01):
         super().__init__()
         self.input_resolution = input_resolution
         self.patch_size = patch_size
@@ -96,6 +102,7 @@ class VisualTransformer(nn.Module):
         self.embed_dim = embed_dim
         self.freeze_conv1 = freeze_conv1
         self.dtype = dtype = as_dtype(dtype)
+        self.moe_experts = moe_experts
         g0 = input_resolution // patch_size  # grid the pos-emb was trained at
         self.conv1 = PatchEmbed(width, patch_size, device)
         self.class_embedding = nn.Parameter(torch.empty(width, device=device))
@@ -104,7 +111,10 @@ class VisualTransformer(nn.Module):
         self.ln_pre = LayerNorm(width, dtype=dtype, device=device)
         self.transformer = Transformer(
             width, layers, heads, attn_impl=attn_impl, dtype=dtype,
-            checkpoint=checkpoint, remat_policy=remat_policy, device=device)
+            checkpoint=checkpoint, remat_policy=remat_policy, device=device,
+            moe_experts=moe_experts, moe_top_k=moe_top_k,
+            moe_capacity_factor=moe_capacity_factor,
+            moe_aux_weight=moe_aux_weight)
         self.ln_post = LayerNorm(width, dtype=dtype, device=device)
         self.proj = nn.Parameter(torch.empty(width, embed_dim, device=device))
 

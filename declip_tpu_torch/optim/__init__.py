@@ -43,6 +43,13 @@ rules take them over each leaf's view of the port's tensors
 (``convert.jax_leaves``), and the factored second moment over the two
 largest axes of the leaf's JAX shape.
 
+Under FSDP or expert parallelism (``parallel/fsdp.py``) a rule updates
+this rank's parts of the sharded parameters: the elementwise rules as
+they are, the global norms over the shards (``Rule.plan``), LARS's trust
+ratio from each leaf's squares summed over the shards, and Adafactor's
+statistics on each leaf gathered whole (its factored moments stay
+replicated: they are a leaf's rows and columns).
+
 Each rule keeps its state in named slots of fp32 tensors (``OptState``:
 Adam's ``mu``/``nu``, SGD's and LARS's ``trace``, Adafactor's ``v_row``/
 ``v_col``/``v`` by leaf and ``momentum``), which checkpoints save and
@@ -127,9 +134,13 @@ class Rule:
     """The stages every rule shares (the module docstring's 1, 3, 4 and
     the pconfig decay of 2). A rule fills in ``_slots`` (its state) and
     ``_direction`` (its update before the lr); ``init`` makes the state and
-    ``update_`` advances it and the parameters in place."""
+    ``update_`` advances it and the parameters in place. ``plan``: the
+    shards of a run under FSDP or expert parallelism
+    (``parallel.fsdp.set_plan``), whose global norms count each shard
+    once and whose per-leaf statistics take the whole leaf."""
 
     coupled = True
+    plan = None
 
     def __init__(self, names: List[str], *, decays: Dict[float, List[str]],
                  grad_clip: Optional[Dict], logit_names: List[str],
@@ -156,10 +167,19 @@ class Rule:
         return OptState(count=0, slots=self._slots(params))
 
     # ------------------------------------------------------------- stages
+    def _norm(self, g: List[torch.Tensor]) -> Optional[float]:
+        """The global norm of ``g`` over the shards (None with no plan:
+        the clip computes it)."""
+        if not self.plan:
+            return None
+        return float(self.plan.global_norm(dict(zip(self.names, g))))
+
     def _clipped(self, g: List[torch.Tensor],
                  grad_norm: Optional[float]) -> List[torch.Tensor]:
         kind, limit = self.clip.get("type"), self.clip.get("value")
         if kind in ("norm", "value"):
+            if grad_norm is None and kind == "norm":
+                grad_norm = self._norm(g)
             g = _whole_model_clip(self.clip, g, grad_norm)
         elif kind == "logit_scale_grad":
             g = list(g)
@@ -170,7 +190,7 @@ class Rule:
             for i in self.logit_idx:
                 g[i] = torch.zeros_like(g[i])
         if self.max_norm is not None:
-            g = _clip_by_global_norm(g, self.max_norm, None)
+            g = _clip_by_global_norm(g, self.max_norm, self._norm(g))
         return g
 
     def _add_decay(self, u: List[torch.Tensor],
@@ -385,8 +405,13 @@ def _leaf_index(leaves, index):
     return [[index[n] for n in leaf.names] for leaf in leaves]
 
 
-def _sum_sq(ts: List[torch.Tensor]) -> torch.Tensor:
-    return torch.stack([torch.sum(torch.square(t)) for t in ts]).sum()
+def sum_squares(tensors) -> torch.Tensor:
+    """The fp32 sum of squares of every element, ``torch.sum`` a tensor
+    (accurate on the CPU, as ``global_norm`` says)."""
+    parts = [torch.sum(torch.square(t.float())) for t in tensors]
+    if not parts:
+        return torch.zeros(())
+    return torch.stack(parts).sum()
 
 
 class LarsRule(Rule):
@@ -407,11 +432,16 @@ class LarsRule(Rule):
     def _slots(self, params):
         return {"trace": _zeros(params, self.names)}
 
+    def _leaf_sum_sq(self, idx, ts) -> torch.Tensor:
+        if not self.plan:
+            return sum_squares([ts[i] for i in idx])
+        return self.plan.sum_squares({self.names[i]: ts[i] for i in idx})
+
     def _direction(self, g, p, state, step):
         u = list(g)
         for idx in self.leaf_idx:
-            p_norm = torch.sqrt(_sum_sq([p[i] for i in idx]))
-            u_norm = torch.sqrt(_sum_sq([g[i] for i in idx]))
+            p_norm = torch.sqrt(self._leaf_sum_sq(idx, p))
+            u_norm = torch.sqrt(self._leaf_sum_sq(idx, g))
             ratio = self.trust * p_norm / (u_norm + self.eps)
             ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                 torch.ones_like(ratio), ratio)
@@ -463,7 +493,18 @@ class AdafactorRule(Rule):
         self.dtype_momentum = dtype_momentum
 
     def _leaf_shape(self, leaf, params):
-        return tuple(leaf.to_jax([params[n] for n in leaf.names]).shape)
+        parts = [params[n] for n in leaf.names]
+        if self.plan:  # the whole leaf's shape, from its parts'
+            parts = [torch.empty(self.plan.full_shape(n, t), device="meta")
+                     for n, t in zip(leaf.names, parts)]
+        return tuple(leaf.to_jax(parts).shape)
+
+    def _whole(self, idx, ts) -> List[torch.Tensor]:
+        """The whole tensors of the leaf at ``idx`` (every rank of a
+        shard's group gathers it)."""
+        if not self.plan:
+            return [ts[i] for i in idx]
+        return [self.plan.full(self.names[i], ts[i]) for i in idx]
 
     def _slots(self, params):
         slots = {"v_row": {}, "v_col": {}, "v": {}}
@@ -507,17 +548,18 @@ class AdafactorRule(Rule):
         decay_t = (1.0 - t ** (-self.decay_rate)).to(g[0].device)
         u = list(g)
         for leaf, idx in zip(self.leaves, self.leaf_idx):
-            gj = leaf.to_jax([g[i] for i in idx])
+            gj = leaf.to_jax(self._whole(idx, g))
             x = self._factored_rms(leaf, gj, state, decay_t)
             if self.threshold is not None:
                 rms = torch.sqrt(torch.mean(x * x))
                 x = x / torch.clamp(rms / self.threshold, min=1.0)
             if self.param_scale:
-                pj = leaf.to_jax([p[i] for i in idx])
+                pj = leaf.to_jax(self._whole(idx, p))
                 rms = torch.sqrt(torch.mean(pj * pj))
                 x = x * torch.clamp(rms, min=1e-3)
             for i, part in zip(idx, leaf.from_jax(x)):
-                u[i] = part
+                u[i] = (self.plan.local(self.names[i], part) if self.plan
+                        else part)
         if self.momentum is not None:
             m = self.momentum
             for n, i in self.index.items():

@@ -9,14 +9,16 @@ all-reduce, misc.py:38-40). Each returns the one-process value unchanged
 without a group.
 
 Tensors: ``all_reduce_``, ``all_gather`` (rank order), ``reduce_scatter``
-(this rank's rows of the sum over ranks), ``broadcast_`` and ``shift``
+(this rank's rows of the sum over ranks), ``broadcast_``, ``shift``
 (the ring's hop: this rank's block to the next rank, the previous rank's
-block here; ``lax.ppermute`` in the JAX package). NCCL runs each natively.
+block here; ``lax.ppermute`` in the JAX package) and ``all_to_all``
+(equal chunks, chunk i to rank i: MoE's expert parallelism), with
+``AllToAll``, its differentiable form. NCCL runs each natively.
 Under gloo, ``reduce_scatter`` is an all-reduce and a slice. gloo takes
-CUDA tensors for every collective used here (two ranks on one H100,
-PERF.md), but PyTorch lists its point-to-point send and receive for CPU
-tensors only: ``shift`` stages a CUDA block through host memory under
-gloo, and nothing else here does.
+CUDA tensors for the collectives (two ranks on one H100, PERF.md), but
+PyTorch lists its point-to-point send and receive and its all-to-all for
+CPU tensors only: ``shift`` and ``all_to_all`` stage a CUDA block through
+host memory under gloo, and nothing else here does.
 """
 
 from __future__ import annotations
@@ -99,6 +101,35 @@ def shift(t: torch.Tensor, group: Group, step: int = 1) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out.to(t.device) if staged else out
+
+
+def all_to_all(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """``t`` [W*C, ...] cut into W equal chunks along dim 0, chunk i sent
+    to rank i of ``group``; -> [W*C, ...], chunk j the one rank j sent
+    here."""
+    import torch.distributed as dist
+
+    staged = group.backend == "gloo" and t.is_cuda
+    x = t.detach().contiguous()
+    if staged:
+        x = x.cpu()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group.pg)
+    return out.to(t.device) if staged else out
+
+
+class AllToAll(torch.autograd.Function):
+    """``all_to_all``, differentiable: its backward is the same exchange
+    of the gradient's chunks (the permutation is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(grad, ctx.group), None
 
 
 def barrier(group: Optional[Group] = None) -> None:

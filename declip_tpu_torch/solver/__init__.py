@@ -49,10 +49,15 @@ worker's), their key encoder and queue in the train state and the
 checkpoint; they have no text tower, so a config of theirs with a
 ``data.test`` entry raises, as zero-shot needs one (the JAX package has no
 SSL eval either).
-Not in the port yet, each raising when the Solver is built:
-``parallelism`` (TP/PP/EP/FSDP/SP, multi-slice; ROADMAP.md item 1.10),
-and the orbax backend and ``gs://`` saves (TPU/pod-only in the JAX
-package). The JAX package's compile cache has no counterpart here.
+``parallelism: {fsdp: true}`` shards every large parameter, its
+optimizer slots and its EMA over the data ranks (ZeRO-3,
+parallel/fsdp.py), and ``parallelism: {ep: N}`` places a MoE tower's
+experts on expert groups of N adjacent ranks (parallel/mesh.py); the
+checkpoints keep the world-1 format either way, so such a run resumes at
+any world. Not in the port yet, each raising when the Solver is built:
+the other ``parallelism`` keys (``tp``, ``sp``, ``pp``, ``slices``) and
+``{ep, fsdp}`` together (ROADMAP.md item 1.10), and the orbax backend
+and ``gs://`` saves (TPU/pod-only in the JAX package). The JAX package's compile cache has no counterpart here.
 
 The ``profile`` key (``enable``, ``start_step`` 10, ``num_steps`` 5) traces
 on rank 0 with ``torch.profiler`` (the CPU, and CUDA where the solver runs
@@ -116,6 +121,12 @@ from declip_tpu_torch.models.clip_model import l2_normalize
 from declip_tpu_torch.models.layers import discard_bn_stats
 from declip_tpu_torch.models.memory_bank import init_bank
 from declip_tpu_torch.models.ssl_builders import init_moco_state
+from declip_tpu_torch.parallel.fsdp import (
+    make_plan,
+    set_plan,
+    shard_train_state,
+)
+from declip_tpu_torch.parallel.mesh import bind_experts, make_mesh
 from declip_tpu_torch.ops.filip_late_interaction import (
     late_interaction_logits_kernel,
 )
@@ -182,14 +193,25 @@ class Solver:
             config = parse_config(config)
         self.config = config
         pcfg = dict(self.config.get("parallelism") or {})
-        if any(int(pcfg.get(k, 1) or 1) > 1
-               for k in ("tp", "pp", "ep", "slices")) \
-                or pcfg.get("fsdp") or pcfg.get("sp"):
-            raise _not_ported(f"parallelism {pcfg}", "1.10")
+        for key in ("tp", "pp", "slices"):
+            if int(pcfg.get(key, 1) or 1) > 1:
+                raise _not_ported(f"parallelism {key}: {pcfg[key]}",
+                                  "1.10")
+        if pcfg.get("sp"):
+            raise _not_ported("parallelism sp", "1.10")
+        ep = int(pcfg.get("ep", 1) or 1)
+        self.fsdp = bool(pcfg.get("fsdp", False))
+        if ep > 1 and self.fsdp:
+            raise _not_ported(
+                "parallelism {ep, fsdp} together (the JAX package composes "
+                "them through tp_fsdp_state_shardings)", "1.10")
         self.device = resolve_device(dist.init_distributed(device))
         self.rank, self.world = dist.rank(), dist.world()
         # the data-parallel group (None: one process without a launcher)
         self.group = dist.data_group()
+        # ep's expert groups (parallel/mesh.py); the batch shards over
+        # every rank, so ep does not divide the data ways
+        self.mesh = make_mesh(self.group, ep)
         self.data_ways = self.world
         self.setup_env()
         self.build_model()
@@ -247,8 +269,9 @@ class Solver:
         kwargs["dtype"] = prec
         # weights made on the CPU from a seed, then moved: one seed gives
         # the same weights on every device
-        self.model = model_entry({"type": mtype, "kwargs": kwargs},
-                                 data_group=self.group)
+        self.model = bind_experts(
+            model_entry({"type": mtype, "kwargs": kwargs},
+                        data_group=self.group), self.mesh)
         self.model.init_weights(torch.Generator().manual_seed(
             int(self.config.get_path("seed", 0))))
         self.model.to(self.device)
@@ -501,6 +524,17 @@ class Solver:
             self.logger.info(msg)
         # every rank starts from rank 0's weights, statistics and bank
         self.state = broadcast_state(state, self.group)
+        # FSDP and expert parallelism: each rank keeps its parts
+        plan = make_plan(self.model, self.group, fsdp=self.fsdp,
+                         mesh=self.mesh)
+        shard_train_state(self.state, plan, self.tx)
+        if plan:
+            held = plan.resident_bytes(self.state)
+            self.logger.info(
+                f"sharded {len(plan.shards)} parameters "
+                f"({'fsdp' if self.fsdp else 'ep'}); this rank holds "
+                + ", ".join(f"{k} {v / 2 ** 20:.1f} MiB"
+                            for k, v in held.items()))
 
     # ----------------------------------------------------------------- step
     def build_step(self):
@@ -632,7 +666,9 @@ class Solver:
 
                 if val_freq and step % val_freq == 0 and step > 0:
                     self.validate(step)
-                if save_freq and step % save_freq == 0 and self.rank == 0:
+                # a sharded state is gathered by every rank
+                if save_freq and step % save_freq == 0 and (
+                        self.rank == 0 or self.state.shards):
                     t_save = time.perf_counter()
                     keep = int(self.config.get_path("saver.keep", 10))
                     k_dir = (self.path.ckpt_k_times_path
@@ -642,8 +678,9 @@ class Solver:
                         save_many=save_many, k_times_dir=k_dir,
                         async_write=bool(self.config.get_path(
                             "saver.async_save", True)),
-                        meta=self._ckpt_meta())
-                    gc_checkpoints(self.path.ckpt_path, keep=keep)
+                        meta=self._ckpt_meta(), write=self.rank == 0)
+                    if self.rank == 0:
+                        gc_checkpoints(self.path.ckpt_path, keep=keep)
                     save_time += time.perf_counter() - t_save
 
                 stop = self._any_rank(preempt.is_set())
@@ -658,14 +695,14 @@ class Solver:
             if profiler is not None:  # the loop ended inside the window
                 self._stop_profiler(profiler)
 
-        if self.rank == 0:
+        if self.rank == 0 or self.state.shards:
             # drain in-flight async writes BEFORE the final synchronous
             # save (they share ckpt_meta.json; last writer must be the
             # newest)
             wait_for_pending_saves()
             t0 = time.perf_counter()
             save_checkpoint(self.path.ckpt_path, self.state, save_many=True,
-                            meta=self._ckpt_meta())
+                            meta=self._ckpt_meta(), write=self.rank == 0)
             self.save_seconds.append(time.perf_counter() - t0)
         # no rank reads the checkpoint back before it has landed
         comms.barrier(self.group)
@@ -830,6 +867,7 @@ class Solver:
         restore_checkpoint(target[1], self.state)
         # the update rule binds the schedule: rebuild it
         self.tx = self._make_tx()
+        set_plan(self.tx, self.state.shards)
         if bool(self.config.get_path("saver.rollback_reset_opt", False)):
             # reference-exact mode (declip_solver.py:600-607): a fresh
             # optimizer, with the rebuilt schedule still evaluated at the
@@ -844,7 +882,8 @@ class Solver:
     @contextlib.contextmanager
     def _eval_mode(self, use_ema: bool = False):
         """The model in eval mode (running BatchNorm statistics), with the
-        EMA weights swapped in under ``use_ema``; afterwards the weights are
+        EMA weights swapped in under ``use_ema`` and the shards of FSDP or
+        expert parallelism gathered whole; afterwards the weights are
         put back bit for bit, no BatchNorm statistic is left pending, and
         the mode is what it was."""
         model = self.model
@@ -858,8 +897,11 @@ class Solver:
                 for n, t in self.state.ema_params.items():
                     params[n].copy_(t)
         model.eval()
+        plan = self.state.shards
         try:
-            with torch.no_grad():
+            with torch.no_grad(), (
+                    plan.gathered(("fsdp", "expert"), differentiable=False)
+                    if plan else contextlib.nullcontext()):
                 yield model
         finally:
             if saved is not None:

@@ -7,12 +7,14 @@ optimizer state, the EMA shadow, the EMA_logit_scale guard's buffers
 (declip_solver.py:64-86), DeCLIP's NN text bank and MoCo's and CLSA's
 key encoder and queue (``ssl``, models/ssl_builders.py). BatchNorm running
 statistics (the JAX package's ``batch_stats``) are the model's buffers.
+Under FSDP or expert parallelism the parameters, slots and EMA of
+``shards`` are this rank's parts (parallel/fsdp.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -35,6 +37,9 @@ class TrainState:
     bank_text: Optional[BankState] = None
     # MoCo's and CLSA's momentum encoder and negatives queue
     ssl: Optional[MoCoState] = None
+    # the parameters this rank holds a part of (FSDP, expert
+    # parallelism): a parallel.fsdp.ShardPlan, set by shard_train_state
+    shards: Optional[Any] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:

@@ -43,6 +43,18 @@ update. BatchNorm leaves its new statistics pending through the forward
 same read gives the norm clip its norm. The step puts the model in training
 mode, as the JAX step applies it with ``train=True``.
 
+MoE towers (models/layers.py ``MoeMlpBlock``; train_step.py:142-149,
+196-235 of the JAX package): the towers' training forwards leave their
+aux loss on the model, and the step adds it to the loss and reports it
+as ``moe_aux_loss``.
+
+FSDP and expert parallelism (``state.shards``, parallel/fsdp.py): the
+forward and backward run with the sharded parameters gathered whole,
+each shard's gradient is the mean of the global batch's from the
+gather's reduce-scatter, and the global norm counts each shard once
+(``mean_grads``); MoCo's momentum update reads the whole parameters,
+and its key encoder stays whole.
+
 Data parallelism (``axis_name``, the data group): each rank runs the step
 on its own rows of the global batch, with every global-batch loss term
 over gathered features (method_losses.py). After the backward the
@@ -71,6 +83,7 @@ package's tags, ``grad_norm/<module>`` (train_step.py:357-361 there).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -85,6 +98,7 @@ from declip_tpu_torch.models.layers import (
     BatchNorm,
     commit_bn_stats,
     discard_bn_stats,
+    pop_moe_aux,
 )
 from declip_tpu_torch.models.memory_bank import enqueue, query_topk
 from declip_tpu_torch.models.slip_model import SLIP
@@ -236,13 +250,26 @@ def make_loss_fn(cfg: Dict, method: str = "clip",
                  total_steps: int = 1) -> Callable:
     """``loss_fn(model, state, batch) -> (loss, metrics)`` for ``method``
     (MoCo's and CLSA's keys from ``state.ssl``'s key encoder as it
-    stands)."""
+    stands; a MoE tower's aux loss added, as the step adds it)."""
     from_out = make_losses_from_out(cfg, method, axis_name, total_steps)
 
     def loss_fn(model, state: Optional[TrainState], batch):
-        return from_out(model, state, forward(model, state, batch, method))
+        pop_moe_aux(model)
+        out = forward(model, state, batch, method)
+        return with_moe_aux(model, *from_out(model, state, out))
 
     return loss_fn
+
+
+def with_moe_aux(model, total, metrics):
+    """The loss with the aux loss of the MoE towers' training forwards
+    added and reported as ``moe_aux_loss`` (train_step.py:196-198 of the
+    JAX package; ``loss`` stays the method's, as there)."""
+    aux = pop_moe_aux(model)
+    if aux is None:
+        return total, metrics
+    metrics = dict(metrics, moe_aux_loss=aux)
+    return total + aux, metrics
 
 
 def forward(model, state: Optional[TrainState], batch, method: str):
@@ -254,16 +281,18 @@ def forward(model, state: Optional[TrainState], batch, method: str):
     return out
 
 
-def grad_norms_by_module(grads: Dict[str, torch.Tensor]
+def grad_norms_by_module(grads: Dict[str, torch.Tensor], plan=None
                          ) -> Dict[str, torch.Tensor]:
     """``check_grad``'s metrics: ``grad_norm/<module>`` for each top-level
     entry of the parameter tree, under the JAX package's names (device
-    scalars)."""
-    groups: Dict[str, list] = {}
+    scalars; over the shards of ``plan``)."""
+    groups: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, g in grads.items():
         top = name.split(".", 1)[0]
-        groups.setdefault(_JAX_TOP.get(top, top), []).append(g)
-    return {f"grad_norm/{top}": global_norm(gs) for top, gs in groups.items()}
+        groups.setdefault(_JAX_TOP.get(top, top), {})[name] = g
+    return {f"grad_norm/{top}": (plan.global_norm(gs) if plan
+                                 else global_norm(list(gs.values())))
+            for top, gs in groups.items()}
 
 
 # the gradient all-reduce's bucket: about 100 MB of fp32
@@ -294,6 +323,34 @@ def mean_over_ranks(tensors: Dict[str, torch.Tensor], group
     if bucket:
         reduce(bucket)
     return out
+
+
+def mean_grads(grads: Dict[str, torch.Tensor], group, plan=None
+               ) -> Dict[str, torch.Tensor]:
+    """The gradient of the global batch's loss from each rank's: the mean
+    over ``group`` of the replicated parameters' (``mean_over_ranks``);
+    an FSDP shard's gradient, which the gather's backward summed over the
+    ranks already, over the world size; an expert shard's summed over
+    the ranks that hold the same experts (its owner's gradient took its
+    expert group's tokens), over the world size (parallel/fsdp.py)."""
+    if not plan:
+        return mean_over_ranks(grads, group)
+    out = mean_over_ranks({n: g for n, g in grads.items()
+                           if n not in plan.shards}, group)
+    for n, shard in plan.shards.items():
+        g = grads[n]
+        if shard.kind == "expert" and shard.replicas is not None:
+            g = comms.all_reduce_(g.contiguous(), shard.replicas)
+        out[n] = g / group.size
+    return {n: out[n] for n in grads}
+
+
+def gathered(plan, differentiable: bool = True):
+    """``plan.gathered`` for the step's forward and backward, a null
+    context without a plan."""
+    if not plan:
+        return contextlib.nullcontext()
+    return plan.gathered(differentiable=differentiable)
 
 
 def rank_seed(seed: int, axis_name) -> int:
@@ -387,7 +444,9 @@ def make_train_step(model, tx, cfg: Dict, schedule: Callable, *,
         if not model.training:
             model.train()
         params = state.params
+        plan = state.shards
         discard_bn_stats(model)  # statistics of a forward outside a step
+        pop_moe_aux(model)  # and aux losses
         if moco:
             if state.ssl is None:
                 raise ValueError(
@@ -396,29 +455,33 @@ def make_train_step(model, tx, cfg: Dict, schedule: Callable, *,
                     f"init_moco_state(...))")
             discard_bn_stats(state.ssl.key_model)
             # from the parameters before this step's update
-            # (moco_builder.py:50-53)
-            old_keys = momentum_update(state.ssl, model, float(model.m))
-        if gc_chunks > 1:
-            total, metrics, out, grads = cached_value_and_grad(
-                model, from_out, state, batch, gc_chunks, params)
-            grads = [grads[n] for n in params]
-        else:
-            out = forward(model, state, batch, method)
-            total, metrics = from_out(model, state, out)
-            grads = torch.autograd.grad(total, list(params.values()),
-                                        allow_unused=True)
+            # (moco_builder.py:50-53); the key encoder stays whole
+            with gathered(plan, differentiable=False):
+                old_keys = momentum_update(state.ssl, model, float(model.m))
+        with gathered(plan):
+            if gc_chunks > 1:
+                total, metrics, out, grads = cached_value_and_grad(
+                    model, from_out, state, batch, gc_chunks, params)
+                grads = [grads[n] for n in params]
+            else:
+                out = forward(model, state, batch, method)
+                total, metrics = with_moe_aux(
+                    model, *from_out(model, state, out))
+                grads = torch.autograd.grad(total, list(params.values()),
+                                            allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient: it
         # still decays, as under optax
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(params.items(), grads)}
         metrics = {k: v.detach() for k, v in metrics.items()}
         if axis_name is not None:
-            grads = mean_over_ranks(grads, axis_name)
+            grads = mean_grads(grads, axis_name, plan)
             keys = list(metrics)
             reduced = torch.stack([metrics[k].float() for k in keys])
             comms.all_reduce_(reduced, axis_name, op="mean")
             metrics = dict(zip(keys, reduced.unbind()))
-        grad_norm = global_norm(list(grads.values()))
+        grad_norm = (plan.global_norm(grads) if plan
+                     else global_norm(list(grads.values())))
         # the one host read of the step
         loss_v, norm_v = torch.stack(
             [metrics["loss"].float(), grad_norm]).tolist()
@@ -455,7 +518,7 @@ def make_train_step(model, tx, cfg: Dict, schedule: Callable, *,
         metrics["grad_norm"] = grad_norm
         metrics["update_skipped"] = 0.0 if finite else 1.0
         if check_grad:
-            metrics.update(grad_norms_by_module(grads))
+            metrics.update(grad_norms_by_module(grads, plan))
         if state.logit_clip_count is not None:
             metrics["logit_clip_count"] = state.logit_clip_count
         state.step += 1

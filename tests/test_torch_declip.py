@@ -572,16 +572,18 @@ def _unported(kind):
     elif kind == "hf_text":
         kw["text_encode"]["text_encode_type"] = "Bert"
     elif kind == "moe":
-        kw["text_encode"]["moe"] = {"num_experts": 4}
+        kw["image_encode"]["moe"] = {"num_experts": 4}
     model_entry(cfg)
 
 
 @pytest.mark.parametrize("kind,error,match", [
     ("hf_text", FileNotFoundError, "needs local pretrained files"),
-    ("moe", NotImplementedError, "ROADMAP.md item 1.10")])
+    ("moe", TypeError, "moe_experts")])
 def test_unported_variants_raise(kind, error, match, monkeypatch):
-    """MoE towers are not ported; a Bert text tower is (models/hf_text.py),
-    and without local weights it raises as the JAX package's does."""
+    """A MoE ResNet tower fails loudly, as in the JAX package (an unknown
+    kwarg; the transformer towers take MoE: tests/test_torch_moe.py); a
+    Bert text tower is ported (models/hf_text.py), and without local
+    weights it raises as the JAX package's does."""
     monkeypatch.delenv("DECLIP_HF_TEXT_PATH", raising=False)
     with pytest.raises(error, match=match):
         _unported(kind)

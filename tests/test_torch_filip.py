@@ -160,18 +160,18 @@ def test_forward_and_losses_match_jax(jax_init):
 
 @pytest.mark.parametrize("kind", ["moe"])
 def test_unported_variants_raise(kind):
-    """What the port does not train yet raises at construction: MoE
-    towers. (filip_res50 builds: tests/test_torch_resnet.py; a SigLIP
-    logit bias builds and trains since the sigmoid loss is ported:
-    tests/test_torch_loss_impl.py.)"""
-    cfg = {"type": MODEL_CFG["type"], "kwargs": dict(MODEL_CFG["kwargs"])}
-    if kind == "logit_bias":
-        cfg["kwargs"]["clip"] = {**cfg["kwargs"]["clip"],
-                                 "logit_bias_init": -10.0}
-    else:
-        cfg["kwargs"]["text_encode"] = {**cfg["kwargs"]["text_encode"],
-                                        "moe": {"num_experts": 4}}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1"):
+    """What no package trains raises at construction: a MoE ResNet tower,
+    an unknown kwarg as in the JAX package. (The transformer towers take
+    MoE: tests/test_torch_moe.py; filip_res50 builds:
+    tests/test_torch_resnet.py; a SigLIP logit bias builds and trains
+    since the sigmoid loss is ported: tests/test_torch_loss_impl.py.)"""
+    image = {"embed_dim": 64, "layers": (1, 1, 1, 1), "width": 8,
+             "heads": 4, "input_resolution": 64}
+    if kind == "moe":
+        image["moe"] = {"num_experts": 4}
+    cfg = {"type": "filip_res50",
+           "kwargs": {**MODEL_CFG["kwargs"], "image_encode": image}}
+    with pytest.raises(TypeError, match="moe_experts"):
         model_entry(cfg)
 
 

@@ -127,14 +127,33 @@ def trajectory(spec, group):
     """``make_train_step`` over ``group`` for spec["steps"] steps on this
     rank's rows of spec["batch"], from spec["state"]: -> each step's
     metrics, and the state dict, EMA, bank,
-    pointer and guard buffer at the end."""
+    pointer and guard buffer at the end. With spec["fsdp"] or
+    spec["ep"] > 1 the state is sharded (FSDP over parameters of at
+    least spec["min_size"] elements; expert groups of ep ranks), the
+    state dict and EMA are the whole tensors (``state_to_host``), and
+    "counts" has this rank's element count of each parameter; with
+    spec["resume"] the state starts from that checkpoint, and with
+    spec["ckpt"] a checkpoint is saved there after step
+    spec["ckpt_step"]."""
+    from declip_tpu_torch.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+        state_to_host,
+    )
     from declip_tpu_torch.convert import bank_from_jax
     from declip_tpu_torch.models import model_entry
+    from declip_tpu_torch.models.layers import MoeMlpBlock
     from declip_tpu_torch.optim import (
         optim_entry,
         path_prefix_mask,
         scheduler_entry,
     )
+    from declip_tpu_torch.parallel.fsdp import (
+        MIN_SHARD_SIZE,
+        make_plan,
+        shard_train_state,
+    )
+    from declip_tpu_torch.parallel.mesh import bind_experts, make_mesh
     from declip_tpu_torch.train import (
         EmaConfig,
         init_ema,
@@ -142,7 +161,8 @@ def trajectory(spec, group):
         new_train_state,
     )
 
-    model = model_entry(spec["model"], data_group=group)
+    mesh = make_mesh(group, spec.get("ep", 1))
+    model = bind_experts(model_entry(spec["model"], data_group=group), mesh)
     model.load_state_dict({k: torch.from_numpy(v)
                            for k, v in spec["state"].items()}, strict=True)
     model.train()
@@ -159,17 +179,29 @@ def trajectory(spec, group):
         ema_params=init_ema(named, ema) if ema else None,
         with_logit_guard=grad_clip["type"] == "logit_scale_param_ema",
         bank_text=None if bank is None else bank_from_jax(*bank))
+    shard_train_state(state, make_plan(
+        model, group, fsdp=spec.get("fsdp", False), mesh=mesh,
+        min_size=spec.get("min_size", MIN_SHARD_SIZE)), tx)
+    if spec.get("resume"):  # each rank cuts its parts of the whole file
+        restore_checkpoint(spec["resume"], state)
+    counts = {n: p.numel() for n, p in model.named_parameters()}
     step = make_train_step(model, tx, spec["loss_cfg"], sched, ema_cfg=ema,
                            total_steps=spec["max_iter"], axis_name=group)
     batch = _tensors({k: _rows(v, group) for k, v in spec["batch"].items()})
     hist = []
-    for _ in range(spec["steps"]):
+    for i in range(spec["steps"]):
         state, metrics = step(state, batch)
         hist.append({k: float(v) for k, v in metrics.items()})
-    return {"hist": hist,
-            "state": {k: _np(v) for k, v in model.state_dict().items()},
+        if spec.get("ckpt") and i + 1 == spec["ckpt_step"]:
+            save_checkpoint(spec["ckpt"], state,
+                            write=group is None or group.rank == 0)
+    host = state_to_host(state)
+    return {"hist": hist, "counts": counts,
+            "kept": [m.kept.tolist() for m in model.modules()
+                     if isinstance(m, MoeMlpBlock)],
+            "state": {k: v.numpy() for k, v in host["model"].items()},
             "ema": None if ema is None else {
-                k: _np(v) for k, v in state.ema_params.items()},
+                k: v.numpy() for k, v in host["ema"].items()},
             "bank": None if bank is None else _np(state.bank_text.bank),
             "ptr": None if bank is None else state.bank_text.ptr,
             "guard": None if state.logit_ema_buffer is None
@@ -304,26 +336,34 @@ def run_solver(cfg_path, sets, device="cpu"):
         key, _, value = kv.partition("=")
         cfg = override(cfg, key, json.loads(value))
     cfg["_config_path"] = os.path.abspath(cfg_path)
+    from declip_tpu_torch.checkpoint import state_to_host
+
     solver = Solver(cfg, device=device)
-    start = {k: _np(v) for k, v in solver.model.state_dict().items()}
+    # whole tensors where the state is sharded (every rank gathers)
+    start = {k: v.numpy() for k, v in
+             state_to_host(solver.state)["model"].items()}
     with FedInputs(solver):
         solver.train()
-    losses, lrs, evals = {}, {}, {}
+    losses, lrs, evals, scalars = {}, {}, {}, {}
     events = os.path.join(os.path.dirname(cfg_path), "events",
                           "scalars.jsonl")
     if solver.rank == 0:
         with open(events) as f:
             for line in f:
                 row = json.loads(line)
+                scalars.setdefault(row["tag"], {})[row["step"]] = \
+                    row["value"]
                 if row["tag"] in ("loss", "lr"):
                     (losses if row["tag"] == "loss" else lrs)[
                         row["step"]] = row["value"]
                 elif row["tag"].startswith("eval0/"):
                     evals[row["tag"][len("eval0/"):]] = row["value"]
     return {"losses": losses, "lr": lrs, "eval": evals, "start": start,
-            "rank": solver.rank,
-            "state": {k: _np(v) for k, v in
-                      solver.model.state_dict().items()}}
+            "rank": solver.rank, "scalars": scalars,
+            "held": (solver.state.shards.resident_bytes(solver.state)
+                     if solver.state.shards else None),
+            "state": {k: v.numpy() for k, v in
+                      state_to_host(solver.state)["model"].items()}}
 
 
 def preempted_solver(cfg_path, sets):
@@ -383,6 +423,20 @@ def run(rank, spec):
            "ssl": ssl_trajectory(spec["ssl"], group)}
     out["solver"] = run_solver(*spec["solver"])
     out["preempted"] = preempted_solver(*spec["preempted"])
+    return out
+
+
+def run_sharded(rank, spec):
+    """tests/test_torch_fsdp_ep.py's cases on this rank -> {case:
+    result}: each step case through ``trajectory``, then the solver
+    runs."""
+    torch.set_num_threads(1)
+    init_distributed("cpu", timeout_s=60)
+    group = data_group()
+    out = {"steps": {name: trajectory(s, group)
+                     for name, s in spec["steps"].items()}}
+    out["solver"] = {name: run_solver(*args)
+                     for name, args in spec["solver"].items()}
     return out
 
 
